@@ -1,23 +1,33 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch + CUDA port's witness-commit path on one GPU.
+"""Drive the PyTorch + CUDA port's commit, evaluation, opening and
+verification path on one GPU.
 
     python3 chip_smoke.py
 
 Phases, each fatal on failure:
   1. build the CUDA kernels of proof_systems_tpu_torch/csrc (nvcc, sm_90a)
-     and the native host MSM; print build times and ptxas register/spill
-     lines (the full ptxas log goes to build/kernels/<hash>/ptxas.log);
+     and the native host library (MSM, Poseidon); print build times and
+     ptxas register/spill lines (the full ptxas log goes to
+     build/kernels/<hash>/ptxas.log);
   2. print the card;
   3. warm-up run of the main path, recording every kernel's largest call;
      then each kernel against its plain PyTorch version on those inputs and
-     on edge cases (field kernels exact, curve kernels as group elements),
-     with the kernel's and the plain version's times;
+     on edge cases (field and transcript kernels and K8 exact, the other
+     curve kernels as group elements), with the kernel's and the plain
+     version's times;
   4. the main path at k = 16 on Vesta, with launch counts zeroed just
      before and read just after: SRS.create(2^16), the scaled basis of
      g ++ [h], iNTT of 15 random witness columns, their 15 hiding commits
-     and one b = 1 commit; then its steady-state stage times;
+     and one b = 1 commit; the 16 polynomials evaluated at zeta and
+     zeta*omega (eval_at2), opened together (ipa.open_proof: 5 fold steps,
+     11 masked rounds at 2048 points) and the opening verified
+     (ipa.verify_batch); then the launches of one opening and of one
+     verification, and the steady-state stage times;
   5. every commitment against the native host MSM over g ++ [h], the iNTT
-     against the CPU plain path, and one b = 1 MSM at c = 10;
+     against the CPU plain path, one b = 1 MSM at c = 10; the evaluations
+     against host Horner; every round's L and R, sg, a0 and b0 against the
+     host's masked-scalar rounds over the original basis (native MSM); the
+     verifier's rejection of z1 + 1 and of a changed evaluation;
   6. the kernels' JSON line, the card line, and the result line.
 
 Exits non-zero without a CUDA device. Imports nothing of JAX.
@@ -59,7 +69,13 @@ SOURCES = {
     "mont_prefix_scan": (FIELD_CU, 1019),
     "ec_prefix_scan_parts": (CURVE_CU, 1333),
     "ec_prefix_scan_fused": (CURVE_CU, 1410),
+    "combine_windows": (CURVE_CU, 560),
+    "sponge_squeeze2": (FIELD_CU, 646),
+    "endo_inv": (FIELD_CU, 742),
 }
+# The call of a kernel reported in the JSON line where the main path makes
+# two kinds (the others are printed): K6's mixed bucket scan.
+JSON_KEY = {"ec_prefix_scan_parts": "ec_prefix_scan_parts[mixed]"}
 
 
 def log(msg: str) -> None:
@@ -104,7 +120,8 @@ def wall(fn, device):
 
 class Recorder:
     """Wraps the kernel wrappers in ops.kernels and keeps, per kernel (and
-    per K6 variant), a copy of the inputs of its largest call."""
+    per K6 variant, and each b = 1 window size of K8 apart), a copy of the
+    inputs of its largest call."""
 
     def __init__(self, kernels) -> None:
         self.kernels = kernels
@@ -124,6 +141,8 @@ class Recorder:
     def _spy(self, name, fn):
         def wrapper(*args, **kw):
             key = name + ("[mixed]" if kw.get("mixed") else "")
+            if name == "combine_windows" and args[2].shape[2] == 1:
+                key += f"[b=1,c={args[1]}]"  # single chains: sg, the verifier
             size = sum(a.numel() for a in args if torch.is_tensor(a))
             if size > self.calls.get(key, (0,))[0]:
                 copy = [a.clone() if torch.is_tensor(a) else a for a in args]
@@ -131,6 +150,44 @@ class Recorder:
             return fn(*args, **kw)
 
         return wrapper
+
+
+class OpenClock:
+    """Wraps the IPA's fold step and masked tail with CUDA events, so that
+    an opening splits into fold steps, tail and the rest (host work and the
+    device work around the rounds)."""
+
+    def __init__(self, ipa) -> None:
+        self.ipa = ipa
+        self.events: list[tuple[str, torch.cuda.Event, torch.cuda.Event]] = []
+
+    def __enter__(self):
+        self.saved = (self.ipa._ipa_fold_step, self.ipa._ipa_tail_rounds)
+        self.ipa._ipa_fold_step = self._timed("fold", self.saved[0])
+        self.ipa._ipa_tail_rounds = self._timed("tail", self.saved[1])
+        return self
+
+    def __exit__(self, *exc):
+        self.ipa._ipa_fold_step, self.ipa._ipa_tail_rounds = self.saved
+
+    def _timed(self, stage, fn):
+        def wrapper(*args, **kw):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(*args, **kw)
+            end.record()
+            self.events.append((stage, start, end))
+            return out
+
+        return wrapper
+
+    def totals(self) -> dict[str, float]:
+        torch.cuda.synchronize()
+        out = {"fold": 0.0, "tail": 0.0}
+        for stage, start, end in self.events:
+            out[stage] += start.elapsed_time(end)
+        return out
 
 
 # ---------------------------------------------------------------------------
@@ -169,6 +226,8 @@ def point_err(F, p, q) -> int:
 def outputs_err(name: str, F, got, want) -> int:
     if name in ("mont_mul", "mont_pow", "mont_prefix_scan"):
         return field_err(got, want)
+    if name in ("combine_windows", "sponge_squeeze2", "endo_inv"):  # limb for limb
+        return max(field_err(a, b) for a, b in zip(got, want))
     if name == "ec_prefix_scan_parts":
         (gp, ge, gc), (wp, we, wc) = got, want
         if gc != wc:
@@ -185,7 +244,17 @@ def bound_ms(name: str, args, kw) -> tuple[float, str]:
     elems = t[0][0].numel()
     fe = 32  # bytes per field element
     hs = PRODUCTS["add"] * 128 * 7  # Hillis-Steele adds of one row
-    if name == "mont_mul":
+    if name == "combine_windows":  # W windows x b columns in, b out
+        c, (W, b) = args[1], t[0].shape[1:]
+        nbytes = 3 * fe * (W * b + b)
+        products = W * b * (c * PRODUCTS["dbl"] + PRODUCTS["add"])
+    elif name == "sponge_squeeze2":  # 2 permutations: sbox 4, MDS 9 a round
+        nbytes = fe * sum(a[0].numel() for a in t) + fe * 4
+        products = 2 * args[1] * (3 * 4 + 9) + 1
+    elif name == "endo_inv":  # u = a*endo + b, then u^(p-2)
+        digits = ((args[0].p - 2).bit_length() + 3) // 4
+        nbytes, products = 4 * 128 + 2 * fe, 1 + 14 + 5 * digits
+    elif name == "mont_mul":
         nbytes, products = 3 * fe * elems, elems
     elif name == "mont_pow":
         nd = (args[2].bit_length() + 3) // 4
@@ -215,7 +284,9 @@ def bound_ms(name: str, args, kw) -> tuple[float, str]:
 def edge_cases(device, curve_params):
     """Small inputs with the special values: 0, 1, p-1, 2^254-1 for the
     field kernels; P+P, P+(-P), infinity on either side for the curve
-    kernels; identities inside a scan row of length 300."""
+    kernels; identities inside a scan row of length 300; an infinity
+    window partial for K8; L at infinity, (0, 0), for K10; all-zero and
+    all-one challenge bits for K11."""
     from proof_systems_tpu_torch.fields import Fp, Fq
     from proof_systems_tpu_torch.ops import limb
     from proof_systems_tpu_torch.ops.curve_ops import device_curve
@@ -255,6 +326,26 @@ def edge_cases(device, curve_params):
         ("ec_prefix_scan_fused", [dc.F, *row], {}),
     ]
     want_add = [curve_params.add(p, q) for p, q in zip(pts, qs)]
+
+    from proof_systems_tpu_torch.poseidon import fq_kimchi
+    from proof_systems_tpu_torch.ops import kernels
+
+    wins = [t[:, :48].reshape(8, 24, 2).contiguous() for t in dc.double(P)]  # pts[2] is infinity
+    Fb = limb.device_field(fq_kimchi.field)
+    state = Fb.pack_mont([rng.randrange(Fb.p) for _ in range(3)], device=device)
+    xs = Fb.pack_mont([0, qs[5][0]], device=device)
+    ys = Fb.pack_mont([0, qs[5][1]], device=device)
+    Fs = limb.device_field(curve_params.scalar)
+    endo_r = curve_params.endos[1]
+    cases += [
+        ("combine_windows", [dc.F, 11, *wins], {}),
+        ("combine_windows", [dc.F, 2, *(w[:, :3].contiguous() for w in wins)], {}),
+        ("sponge_squeeze2", [Fb, fq_kimchi.rounds_full, state, xs, ys,
+                             kernels.sponge_consts(fq_kimchi, device)], {}),
+    ] + [
+        ("endo_inv", [Fs, endo_r, torch.tensor(bits, dtype=torch.int32, device=device)], {})
+        for bits in ([0] * 128, [1] * 128, [rng.randrange(2) for _ in range(128)])
+    ]
     return cases, (dc, P, Q, want_add)
 
 
@@ -286,15 +377,14 @@ def check_kernels(kernels, recorded, device, curve_params) -> list[dict]:
         reps = int(min(50, max(3, 200 / max(once, 1e-3))))
         ms = elapsed_ms(lambda: kern(*args, **kw), device, reps)
         b_ms, b_by = bound_ms(name, args, kw)
-        shape = "x".join(str(s) for s in args[1].shape)
+        shape = "x".join(str(s) for s in next(a for a in args if torch.is_tensor(a)).shape)
         log(f"kernel {key:28s} shape {shape:22s} {ms:10.4f} ms  plain {plain_s * 1e3:10.1f} ms  "
-            f"bound {b_ms:.4f} ms ({b_by})  max_abs_err {err}")
+            f"bound {b_ms:.3g} ms ({b_by})  max_abs_err {err}")
         row = {"name": name, "route": "cuda", "source": SOURCES[name][0],
                "replaces": f"{PALLAS}:{SOURCES[name][1]}", "launches": 0, "max_abs_err": err,
                "ms": ms, "plain_ms": plain_s * 1e3, "bound_ms": b_ms, "bound_by": b_by,
                "library_ms": None}
-        # K6 reports its main-path (mixed) call; the other variant is printed
-        if name not in rows or key.endswith("[mixed]"):
+        if key == JSON_KEY.get(name, name):
             rows[name] = row
     missing = set(kernels.WRAPPERS) - set(rows)
     if missing:
@@ -339,9 +429,85 @@ def main_path(log_n: int, device, cache_dir=None):
     z_coeffs = limb.to_mont(F, random_std_limbs(Fp.p, (1, n), SEED + 2, device))
     z_blinder = [[rng.randrange(Fp.p)]]
     z_comm, times["commit1_s"] = wall(lambda: srs.commit_coeffs_dev(z_coeffs, 1, z_blinder), device)
-    return dict(srs=srs, c=c, plan=plan, F=F, w_evals=w_evals, w_coeffs=w_coeffs,
-                blinders=blinders, comms=comms, z_coeffs=z_coeffs, z_blinder=z_blinder,
-                z_comm=z_comm, times=times)
+    run = dict(srs=srs, c=c, plan=plan, F=F, w_evals=w_evals, w_coeffs=w_coeffs,
+               blinders=blinders, comms=comms, z_coeffs=z_coeffs, z_blinder=z_blinder,
+               z_comm=z_comm, times=times)
+    run.update(open_and_verify(run, log_n, device))
+    return run
+
+
+def ipa_inputs(log_n: int) -> dict:
+    """The evaluation points (zeta, zeta*omega), polyscale and evalscale."""
+    from proof_systems_tpu_torch.fields import Fp
+
+    rng = random.Random(SEED + 5)
+    zeta = rng.randrange(Fp.p)
+    return dict(elm=[zeta, zeta * Fp.root_of_unity(log_n) % Fp.p],
+                polyscale=rng.randrange(Fp.p), evalscale=rng.randrange(Fp.p))
+
+
+def batch_of(run, proof, evals=None, cip=None) -> list:
+    """The one-proof batch of verify_batch, with a fresh transcript."""
+    from proof_systems_tpu_torch.curves import Vesta
+    from proof_systems_tpu_torch.poly_commitment import ipa
+    from proof_systems_tpu_torch.poseidon import FqSponge, fq_kimchi
+
+    evals = run["evals"] if evals is None else evals
+    return [ipa.BatchEvaluationProof(
+        sponge=FqSponge(fq_kimchi, Vesta),
+        evaluations=[ipa.Evaluation(c, e) for c, e in zip(run["all_comms"], evals)],
+        evaluation_points=run["elm"], polyscale=run["polyscale"], evalscale=run["evalscale"],
+        opening=proof, combined_inner_product=run["cip"] if cip is None else cip,
+    )]
+
+
+def open_proof(run):
+    from proof_systems_tpu_torch.curves import Vesta
+    from proof_systems_tpu_torch.poly_commitment import ipa
+    from proof_systems_tpu_torch.poseidon import FqSponge, fq_kimchi
+    from proof_systems_tpu_torch.utils.rng import TestRng
+
+    return ipa.open_proof(run["srs"], run["plnms"], run["elm"], run["polyscale"],
+                          run["evalscale"], FqSponge(fq_kimchi, Vesta), TestRng(SEED))
+
+
+def verify(run, proof, evals=None, cip=None, seed=SEED + 1) -> bool:
+    from proof_systems_tpu_torch.poly_commitment import ipa
+    from proof_systems_tpu_torch.utils.rng import TestRng
+
+    return ipa.verify_batch(run["srs"], batch_of(run, proof, evals, cip), TestRng(seed))
+
+
+def evaluate(run):
+    from proof_systems_tpu_torch.ops import poly
+
+    F, n, dev = run["F"], len(run["srs"]), run["coeffs"].device
+    za, zb = (poly.powers_dev(F, x, n, device=dev) for x in run["elm"])
+    return poly.eval_at2(F, run["coeffs"], za, zb)
+
+
+def open_and_verify(run, log_n: int, device) -> dict:
+    """The 16 committed polynomials (15 witness columns and the z-shaped
+    b = 1 one) evaluated at zeta and zeta*omega, opened with a fresh Fq
+    transcript and verified, through the port's entry points."""
+    from proof_systems_tpu_torch.fields import Fp
+    from proof_systems_tpu_torch.poly_commitment.commitment import combined_inner_product
+
+    times = run["times"]
+    out = ipa_inputs(log_n)
+    out["coeffs"] = torch.cat([run["w_coeffs"], run["z_coeffs"]], dim=1)
+    out["all_comms"] = run["comms"] + run["z_comm"]
+    blinders = run["blinders"] + run["z_blinder"]
+    out["plnms"] = [(out["coeffs"][:, i], blinders[i]) for i in range(len(blinders))]
+    (ev_a, ev_b), times["eval2_s"] = wall(lambda: evaluate({**run, **out}), device)
+    out["evals"] = [[[a], [b]] for a, b in zip(ev_a, ev_b)]
+    out["cip"] = combined_inner_product(Fp, out["polyscale"], out["evalscale"], out["evals"])
+    both = {**run, **out}
+    out["proof"], times["open_s"] = wall(lambda: open_proof(both), device)
+    ok, times["verify_s"] = wall(lambda: verify(both, out["proof"]), device)
+    if not ok:
+        raise AssertionError("verify_batch on the card rejected the honest opening")
+    return out
 
 
 def steady_times(run, device, reps: int = 3) -> dict:
@@ -364,8 +530,22 @@ def steady_times(run, device, reps: int = 3) -> dict:
     scal = random_std_limbs(run["F"].p, (COLUMNS, len(srs) + 1), SEED + 3, device)
     scaled = srs.scaled_basis(c)
     out["commit15_sort_gather_ms"] = elapsed_ms(
-        lambda: msm.gather_window_points(scaled, msm.sort_digits(msm.window_digits(scal, c))[0]),
+        lambda: msm.gather_points(dc, scaled, msm.sort_digits(msm.window_digits(scal, c))[0]),
         device, reps)
+
+    from proof_systems_tpu_torch.poly_commitment import ipa
+
+    out["eval2_ms"] = elapsed_ms(lambda: evaluate(run), device, reps)
+    opens = []
+    with OpenClock(ipa) as clock:
+        for _ in range(reps):
+            opens.append(wall(lambda: open_proof(run), device)[1] * 1e3)
+    stages = clock.totals()
+    out["open_ms"] = sum(opens) / reps
+    out["open_fold_steps_ms"] = stages["fold"] / reps
+    out["open_tail_ms"] = stages["tail"] / reps
+    out["open_host_ms"] = out["open_ms"] - out["open_fold_steps_ms"] - out["open_tail_ms"]
+    out["verify_ms"] = elapsed_ms(lambda: verify(run, run["proof"]), device, reps)
     return out
 
 
@@ -411,6 +591,137 @@ def golden_checks(run, device, log_n: int) -> None:
         raise AssertionError("b = 1, c = 10 MSM differs from the host MSM")
     log("check: b = 1 MSM at c = 10 over g ++ [h] equals the host MSM")
 
+    polys = [job[:n] for job in jobs]
+    ipa_checks(run, polys, nat)
+
+
+def horner(p: int, coeffs: list[int], x: int) -> int:
+    acc = 0
+    for c in reversed(coeffs):
+        acc = (acc * x + c) % p
+    return acc
+
+
+def ipa_checks(run, polys: list[list[int]], nat) -> None:
+    """The evaluations against host Horner; the opening against the host's
+    masked-scalar rounds (ipa.py:296-325 of the JAX package) over the
+    original g ++ [h, U], with the challenges replayed from the proof's
+    L/R points; the verifier's rejections."""
+    from proof_systems_tpu_torch.curves import Vesta
+    from proof_systems_tpu_torch.poly_commitment.commitment import (
+        b_poly_coefficients, combined_inner_product, shift_scalar)
+    from proof_systems_tpu_torch.poseidon import FqSponge, fq_kimchi
+    from proof_systems_tpu_torch.utils.rng import TestRng
+
+    f = Vesta.scalar
+    p = f.p
+    srs, proof, elm = run["srs"], run["proof"], run["elm"]
+    n = len(srs)
+    rounds = n.bit_length() - 1
+
+    t0 = time.perf_counter()
+    want = [[[horner(p, c, x)] for x in elm] for c in polys]
+    if want != run["evals"]:
+        raise AssertionError("eval_at2 differs from host Horner")
+    log(f"check: {len(polys)} polynomials at zeta and zeta*omega equal host Horner "
+        f"({time.perf_counter() - t0:.1f} s on the host)")
+
+    t0 = time.perf_counter()
+    a, scale = [0] * n, 1
+    for c in polys:
+        a = [(x + scale * y) % p for x, y in zip(a, c)]
+        scale = scale * run["polyscale"] % p
+    b, scale = [0] * n, 1
+    for x in elm:
+        pw = 1
+        for j in range(n):
+            b[j] = (b[j] + scale * pw) % p
+            pw = pw * x % p
+        scale = scale * run["evalscale"] % p
+    sponge = FqSponge(fq_kimchi, Vesta)
+    sponge.absorb_fr([shift_scalar(Vesta, run["cip"])])
+    u_base = Vesta.to_group(sponge.challenge_fq())
+    chals, chal_invs = proof.challenges(Vesta, sponge)
+    rng = TestRng(SEED)
+    blinders = [(rng.field(p), rng.field(p)) for _ in range(rounds)]
+    d, r_delta = rng.field(p), rng.field(p)
+    mask, jobs = [1] * n, []
+    for k in range(rounds):
+        m = len(a) // 2
+        a_lo, a_hi, b_lo, b_hi = a[:m], a[m:], b[:m], b[m:]
+        sh = rounds - 1 - k
+        ip_l = sum(x * y for x, y in zip(a_hi, b_lo)) % p
+        ip_r = sum(x * y for x, y in zip(a_lo, b_hi)) % p
+        jobs.append([0 if j >> sh & 1 else mask[j] * a_hi[j % m] % p for j in range(n)]
+                    + [blinders[k][0], ip_l])
+        jobs.append([mask[j] * a_lo[j % m] % p if j >> sh & 1 else 0 for j in range(n)]
+                    + [blinders[k][1], ip_r])
+        u, u_inv = chals[k], chal_invs[k]
+        a = [(x + u_inv * y) % p for x, y in zip(a_lo, a_hi)]
+        b = [(x + u * y) % p for x, y in zip(b_lo, b_hi)]
+        mask = [mask[j] * u % p if j >> sh & 1 else mask[j] for j in range(n)]
+    basis = srs.g + [srs.h, u_base]
+    with concurrent.futures.ThreadPoolExecutor(8) as pool:
+        lr = list(pool.map(lambda s: nat.msm(s, basis), jobs))
+    if [pt for pair in proof.lr for pt in pair] != lr:
+        bad = [k for k in range(rounds) if tuple(lr[2 * k : 2 * k + 2]) != proof.lr[k]]
+        raise AssertionError(f"L/R of rounds {bad} differ from the host rounds")
+    s_vec = b_poly_coefficients(f, chals)
+    if s_vec != mask or nat.msm(s_vec, srs.g) != proof.sg:
+        raise AssertionError("sg differs from <b_poly_coefficients(chals), g>")
+    sponge.absorb_g([proof.delta])
+    c = sponge.challenge().to_field(Vesta.endos[1], f)
+    if proof.z1 != (a[0] * c + d) % p:
+        raise AssertionError("a0 (through z1 = a0*c + d) differs from the host rounds")
+    delta = Vesta.add(Vesta.scalar_mul(d, Vesta.add(proof.sg, Vesta.scalar_mul(b[0], u_base))),
+                      Vesta.scalar_mul(r_delta, srs.h))
+    if proof.delta != delta:
+        raise AssertionError("b0 (through delta) differs from the host rounds")
+    log(f"check: L and R of all {rounds} rounds, sg, a0 and b0 equal the host's masked "
+        f"rounds over g ++ [h, U] ({time.perf_counter() - t0:.1f} s on the host)")
+
+    from proof_systems_tpu_torch.poly_commitment import ipa
+
+    bad = ipa.OpeningProof(**{**vars(proof), "z1": (proof.z1 + 1) % p})
+    if verify(run, bad, seed=SEED + 2):
+        raise AssertionError("verify_batch accepted z1 + 1")
+    evals = [[list(pt) for pt in ev] for ev in run["evals"]]
+    evals[0][1][0] = (evals[0][1][0] + 1) % p
+    cip = combined_inner_product(f, run["polyscale"], run["evalscale"], evals)
+    if verify(run, proof, evals, cip, seed=SEED + 3):
+        raise AssertionError("verify_batch accepted a changed evaluation")
+    log("check: verify_batch on the card accepts the opening and rejects z1 + 1 and a "
+        "changed evaluation (cip recomputed)")
+    if run["coeffs"].device.type == "cuda":
+        residency_check(run)
+
+
+def residency_check(run) -> None:
+    """The rounds of an opening wait for the host nowhere: CUDA's sync debug
+    mode is "error" inside every fold step and the tail, so a torch op that
+    synchronises there raises. The opening must repeat exactly."""
+    from proof_systems_tpu_torch.poly_commitment import ipa
+
+    saved = (ipa._ipa_fold_step, ipa._ipa_tail_rounds)
+
+    def strict(fn):
+        def wrapper(*args, **kw):
+            torch.cuda.set_sync_debug_mode("error")
+            out = fn(*args, **kw)
+            torch.cuda.set_sync_debug_mode("default")
+            return out
+
+        return wrapper
+
+    # a failure here ends the script, so nothing is restored on that path
+    ipa._ipa_fold_step, ipa._ipa_tail_rounds = (strict(fn) for fn in saved)
+    proof = open_proof(run)
+    ipa._ipa_fold_step, ipa._ipa_tail_rounds = saved
+    if vars(proof) != vars(run["proof"]):
+        raise AssertionError("a second opening of the same inputs differs")
+    log("check: no host synchronisation inside the rounds (sync debug mode 'error' "
+        "around each fold step and the tail); the opening repeats exactly")
+
 
 def card_line() -> str:
     out = subprocess.run(
@@ -454,6 +765,12 @@ def run(device, log_n: int = LOG_N, cache_dir=None) -> list[dict]:
     kernels.reset_launch_counts()
     result["srs"].commit_coeffs_dev(result["w_coeffs"], 1, result["blinders"])
     log(f"launches per 15-column commit: {json.dumps(kernels.launch_counts())}")
+    kernels.reset_launch_counts()
+    open_proof(result)
+    log(f"launches per opening: {json.dumps(kernels.launch_counts())}")
+    kernels.reset_launch_counts()
+    verify(result, result["proof"])
+    log(f"launches per verification: {json.dumps(kernels.launch_counts())}")
     for k, v in steady_times(result, device).items():
         log(f"steady {k}: {v:.3f}")
 

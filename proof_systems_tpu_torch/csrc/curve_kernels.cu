@@ -1,6 +1,7 @@
 // Curve kernels K2 (jacobian_add), K3 (jacobian_double), K6
-// (ec_prefix_scan_parts) and K7 (ec_prefix_scan_fused), over Vesta's base
-// field Fq (any field: the parameters are a kernel argument).
+// (ec_prefix_scan_parts), K7 (ec_prefix_scan_fused) and K8
+// (combine_windows), over Vesta's base field Fq (any field: the parameters
+// are a kernel argument).
 //
 // Replaces, in proof_systems_tpu/ops/pallas_field.py:
 //   K2 jacobian_add (l.412, _kv_ec_add l.299): complete elementwise add.
@@ -13,6 +14,10 @@
 //      as msm.py:338-342 requires) and phase 2 stays general adds.
 //   K7 ec_prefix_scan_fused (l.1410, _ec_scan_kernel l.834): the same
 //      phases 1-2 plus the combine, giving the full inclusive prefix scan.
+//   K8 combine_windows_fused (l.560): the Pippenger window recombination
+//      sum_w 2^(cw) win_w as a Horner chain from the top window (c doublings
+//      and one general add per window, the order of l.596-607). The TPU
+//      kernel's cap of 128 columns was its tile width and is not ported.
 //
 // Bound on this card: integer multiplies. A general add is 16 Montgomery
 // products (11 for madd), each 128 IMAD.WIDE and 8 IMUL, against 192 B of
@@ -29,6 +34,10 @@
 // each thread a chain of ceil(65537 / 128) dependent adds. The curve
 // formulas are __noinline__ functions to bound code size and build time;
 // ptxas reports their registers and stack frames.
+//
+// K8 is one thread per MSM column: at the verifier's b = 1 a single thread
+// runs W * (c + 1) dependent curve operations (288 at c = 11, W = 24), a
+// latency chain that no other block overlaps. Its time is kept in PERF.md.
 
 #include "field.cuh"
 
@@ -112,6 +121,21 @@ __global__ void __launch_bounds__(PST_LANES)
     }
 }
 
+// wx, wy, wz: (8, W, b) window sums, limb stride W * b; out: (8, b).
+__global__ void __launch_bounds__(128)
+    k_combine_windows(FieldParams F, const uint32_t *wx, const uint32_t *wy,
+                      const uint32_t *wz, uint32_t *ox, uint32_t *oy, uint32_t *oz,
+                      int64_t W, int64_t b, int c) {
+    const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+    if (i >= b) return;
+    Jac acc = jac_identity();
+    for (int64_t w = W - 1; w >= 0; --w) {
+        for (int k = 0; k < c; ++k) acc = ec_double(F, acc);
+        acc = ec_add(F, acc, jac_load(wx, wy, wz, W * b, w * b + i));
+    }
+    jac_store(ox, oy, oz, b, i, acc);
+}
+
 extern "C" {
 
 int pst_jacobian_add(const uint32_t *fp, const uint32_t *px, const uint32_t *py,
@@ -161,6 +185,17 @@ int pst_ec_scan_fused(const uint32_t *fp, const uint32_t *x, const uint32_t *y,
         k_ec_scan<false, true><<<(unsigned)rows, PST_LANES, 0, (cudaStream_t)stream>>>(
             pst_field_params(fp), x, y, z, ox, oy, oz, nullptr, nullptr, nullptr, rows, n,
             cp);
+    return (int)cudaGetLastError();
+}
+
+int pst_combine_windows(const uint32_t *fp, const uint32_t *wx, const uint32_t *wy,
+                        const uint32_t *wz, uint32_t *ox, uint32_t *oy, uint32_t *oz,
+                        int64_t W, int64_t b, int c, void *stream) {
+    if (W > 0 && b > 0) {
+        int64_t blocks = (b + 127) / 128;
+        k_combine_windows<<<(unsigned)blocks, 128, 0, (cudaStream_t)stream>>>(
+            pst_field_params(fp), wx, wy, wz, ox, oy, oz, W, b, c);
+    }
     return (int)cudaGetLastError();
 }
 

@@ -1,9 +1,11 @@
-"""Native (C++) host golden MSM, loaded via ctypes.
+"""Native (C++) host runtime, loaded via ctypes: the Poseidon permutation
+of the transcript sponges and the golden host MSM.
 
 `pasta.cpp` is compiled with g++ into the package's build directory at
-first use (keyed by the source hash). It is the exact host reference that
-device commitments are checked against at full width; `curves.py` falls
-back to its pure-Python double-and-add when no compiler is available.
+first use (keyed by the source hash). The MSM is the exact host reference
+that device commitments are checked against at full width. Without a
+compiler `curves.py` falls back to its pure-Python double-and-add and the
+sponges to the Python permutation (poseidon/permutation.py).
 """
 
 from __future__ import annotations
@@ -45,6 +47,16 @@ def _build() -> ctypes.CDLL:
         )
         os.replace(tmp, so)
     lib = ctypes.CDLL(str(so))
+    lib.ps_new.restype = ctypes.c_void_p
+    lib.ps_new.argtypes = [
+        ctypes.c_char_p, ctypes.c_char_p, ctypes.c_uint64,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_char_p, ctypes.c_char_p,
+    ]
+    lib.ps_permute.restype = None
+    lib.ps_permute.argtypes = [ctypes.c_void_p, ctypes.c_char_p]
+    lib.ps_free.restype = None
+    lib.ps_free.argtypes = [ctypes.c_void_p]
     lib.pc_new.restype = ctypes.c_void_p
     lib.pc_new.argtypes = [ctypes.c_char_p, ctypes.c_char_p, ctypes.c_uint64]
     lib.pc_free.restype = None
@@ -59,6 +71,35 @@ def _build() -> ctypes.CDLL:
 
 def _le32(x: int) -> bytes:
     return x.to_bytes(32, "little")
+
+
+class NativePoseidon:
+    """ctypes handle for one Poseidon parameter set."""
+
+    def __init__(self, params, lib: ctypes.CDLL) -> None:
+        p = params.field.p
+        pinv = (-pow(p, -1, 1 << 64)) % (1 << 64)
+        r2 = pow(2, 512, p)
+        mds = b"".join(_le32(v % p) for row in params.mds for v in row)
+        rcs = params.round_constants[: params.rounds_full + int(params.initial_ark)]
+        rc = b"".join(_le32(v % p) for row in rcs for v in row)
+        self._lib = lib
+        self._ctx = lib.ps_new(
+            _le32(p), _le32(r2), pinv,
+            params.rounds_full, params.sbox, int(params.initial_ark), mds, rc,
+        )
+        self.p = p
+
+    def permute(self, state: list[int]) -> list[int]:
+        buf = ctypes.create_string_buffer(b"".join(_le32(x % self.p) for x in state), 96)
+        self._lib.ps_permute(self._ctx, buf)
+        raw = buf.raw
+        return [int.from_bytes(raw[32 * i : 32 * i + 32], "little") for i in range(3)]
+
+    def __del__(self):
+        ctx = getattr(self, "_ctx", None)
+        if ctx:
+            self._lib.ps_free(ctx)
 
 
 class NativeCurve:
@@ -118,3 +159,18 @@ def native_curve(curve) -> NativeCurve | None:
     if c is None:
         c = _CURVES[curve.name] = NativeCurve(curve, lib)
     return c
+
+
+_SPONGES: dict[str, NativePoseidon] = {}
+
+
+def native_poseidon(params) -> NativePoseidon | None:
+    """Cached per-parameter-set native permutation, or None when g++ is
+    unavailable."""
+    lib = _lib()
+    if lib is None:
+        return None
+    s = _SPONGES.get(params.name)
+    if s is None:
+        s = _SPONGES[params.name] = NativePoseidon(params, lib)
+    return s

@@ -1,11 +1,13 @@
-// Native host golden model: 256-bit Montgomery field arithmetic and a
-// Pippenger MSM over the Pasta curves, loaded through ctypes
-// (proof_systems_tpu_torch/native/__init__.py).
+// Native host runtime: 256-bit Montgomery field arithmetic, the Poseidon
+// permutation of the transcript sponges and a Pippenger MSM over the Pasta
+// curves, loaded through ctypes (proof_systems_tpu_torch/native/__init__.py).
 //
-// Role: the exact host reference that the device commitments are checked
-// against at full width (a pure-Python MSM over 2^16 points takes minutes).
-// It is the same algorithm as arkworks' VariableBaseMSM (`msm_bigint`).
-// The modulus and R^2 are injected at runtime, so one binary serves Fp
+// Role: the host's sequential transcript (dozens of permutations a proof,
+// and the replay of the card's IPA rounds), and the exact host reference
+// that the device commitments are checked against at full width (a
+// pure-Python MSM over 2^16 points takes minutes). The MSM is the same
+// algorithm as arkworks' VariableBaseMSM (`msm_bigint`). The modulus, R^2
+// and the sponge tables are injected at runtime, so one binary serves Fp
 // and Fq of the Pasta cycle.
 //
 // Arithmetic: 4x64-bit limbs, CIOS Montgomery multiplication using
@@ -104,6 +106,110 @@ static void from_mont(const FieldCtx &f, Fe &r, const Fe &a) {
     Fe one{{1, 0, 0, 0}};
     mont_mul(f, r, a, one);
 }
+
+// ---------------------------------------------------------------------------
+// Poseidon permutation for the Fiat-Shamir transcript sponges
+// (poseidon/src/permutation.rs): full rounds of sbox x^e, the 3x3 MDS
+// product and the round constants, with an optional initial ark.
+// ---------------------------------------------------------------------------
+
+struct SpongeCtx {
+    FieldCtx f;
+    int rounds;
+    int sbox_e;
+    int initial_ark;
+    Fe mds[3][3];
+    Fe *rc;  // (rounds + initial_ark) * 3, Montgomery form
+};
+
+static inline void sbox_apply(const SpongeCtx &s, Fe &x) {
+    Fe x2, x3, r;
+    mont_sqr(s.f, x2, x);
+    mont_mul(s.f, x3, x2, x);
+    if (s.sbox_e == 7) {
+        Fe x6;
+        mont_sqr(s.f, x6, x3);
+        mont_mul(s.f, r, x6, x);
+    } else {  // 5
+        Fe x4;
+        mont_sqr(s.f, x4, x2);
+        mont_mul(s.f, r, x4, x);
+    }
+    x = r;
+}
+
+extern "C" {
+
+void *ps_new(const uint8_t *p_le, const uint8_t *r2_le, uint64_t pinv,
+             int rounds, int sbox_e, int initial_ark,
+             const uint8_t *mds_le, const uint8_t *rc_le) {
+    SpongeCtx *s = new SpongeCtx();
+    std::memcpy(s->f.p.v, p_le, 32);
+    std::memcpy(s->f.r2.v, r2_le, 32);
+    s->f.pinv = pinv;
+    s->rounds = rounds;
+    s->sbox_e = sbox_e;
+    s->initial_ark = initial_ark;
+    for (int i = 0; i < 3; ++i)
+        for (int j = 0; j < 3; ++j) {
+            Fe raw;
+            std::memcpy(raw.v, mds_le + 32 * (3 * i + j), 32);
+            to_mont(s->f, s->mds[i][j], raw);
+        }
+    int nrc = (rounds + initial_ark) * 3;
+    s->rc = (Fe *)std::malloc(sizeof(Fe) * nrc);
+    for (int i = 0; i < nrc; ++i) {
+        Fe raw;
+        std::memcpy(raw.v, rc_le + 32 * i, 32);
+        to_mont(s->f, s->rc[i], raw);
+    }
+    return s;
+}
+
+void ps_free(void *ctx) {
+    SpongeCtx *s = (SpongeCtx *)ctx;
+    std::free(s->rc);
+    delete s;
+}
+
+// state: 3 x 32 LE bytes, standard form; permuted in place.
+void ps_permute(void *ctx, uint8_t *state_bytes) {
+    SpongeCtx *s = (SpongeCtx *)ctx;
+    Fe st[3];
+    for (int i = 0; i < 3; ++i) {
+        Fe raw;
+        std::memcpy(raw.v, state_bytes + 32 * i, 32);
+        to_mont(s->f, st[i], raw);
+    }
+    const Fe *rc = s->rc;
+    if (s->initial_ark) {
+        for (int i = 0; i < 3; ++i) add_mod(s->f, st[i], st[i], rc[i]);
+        rc += 3;
+    }
+    for (int r = 0; r < s->rounds; ++r) {
+        for (int i = 0; i < 3; ++i) sbox_apply(*s, st[i]);
+        Fe nw[3];
+        for (int i = 0; i < 3; ++i) {
+            Fe acc, t;
+            mont_mul(s->f, acc, s->mds[i][0], st[0]);
+            mont_mul(s->f, t, s->mds[i][1], st[1]);
+            add_mod(s->f, acc, acc, t);
+            mont_mul(s->f, t, s->mds[i][2], st[2]);
+            add_mod(s->f, acc, acc, t);
+            add_mod(s->f, nw[i], acc, rc[3 * r + i]);
+        }
+        st[0] = nw[0];
+        st[1] = nw[1];
+        st[2] = nw[2];
+    }
+    for (int i = 0; i < 3; ++i) {
+        Fe out;
+        from_mont(s->f, out, st[i]);
+        std::memcpy(state_bytes + 32 * i, out.v, 32);
+    }
+}
+
+}  // extern "C"
 
 // ---------------------------------------------------------------------------
 // Pasta curve arithmetic + Pippenger MSM.

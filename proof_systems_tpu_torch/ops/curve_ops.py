@@ -111,10 +111,14 @@ class DeviceCurve:
     def neg(self, p: JPoint) -> JPoint:
         return JPoint(p.x, limb.neg(self.F, p.y), p.z)
 
+    def select(self, cond: torch.Tensor, t: JPoint, f: JPoint) -> JPoint:
+        """t where cond else f; cond has the batch shape."""
+        return JPoint(*(limb.select(cond, a, b) for a, b in zip(t, f)))
+
     def inf_jacobian(self, batch_shape=(), *, device) -> JPoint:
         F = self.F
-        one = F.one_mont(batch_shape, device=device).contiguous()
-        return JPoint(one, one.clone(), F.zeros(batch_shape, device=device))
+        one = F.one_mont(batch_shape, device=device)
+        return JPoint(one.clone(), one.clone(), F.zeros(batch_shape, device=device))
 
 
 @functools.lru_cache(maxsize=None)

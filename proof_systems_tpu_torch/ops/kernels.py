@@ -1,9 +1,9 @@
 """The port's hand-written CUDA kernels: loader, wrappers, plain versions.
 
-Counterpart of proof_systems_tpu/ops/pallas_field.py. Seven of its twelve
-TPU kernels are on this slice's path; each has a CUDA C++ kernel for
-sm_90a in `csrc/` and, beside its wrapper here, a plain PyTorch version
-with the same signature and the same results:
+Counterpart of proof_systems_tpu/ops/pallas_field.py. Ten of its twelve
+TPU kernels are ported; each has a CUDA C++ kernel for sm_90a in `csrc/`
+and, beside its wrapper here, a plain PyTorch version with the same
+signature and the same results:
 
   K1 mont_mul              (pallas_field.py:398)   csrc/field_kernels.cu
   K2 jacobian_add          (pallas_field.py:412)   csrc/curve_kernels.cu
@@ -12,6 +12,11 @@ with the same signature and the same results:
   K5 mont_prefix_scan      (pallas_field.py:1019)  csrc/field_kernels.cu
   K6 ec_prefix_scan_parts  (pallas_field.py:1333)  csrc/curve_kernels.cu
   K7 ec_prefix_scan_fused  (pallas_field.py:1410)  csrc/curve_kernels.cu
+  K8 combine_windows       (pallas_field.py:560)   csrc/curve_kernels.cu
+  K10 sponge_squeeze2      (pallas_field.py:646)   csrc/field_kernels.cu
+  K11 endo_inv             (pallas_field.py:742)   csrc/field_kernels.cu
+
+`bits128` (pallas_field.py:733) is a torch op.
 
 A wrapper takes its plain version only for a tensor on the CPU. For a CUDA
 tensor it launches the kernel on the current stream or raises; there is no
@@ -133,7 +138,10 @@ def _bind_field(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.pst_mont_mul.argtypes = [_P, _P, _P, _P, _I64, _P]
     lib.pst_mont_pow.argtypes = [_P, ctypes.c_char_p, ctypes.c_int, _P, _P, _I64, _P]
     lib.pst_mont_prefix.argtypes = [_P, _P, _P, _I64, _I64, _I64, _P]
-    for fn in (lib.pst_mont_mul, lib.pst_mont_pow, lib.pst_mont_prefix):
+    lib.pst_sponge_squeeze2.argtypes = [_P, _P, _P, _P, _P, ctypes.c_int, _P, _P, _P]
+    lib.pst_endo_inv.argtypes = [_P, _P, ctypes.c_char_p, ctypes.c_int, _P, _P, _P, _P]
+    for fn in (lib.pst_mont_mul, lib.pst_mont_pow, lib.pst_mont_prefix,
+               lib.pst_sponge_squeeze2, lib.pst_endo_inv):
         fn.restype = ctypes.c_int
     lib.pst_field_error_string.argtypes = [ctypes.c_int]
     lib.pst_field_error_string.restype = ctypes.c_char_p
@@ -145,8 +153,9 @@ def _bind_curve(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.pst_jacobian_double.argtypes = [_P] * 7 + [_I64, _P]
     lib.pst_ec_scan_parts.argtypes = [_P] * 10 + [_I64, _I64, _I64, ctypes.c_int, _P]
     lib.pst_ec_scan_fused.argtypes = [_P] * 7 + [_I64, _I64, _I64, _P]
+    lib.pst_combine_windows.argtypes = [_P] * 7 + [_I64, _I64, ctypes.c_int, _P]
     for fn in (lib.pst_jacobian_add, lib.pst_jacobian_double,
-               lib.pst_ec_scan_parts, lib.pst_ec_scan_fused):
+               lib.pst_ec_scan_parts, lib.pst_ec_scan_fused, lib.pst_combine_windows):
         fn.restype = ctypes.c_int
     lib.pst_curve_error_string.argtypes = [ctypes.c_int]
     lib.pst_curve_error_string.restype = ctypes.c_char_p
@@ -170,15 +179,16 @@ def _ptrs(ts) -> list[int]:
     return [t.data_ptr() for t in ts]
 
 
-def _check(*ts: torch.Tensor) -> torch.device:
-    """All operands (8, ...) int32, one shape, contiguous, one device."""
+def _check(*ts: torch.Tensor, same_shape: bool = True) -> torch.device:
+    """All operands (8, ...) int32, contiguous, on one device, and (unless
+    same_shape is False) of one shape."""
     first = ts[0]
     for t in ts:
         if t.dtype != torch.int32:
             raise TypeError(f"limb tensors are int32, got {t.dtype}")
         if t.dim() < 1 or t.shape[0] != NL:
             raise ValueError(f"limb tensors are (8, ...), got {tuple(t.shape)}")
-        if t.shape != first.shape:
+        if same_shape and t.shape != first.shape:
             raise ValueError(f"shape mismatch {tuple(t.shape)} vs {tuple(first.shape)}")
         if t.device != first.device:
             raise ValueError(f"device mismatch {t.device} vs {first.device}")
@@ -208,9 +218,12 @@ class Field16:
         self.p16 = torch.tensor(limbs16(p), dtype=torch.int64, device=device)
         self.one16 = torch.tensor(limbs16(r_mod_p), dtype=torch.int64, device=device)
         self.pinv16 = (-pow(p, -1, 1 << 16)) % (1 << 16)
+        # limb i <-> bit i of a carry word (_carries); 17 limbs at most
+        self.shift = torch.arange(17, dtype=torch.int64, device=device)
+        self.bit = torch.ones_like(self.shift) << self.shift
 
     def col(self, v: torch.Tensor, ndim: int) -> torch.Tensor:
-        return v.view(16, *([1] * ndim))
+        return v.view(v.shape[0], *([1] * ndim))
 
 
 def limbs16(x: int) -> list[int]:
@@ -238,59 +251,106 @@ def from16(a: torch.Tensor) -> torch.Tensor:
     return torch.where(u >= 1 << 31, u - (1 << 32), u).to(torch.int32)
 
 
-def _ripple(cols: torch.Tensor, out_limbs: int) -> torch.Tensor:
-    outs = []
-    carry = torch.zeros_like(cols[0])
-    for k in range(cols.shape[0]):
-        v = cols[k] + carry
-        outs.append(v & M16)
-        carry = v >> 16
-    while len(outs) < out_limbs:
-        outs.append(carry & M16)
-        carry = carry >> 16
-    return torch.stack(outs[:out_limbs])
+def _serial(t: torch.Tensor) -> bool:
+    """Whether to resolve carries limb by limb: for a wide batch the
+    16-step loop moves far fewer bytes than the carry word (_carries) and
+    the launches no longer dominate; for a narrow one its many small ops
+    cost more than the word's fixed handful. The crossover is lower on the
+    CPU, where an op costs microseconds, than on the card, where
+    scripts/torch_carry_ab.py finds it between 2^18 and 2^20 elements."""
+    return t[0].numel() > (1 << 19 if t.is_cuda else 1 << 12)
 
 
-def _sub_raw(a: torch.Tensor, b: torch.Tensor):
-    outs = []
-    borrow = torch.zeros_like(a[0])
-    for i in range(16):
-        v = a[i] - b[i] - borrow
-        outs.append(v & M16)
-        borrow = (v < 0).to(torch.int64)
-    return torch.stack(outs), borrow
+def _carries(P: Field16, g: torch.Tensor, p: torch.Tensor):
+    """Carries along a limb chain for per-limb generate g and propagate p
+    (0/1, never both): c_0 = 0, c_(i+1) = g_i | (p_i & c_i). With limb i as
+    bit i, X = G | P and Y = G, the chain is the carry chain of the integer
+    sum X + Y, so the carry into bit i is bit i of (X + Y) ^ X ^ Y: a fixed
+    handful of torch ops instead of one op per limb. Returns (carry into
+    each limb, carry out of the top limb)."""
+    k = g.shape[0]
+    w = P.col(P.bit[:k], g.dim() - 1)
+    gw = (g * w).sum(0)
+    x = gw | (p * w).sum(0)
+    c = (x + gw) ^ x ^ gw
+    return (c[None] >> P.col(P.shift[:k], g.dim() - 1)) & 1, (c >> k) & 1
+
+
+def _shift_up(t: torch.Tensor) -> torch.Tensor:
+    """t[i - 1] along the limb axis, 0 shifted in at limb 0."""
+    return torch.nn.functional.pad(t[:-1], (0, 0) * (t.dim() - 1) + (1, 0))
+
+
+def _normalize(P: Field16, v: torch.Tensor, out_limbs: int, bits: int = 17) -> torch.Tensor:
+    """Nonnegative limb sums below 2^bits -> out_limbs canonical 16-bit
+    limbs (the value mod 2^(16 * out_limbs)). Narrow batches: split rounds
+    move each limb's carry up one limb until every sum is below 2^17 - 1,
+    then one carry word (_carries) resolves the rest exactly. Wide ones:
+    a ripple, limb by limb."""
+    if _serial(v):
+        outs, carry = [], torch.zeros_like(v[0])
+        for k in range(out_limbs):
+            t = (v[k] + carry) if k < v.shape[0] else carry
+            outs.append(t & M16)
+            carry = t >> 16
+        return torch.stack(outs)
+    if v.shape[0] < out_limbs:
+        v = torch.nn.functional.pad(v, (0, 0) * (v.dim() - 1) + (0, out_limbs - v.shape[0]))
+    while bits > 17:
+        v = (v & M16) + _shift_up(v >> 16)
+        bits = max(bits - 16, 16) + 1
+    lo = v & M16
+    c, _ = _carries(P, v >> 16, lo == M16)
+    return (lo + c) & M16
+
+
+def _sub_raw(P: Field16, a: torch.Tensor, b: torch.Tensor):
+    """a - b over 16 canonical limbs: (difference mod 2^256, borrow out),
+    by the carry word or, for wide batches, limb by limb."""
+    if _serial(a):
+        outs, borrow = [], torch.zeros_like(a[0])
+        for i in range(16):
+            v = a[i] - b[i] - borrow
+            outs.append(v & M16)
+            borrow = (v < 0).to(torch.int64)
+        return torch.stack(outs), borrow
+    d = a - b
+    lo = d & M16
+    c, borrow = _carries(P, d < 0, lo == 0)
+    return (lo - c) & M16, borrow
 
 
 def add16(P: Field16, a, b):
     a, b = torch.broadcast_tensors(a, b)
     pv = P.col(P.p16, a.dim() - 1)
-    s = _ripple(a + b, 16)
-    d, borrow = _sub_raw(s, pv)
+    s = _normalize(P, a + b, 16)
+    d, borrow = _sub_raw(P, s, pv)
     return torch.where(borrow[None] != 0, s, d)
 
 
 def sub16(P: Field16, a, b):
     a, b = torch.broadcast_tensors(a, b)
     pv = P.col(P.p16, a.dim() - 1)
-    d, borrow = _sub_raw(a, b)
-    return torch.where(borrow[None] != 0, _ripple(d + pv, 16), d)
+    d, borrow = _sub_raw(P, a, b)
+    return torch.where(borrow[None] != 0, _normalize(P, d + pv, 16), d)
 
 
 def mul16(P: Field16, a, b):
     """Montgomery product a*b*R^-1 mod p: schoolbook columns, 16 REDC
-    steps of 16 bits, one ripple and a conditional subtract."""
+    steps of 16 bits, one normalisation and a conditional subtract."""
     a, b = torch.broadcast_tensors(a, b)
     batch = a.shape[1:]
     pv = P.col(P.p16, len(batch))
     cols = a.new_zeros((33, *batch))
     for i in range(16):  # column sums < 2^36
         cols[i : i + 16].addcmul_(b, a[i : i + 1])
+    rows = cols.unbind(0)
     for i in range(16):
-        m = ((cols[i] & M16) * P.pinv16) & M16
+        m = ((rows[i] & M16) * P.pinv16) & M16
         cols[i : i + 16].addcmul_(pv, m[None])
-        cols[i + 1] += cols[i] >> 16
-    res = _ripple(cols[16:], 17)
-    d, borrow = _sub_raw(res[:16], pv)
+        rows[i + 1].add_(rows[i] >> 16)
+    res = _normalize(P, cols[16:], 17, bits=38)
+    d, borrow = _sub_raw(P, res[:16], pv)
     use_sub = (res[16] != 0) | (borrow == 0)
     return torch.where(use_sub[None], d, res[:16])
 
@@ -303,60 +363,70 @@ def _sel(cond, t, f):
     return torch.where(cond[None], t, f)
 
 
+def _muls(P: Field16, *pairs):
+    """Independent Montgomery products in one mul16 call (stacked on a new
+    axis after the limbs): the same products, fewer torch ops."""
+    a = torch.stack(torch.broadcast_tensors(*(x for x, _ in pairs)), dim=1)
+    b = torch.stack(torch.broadcast_tensors(*(y for _, y in pairs)), dim=1)
+    return mul16(P, a, b).unbind(1)
+
+
 def ec_double16(P: Field16, p):
     """dbl-2009-l, as ec_double in csrc/field.cuh."""
     x, y, z = p
-    a = mul16(P, x, x)
-    b = mul16(P, y, y)
-    c = mul16(P, b, b)
+    a, b, yz = _muls(P, (x, x), (y, y), (y, z))
     xb = add16(P, x, b)
-    d = sub16(P, sub16(P, mul16(P, xb, xb), a), c)
-    d = add16(P, d, d)
     e = add16(P, add16(P, a, a), a)
-    f = mul16(P, e, e)
+    c, xb2, f = _muls(P, (b, b), (xb, xb), (e, e))
+    d = sub16(P, sub16(P, xb2, a), c)
+    d = add16(P, d, d)
     x3 = sub16(P, f, add16(P, d, d))
     c8 = add16(P, c, c)
     c8 = add16(P, c8, c8)
     c8 = add16(P, c8, c8)
     y3 = sub16(P, mul16(P, e, sub16(P, d, x3)), c8)
-    yz = mul16(P, y, z)
     return x3, y3, add16(P, yz, yz)
 
 
-def _ec_fallbacks(p, q, main, dbl, h, r2, p_inf, q_inf):
-    """The complete-law selects of ec_add/ec_madd, in their order."""
+def _ec_fallbacks(p, q, main, double, h, r2, p_inf, q_inf):
+    """The complete-law selects of ec_add/ec_madd, in their order. The
+    doubling fallback runs only when a lane takes it, as the kernel's
+    branch does (only the plain versions come here, so the check's sync on
+    the card is off the main path)."""
     h_zero = is_zero16(h)
     r_zero = is_zero16(r2)
     use_dbl = h_zero & r_zero
-    x, y, z = (_sel(use_dbl, d, m) for d, m in zip(dbl, main))
+    x, y, z = main
+    if bool(use_dbl.any()):
+        x, y, z = (_sel(use_dbl, d, m) for d, m in zip(double(), main))
     z = _sel(h_zero & ~r_zero & ~p_inf, torch.zeros_like(z), z)
     x, y, z = (_sel(p_inf, qc, c) for qc, c in zip(q, (x, y, z)))
     return tuple(_sel(q_inf, pc, c) for pc, c in zip(p, (x, y, z)))
 
 
-def ec_add16(P: Field16, p, q):
-    """Complete add-2007-bl, as ec_add in csrc/field.cuh."""
-    (x1, y1, z1), (x2, y2, z2) = p, q
-    z1z1 = mul16(P, z1, z1)
-    z2z2 = mul16(P, z2, z2)
-    u1 = mul16(P, x1, z2z2)
-    u2 = mul16(P, x2, z1z1)
-    s1 = mul16(P, y1, mul16(P, z2, z2z2))
-    s2 = mul16(P, y2, mul16(P, z1, z1z1))
-    h = sub16(P, u2, u1)
-    rr = sub16(P, s2, s1)
+def _add_tail(P: Field16, u1, s1, h, rr):
+    """The part of add-2007-bl after h = u2 - u1 and rr = s2 - s1."""
     r2 = add16(P, rr, rr)
     h2 = add16(P, h, h)
     i = mul16(P, h2, h2)
-    j = mul16(P, h, i)
-    v = mul16(P, u1, i)
-    x3 = sub16(P, sub16(P, mul16(P, r2, r2), j), add16(P, v, v))
-    s1j = mul16(P, s1, j)
-    y3 = sub16(P, mul16(P, r2, sub16(P, v, x3)), add16(P, s1j, s1j))
+    j, v, r2sq = _muls(P, (h, i), (u1, i), (r2, r2))
+    x3 = sub16(P, sub16(P, r2sq, j), add16(P, v, v))
+    s1j, t = _muls(P, (s1, j), (r2, sub16(P, v, x3)))
+    return r2, x3, sub16(P, t, add16(P, s1j, s1j))
+
+
+def ec_add16(P: Field16, p, q):
+    """Complete add-2007-bl, as ec_add in csrc/field.cuh."""
+    (x1, y1, z1), (x2, y2, z2) = p, q
     zs = add16(P, z1, z2)
-    z3 = mul16(P, sub16(P, sub16(P, mul16(P, zs, zs), z1z1), z2z2), h)
+    z1z1, z2z2, zs2 = _muls(P, (z1, z1), (z2, z2), (zs, zs))
+    u1, u2, t2, t1 = _muls(P, (x1, z2z2), (x2, z1z1), (z2, z2z2), (z1, z1z1))
+    s1, s2 = _muls(P, (y1, t2), (y2, t1))
+    h = sub16(P, u2, u1)
+    r2, x3, y3 = _add_tail(P, u1, s1, h, sub16(P, s2, s1))
+    z3 = mul16(P, sub16(P, sub16(P, zs2, z1z1), z2z2), h)
     return _ec_fallbacks(
-        p, q, (x3, y3, z3), ec_double16(P, p), h, r2, is_zero16(z1), is_zero16(z2)
+        p, q, (x3, y3, z3), lambda: ec_double16(P, p), h, r2, is_zero16(z1), is_zero16(z2)
     )
 
 
@@ -364,21 +434,13 @@ def ec_madd16(P: Field16, p, q):
     """Mixed add, q affine-encoded, as ec_madd in csrc/field.cuh."""
     (x1, y1, z1), (x2, y2, z2) = p, q
     z1z1 = mul16(P, z1, z1)
-    u2 = mul16(P, x2, z1z1)
-    s2 = mul16(P, y2, mul16(P, z1, z1z1))
+    u2, t1 = _muls(P, (x2, z1z1), (z1, z1z1))
+    s2 = mul16(P, y2, t1)
     h = sub16(P, u2, x1)
-    rr = sub16(P, s2, y1)
-    r2 = add16(P, rr, rr)
-    h2 = add16(P, h, h)
-    i = mul16(P, h2, h2)
-    j = mul16(P, h, i)
-    v = mul16(P, x1, i)
-    x3 = sub16(P, sub16(P, mul16(P, r2, r2), j), add16(P, v, v))
-    s1j = mul16(P, y1, j)
-    y3 = sub16(P, mul16(P, r2, sub16(P, v, x3)), add16(P, s1j, s1j))
+    r2, x3, y3 = _add_tail(P, x1, y1, h, sub16(P, s2, y1))
     z3 = mul16(P, add16(P, z1, z1), h)
     return _ec_fallbacks(
-        p, q, (x3, y3, z3), ec_double16(P, q), h, r2, is_zero16(z1), is_zero16(z2)
+        p, q, (x3, y3, z3), lambda: ec_double16(P, q), h, r2, is_zero16(z1), is_zero16(z2)
     )
 
 
@@ -471,11 +533,10 @@ def pow_digits(e: int) -> list[int]:
     return [(e >> (4 * (nd - 1 - i))) & 15 for i in range(nd)]
 
 
-def mont_pow_plain(F, a: torch.Tensor, e: int) -> torch.Tensor:
-    _check(a)
-    P = field16(F, a.device)
-    base = to16(a)
-    tab = [P.col(P.one16, a.dim() - 1).expand_as(base), base]
+def pow16(P: Field16, base: torch.Tensor, e: int) -> torch.Tensor:
+    """base^e on 16-bit limbs: 4-bit windows, most significant first, over
+    a 15-entry table, as fe_pow in csrc/field_kernels.cu."""
+    tab = [P.col(P.one16, base.dim() - 1).expand_as(base), base]
     for _ in range(14):
         tab.append(mul16(P, tab[-1], base))
     acc = tab[0]
@@ -483,7 +544,12 @@ def mont_pow_plain(F, a: torch.Tensor, e: int) -> torch.Tensor:
         for _ in range(4):
             acc = mul16(P, acc, acc)
         acc = mul16(P, acc, tab[d])
-    return from16(acc.contiguous())
+    return acc
+
+
+def mont_pow_plain(F, a: torch.Tensor, e: int) -> torch.Tensor:
+    _check(a)
+    return from16(pow16(field16(F, a.device), to16(a), e).contiguous())
 
 
 def mont_pow(F, a: torch.Tensor, e: int) -> torch.Tensor:
@@ -567,27 +633,37 @@ def _ec_scan_plain(F, x, y, z, mixed: bool, fused: bool):
     parts = [torch.empty((NL, rows, LANES, cp), dtype=torch.int32, device=x.device)
              for _ in range(3)]
     step = ec_madd16 if mixed else ec_add16
+    # Lanes above the last one that holds data stay the identity, and a
+    # complete add with the identity returns its other operand exactly, so
+    # the plain version adds only where both operands may hold a point:
+    # the kernel's values, with less work when a row is short.
+    live = -(-n // cp)
     carry = tuple(to16(t[..., 0]) for t in ins)
     for c in range(cp):
         if c:
-            carry = step(P, carry, tuple(to16(t[..., c]) for t in ins))
+            head = step(P, tuple(t[..., :live] for t in carry),
+                        tuple(to16(t[..., :live, c]) for t in ins))
+            carry = tuple(torch.cat([h, t[..., live:]], -1) for h, t in zip(head, carry))
         for dst, v in zip(parts, carry):
             dst[..., c] = from16(v)
     zero = torch.zeros((16, 1, 1), dtype=torch.int64, device=x.device)
     excl = tuple(_shift_lanes(t, 1, zero) for t in carry)
-    s = 1
+    hi, s = live, 1  # lanes above hi hold the identity
     while s < LANES:
-        excl = ec_add16(P, excl, tuple(_shift_lanes(t, s, zero) for t in excl))
+        top = min(LANES, hi + s + 1)
+        new = ec_add16(P, tuple(t[..., s:top] for t in excl), tuple(t[..., : top - s] for t in excl))
+        excl = tuple(torch.cat([t[..., :s], u, t[..., top:]], -1) for t, u in zip(excl, new))
+        hi = min(LANES - 1, hi + s)
         s *= 2
     batch = x.shape[1:-1]
     if not fused:
         partial = tuple(t.reshape(NL, *batch, npad) for t in parts)
         return partial, tuple(from16(t).reshape(NL, *batch, LANES) for t in excl), cp
-    out = []
-    pe = tuple(t[..., None].expand(16, rows, LANES, cp) for t in excl)
-    for t in ec_add16(P, pe, tuple(to16(t) for t in parts)):
-        out.append(from16(t).reshape(NL, rows, npad)[..., :n].reshape(x.shape))
-    return tuple(out)
+    # phase 3 on the n live positions only (the output drops the padding)
+    pe = tuple(t[..., None].expand(16, rows, LANES, cp).reshape(16, rows, npad)[..., :n]
+               for t in excl)
+    ps = tuple(to16(t).reshape(16, rows, npad)[..., :n] for t in parts)
+    return tuple(from16(t).reshape(x.shape) for t in ec_add16(P, pe, ps))
 
 
 def ec_prefix_scan_parts_plain(F, x, y, z, mixed: bool = False):
@@ -641,6 +717,178 @@ def ec_prefix_scan_fused(F, x, y, z):
 
 
 # ---------------------------------------------------------------------------
+# K8 combine_windows
+# ---------------------------------------------------------------------------
+
+
+def combine_windows_plain(F, c: int, wx, wy, wz):
+    _check(wx, wy, wz)
+    P = field16(F, wx.device)
+    win = [to16(t) for t in (wx, wy, wz)]
+    acc = tuple(torch.zeros_like(t[:, 0]) for t in win)  # the identity
+    for w in range(wx.shape[1] - 1, -1, -1):
+        for _ in range(c):
+            acc = ec_double16(P, acc)
+        acc = ec_add16(P, acc, tuple(t[:, w] for t in win))
+    return tuple(from16(t.contiguous()) for t in acc)
+
+
+def combine_windows(F, c: int, wx, wy, wz):
+    """Pippenger window recombination sum_w 2^(cw) * win_w for every column:
+    (8, W, b) Jacobian window sums -> (8, b). Horner from the top window:
+    c doublings, then a general add of the next window."""
+    dev = _check(wx, wy, wz)
+    if wx.dim() != 3:
+        raise ValueError(f"window sums are (8, W, b), got {tuple(wx.shape)}")
+    if c < 1:
+        raise ValueError(f"window size must be positive, got {c}")
+    if dev.type == "cpu":
+        return combine_windows_plain(F, c, wx, wy, wz)
+    W, b = wx.shape[1], wx.shape[2]
+    out = tuple(torch.empty((NL, b), dtype=torch.int32, device=dev) for _ in range(3))
+    lib = LIBRARY.load().curve
+    _launch(lib, "pst_combine_windows", "pst_curve_error_string", dev,
+            _field_words(F), *_ptrs((wx, wy, wz)), *_ptrs(out), W, b, c)
+    LAUNCHES["combine_windows"] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# K10 sponge_squeeze2, bits128, K11 endo_inv
+# ---------------------------------------------------------------------------
+
+
+def _words(x: int) -> list[int]:
+    return [(x >> (32 * i)) & 0xFFFFFFFF for i in range(NL)]
+
+
+@functools.lru_cache(maxsize=None)
+def _sponge_consts(params, device: str) -> torch.Tensor:
+    p = params.field.p
+    rmod = (1 << 256) % p
+    rcs = [v for row in params.round_constants[: params.rounds_full] for v in row]
+    mds = [v for row in params.mds for v in row]
+    cols = [_words(v % p * rmod % p) for v in rcs + mds]
+    arr = torch.tensor(cols, dtype=torch.int64).T.contiguous()
+    return torch.where(arr >= 1 << 31, arr - (1 << 32), arr).to(torch.int32).to(device)
+
+
+def sponge_consts(params, device) -> torch.Tensor:
+    """(8, 3 * rounds + 9) Montgomery constants of one Poseidon parameter
+    set on `device`: rc[r][j] in column 3r + j, then mds[i][j] in column
+    3 * rounds + 3i + j. Built once per (parameter set, device)."""
+    if params.initial_ark or params.sbox != 7 or params.sponge_width != 3:
+        raise ValueError(f"sponge_squeeze2 runs the kimchi permutation, not {params.name}")
+    return _sponge_consts(params, str(torch.device(device)))
+
+
+def _sponge_args(nrounds: int, state, xs, ys, consts) -> torch.device:
+    dev = _check(state, xs, ys, consts, same_shape=False)
+    if (state.shape, xs.shape, ys.shape) != ((NL, 3), (NL, 2), (NL, 2)):
+        raise ValueError("sponge_squeeze2 takes state (8, 3) and xs, ys (8, 2)")
+    if consts.shape != (NL, 3 * nrounds + 9):
+        raise ValueError(f"constants {tuple(consts.shape)} do not match {nrounds} rounds")
+    return dev
+
+
+def sponge_squeeze2_plain(F, nrounds: int, state, xs, ys, consts):
+    _sponge_args(nrounds, state, xs, ys, consts)
+    P = field16(F, state.device)
+    c16 = to16(consts)
+    rc = c16[:, : 3 * nrounds].reshape(16, nrounds, 3)
+    mds = c16[:, 3 * nrounds :]  # (16, 9), mds[i][j] in column 3i + j
+    x16, y16 = to16(xs), to16(ys)
+    zero = torch.zeros_like(x16[:, :1])
+
+    def permute(s):
+        for r in range(nrounds):
+            x2 = mul16(P, s, s)
+            x3 = mul16(P, x2, s)
+            t = mul16(P, mul16(P, x3, x3), s)  # x^7
+            prod = mul16(P, mds, t.repeat(1, 3)).view(16, 3, 3)
+            s = add16(P, add16(P, add16(P, prod[..., 0], prod[..., 1]), prod[..., 2]), rc[:, r])
+        return s
+
+    st = to16(state)
+    for k in range(2):
+        st = permute(add16(P, st, torch.cat([x16[:, k : k + 1], y16[:, k : k + 1], zero], 1)))
+    one_std = torch.zeros_like(zero)
+    one_std[0] = 1
+    return from16(st.contiguous()), from16(mul16(P, st[:, :1], one_std).contiguous())
+
+
+def sponge_squeeze2(F, nrounds: int, state, xs, ys, consts):
+    """Two sponge steps of the IPA round and the challenge read, over the
+    base field F: absorb (x_L, y_L), permute, absorb (x_R, y_R), permute;
+    returns (state' (8, 3) Montgomery, chal (8, 1) = REDC(state'[0]),
+    canonical). Points at infinity arrive as (0, 0)."""
+    dev = _sponge_args(nrounds, state, xs, ys, consts)
+    if dev.type == "cpu":
+        return sponge_squeeze2_plain(F, nrounds, state, xs, ys, consts)
+    st = torch.empty_like(state)
+    chal = torch.empty((NL, 1), dtype=torch.int32, device=dev)
+    lib = LIBRARY.load().field
+    _launch(lib, "pst_sponge_squeeze2", "pst_field_error_string", dev,
+            _field_words(F), *_ptrs((state, xs, ys, consts)), nrounds, st.data_ptr(),
+            chal.data_ptr())
+    LAUNCHES["sponge_squeeze2"] += 1
+    return st, chal
+
+
+def bits128(chal: torch.Tensor) -> torch.Tensor:
+    """(8, 1) canonical limbs -> the low 128 bits as a (128,) int32 tensor,
+    least significant first (a torch op on the tensor's device)."""
+    j = torch.arange(128, device=chal.device)
+    words = chal[:4, 0].to(torch.int64) & 0xFFFFFFFF
+    return ((words[j // 32] >> (j % 32)) & 1).to(torch.int32)
+
+
+def _endo_args(bits) -> torch.device:
+    if bits.dtype != torch.int32 or tuple(bits.shape) != (128,) or not bits.is_contiguous():
+        raise ValueError(f"challenge bits are a contiguous (128,) int32 tensor, got {bits.shape}")
+    if bits.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {bits.device}")
+    return bits.device
+
+
+def endo_inv_plain(F, endo: int, bits):
+    _endo_args(bits)
+    P = field16(F, bits.device)
+    one = P.col(P.one16, 1)
+    a = b = add16(P, one, one)
+    hot = bits.to(torch.bool)
+    for i in range(63, -1, -1):
+        a = add16(P, a, a)
+        b = add16(P, b, b)
+        r0, r1 = hot[2 * i], hot[2 * i + 1]
+        a_s = torch.where(r0, add16(P, a, one), sub16(P, a, one))
+        b_s = torch.where(r0, add16(P, b, one), sub16(P, b, one))
+        a, b = torch.where(r1, a_s, a), torch.where(r1, b, b_s)
+    endo16 = torch.tensor(limbs16(endo % F.p * F.r_mod_p % F.p), device=bits.device)[:, None]
+    u = add16(P, mul16(P, a, endo16), b)
+    return from16(u.contiguous()), from16(pow16(P, u, F.p - 2).contiguous())
+
+
+def endo_inv(F, endo: int, bits):
+    """ScalarChallenge.to_field of the 128 challenge bits (least significant
+    first) and the Fermat inverse of the result: (u, u^-1), (8, 1) each,
+    Montgomery, over the scalar field F. endo: the curve's endo_r."""
+    dev = _endo_args(bits)
+    if dev.type == "cpu":
+        return endo_inv_plain(F, endo, bits)
+    digits = bytes(pow_digits(F.p - 2))
+    endo_words = (ctypes.c_uint32 * NL)(*_words(endo % F.p * F.r_mod_p % F.p))
+    u = torch.empty((NL, 1), dtype=torch.int32, device=dev)
+    u_inv = torch.empty_like(u)
+    lib = LIBRARY.load().field
+    _launch(lib, "pst_endo_inv", "pst_field_error_string", dev,
+            _field_words(F), ctypes.addressof(endo_words), digits, len(digits),
+            bits.data_ptr(), u.data_ptr(), u_inv.data_ptr())
+    LAUNCHES["endo_inv"] += 1
+    return u, u_inv
+
+
+# ---------------------------------------------------------------------------
 # Launch counts
 # ---------------------------------------------------------------------------
 
@@ -652,6 +900,9 @@ WRAPPERS = {
     "mont_prefix_scan": mont_prefix_scan,
     "ec_prefix_scan_parts": ec_prefix_scan_parts,
     "ec_prefix_scan_fused": ec_prefix_scan_fused,
+    "combine_windows": combine_windows,
+    "sponge_squeeze2": sponge_squeeze2,
+    "endo_inv": endo_inv,
 }
 
 # Kernel launches per wrapper: each wrapper adds one where it launches its

@@ -85,10 +85,17 @@ class DeviceField:
         self.kernel_params = np.array(
             int_to_words(p) + [self.pinv] + int_to_words(self.r_mod_p), dtype=np.uint32
         )
+        self._cols: dict[tuple[int, str], torch.Tensor] = {}
 
     def const(self, x: int, batch_shape=(), *, device) -> torch.Tensor:
-        """Canonical constant broadcast to (8, *batch_shape) (a view)."""
-        col = torch.tensor(ints_to_limbs([x % self.p]), device=device)
+        """Canonical constant broadcast to (8, *batch_shape) (a read-only
+        view). The column is copied to the device once per (value, device):
+        a copy from host memory waits for the stream, so constants made
+        inside a loop would otherwise stall the card at every use."""
+        key = (x % self.p, str(torch.device(device)))
+        col = self._cols.get(key)
+        if col is None:
+            col = self._cols[key] = torch.tensor(ints_to_limbs([key[0]]), device=device)
         return col.reshape((NLIMBS,) + (1,) * len(batch_shape)).expand(NLIMBS, *batch_shape)
 
     def const_mont(self, x: int, batch_shape=(), *, device) -> torch.Tensor:

@@ -1,24 +1,32 @@
-"""Multi-scalar multiplication (Pippenger) over pre-scaled bases, on device.
+"""Multi-scalar multiplication (Pippenger) on device.
 
-Counterpart of the scaled-basis path of proof_systems_tpu/ops/msm.py
-(`_window_sums_body`'s device branch, `sum_windows`, `_msm_affine_scaled`,
+Counterpart of proof_systems_tpu/ops/msm.py (`_window_sums_body`,
+`sum_windows`, `_combine_windows_body`, `_msm_affine`, `_msm_affine_scaled`,
 `msm`). All W windows and all b MSMs of a batch are folded into leading
 axes (W, b):
 
   - digits: c-bit windows of the canonical scalars;
   - bucket accumulation: sort each (window, MSM) row by digit with a packed
-    int64 key, gather the pre-scaled affine-encoded points in that order,
-    and run the blocked prefix scan K6 (mixed additions); the bucket sums
-    are differences of prefix values at the bucket boundaries, found by
-    searchsorted and rebuilt as excl[j // cp] + partial[j] (K2);
+    int64 key, gather the affine-encoded points in that order (x, y and the
+    infinity flag; z is rebuilt from the flag), and run the blocked prefix
+    scan K6 (mixed additions); the bucket sums are differences of prefix
+    values at the bucket boundaries, found by searchsorted and rebuilt as
+    excl[j // cp] + partial[j] (K2);
   - weighted bucket reduction sum_d d*B_d: a suffix scan (K7) and a sum
     (K6 + one K2 add);
-  - windows: bases are pre-scaled by 2^(cw) (scale_basis, K3), so the W
-    window sums combine by a log2(W) pairwise tree of K2 adds, then one
-    affine normalisation (K1, K4, K5).
+  - windows, two ways:
+      scaled: the bases are pre-scaled by 2^(cw) (scale_basis, K3), so the
+        W window sums combine by a log2(W) pairwise tree of K2 adds;
+      unscaled: one set of bases for every window, and the window sums
+        combine by the Horner chain of K8 (combine_windows). Bases that
+        change per call (the verifier, the IPA rounds) take this path;
+    then one affine normalisation (K1, K4, K5).
 
-The sort, gathers and searchsorted are torch ops, as they were XLA ops in
-the JAX package.
+The point sources of the bucket gather are a scaled basis (8, W, n), affine
+bases shared by the batch (8, n) or one set per MSM (8, b, n), or a table
+with pre-composed row indices (table (8, R), row_idx (W, b, n)). The sort,
+gathers and searchsorted are torch ops, as they were XLA ops in the JAX
+package.
 """
 
 from __future__ import annotations
@@ -67,12 +75,28 @@ def sort_digits(digits: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return key & ((1 << idx_bits) - 1), key >> idx_bits
 
 
-def gather_window_points(spoints: JPoint, order: torch.Tensor) -> JPoint:
-    """Points of the (8, W, n) scaled basis in each row's sorted order:
-    (8, W, b, n), one gather of global row indices per coordinate."""
-    W, n = spoints.x.shape[1], spoints.x.shape[2]
-    flat = order + (torch.arange(W, device=order.device) * n)[:, None, None]
-    return map_points(lambda t: t.reshape(limb.NLIMBS, W * n)[:, flat], spoints)
+def gather_points(curve: DeviceCurve, source, order: torch.Tensor) -> JPoint:
+    """Affine-encoded points of each (window, MSM) row in sorted order,
+    (8, W, b, n): one flat table of points (x, y, infinity flag) and global
+    row indices into it; z is rebuilt from the flag (0 or one)."""
+    W, b, n = order.shape
+    if isinstance(source, JPoint):  # scaled basis (8, W, n), z in {0, R}
+        table = APoint(source.x.reshape(limb.NLIMBS, W * n), source.y.reshape(limb.NLIMBS, W * n),
+                       limb.is_zero(curve.F, source.z).reshape(W * n))
+        rows = order + (torch.arange(W, device=order.device) * n)[:, None, None]
+    elif isinstance(source, APoint):
+        if source.x.dim() == 2:  # (8, n) shared by every window and MSM
+            table, rows = source, order
+        else:  # (8, b, n): one point set per MSM
+            table = APoint(source.x.reshape(limb.NLIMBS, b * n), source.y.reshape(limb.NLIMBS, b * n),
+                           source.inf.reshape(b * n))
+            rows = order + (torch.arange(b, device=order.device) * n)[None, :, None]
+    else:  # (table (8, R), row_idx (W, b, n)): indices composed by the caller
+        table, row_idx = source
+        rows = torch.gather(row_idx, -1, order)
+    one = curve.F.one_mont((W, b, n), device=order.device)
+    z = limb.select(table.inf[rows], one.new_zeros(()), one)
+    return JPoint(table.x[:, rows], table.y[:, rows], z)
 
 
 def _ec_prefix(curve: DeviceCurve, pts: JPoint) -> JPoint:
@@ -121,17 +145,17 @@ def sum_windows(curve: DeviceCurve, wins: JPoint) -> JPoint:
     return JPoint(*(t[:, 0] for t in wins))
 
 
-def window_sums(curve: DeviceCurve, scalars: torch.Tensor, spoints: JPoint, c: int) -> JPoint:
+def window_sums(curve: DeviceCurve, scalars: torch.Tensor, source, c: int) -> JPoint:
     """All per-window Pippenger partial sums, batch shape (W, b).
 
-    scalars: (8, b, n) canonical (standard-form) limbs. spoints: the (8, W, n)
-    scaled basis, which MUST be affine-encoded (z in {0, R}): the bucket
-    scan uses mixed additions."""
+    scalars: (8, b, n) canonical (standard-form) limbs. source: the points,
+    in one of the forms of gather_points. A scaled basis MUST be
+    affine-encoded (z in {0, R}): only its infinity flag is gathered."""
     W, D = num_windows(c), 1 << c
     b, n = scalars.shape[1], scalars.shape[2]
     dev = scalars.device
     order, sdig = sort_digits(window_digits(scalars, c))
-    jac = gather_window_points(spoints, order)
+    jac = gather_points(curve, source, order)
 
     # bucket boundaries: ends[d] = #elements with digit <= d
     partial, excl, cp = kernels.ec_prefix_scan_parts(curve.F, *jac, mixed=True)
@@ -158,9 +182,21 @@ def window_sums(curve: DeviceCurve, scalars: torch.Tensor, spoints: JPoint, c: i
     return JPoint(*(t[..., 0] for t in win))
 
 
+def combine_windows(curve: DeviceCurve, c: int, wins: JPoint) -> JPoint:
+    """sum_w 2^(cw) * wins[:, w] over axis 1 (unscaled bases): K8's Horner
+    chain, one thread per MSM."""
+    return JPoint(*kernels.combine_windows(curve.F, c, *map_points(torch.Tensor.contiguous, wins)))
+
+
 def msm_affine_scaled(curve: DeviceCurve, scalars: torch.Tensor, spoints: JPoint, c: int) -> APoint:
     """b MSMs over the scaled basis; affine results, batch shape (b,)."""
     return curve.to_affine(sum_windows(curve, window_sums(curve, scalars, spoints, c)))
+
+
+def msm_affine(curve: DeviceCurve, scalars: torch.Tensor, points, c: int) -> APoint:
+    """b MSMs over unscaled bases (any source of gather_points); affine
+    results, batch shape (b,)."""
+    return curve.to_affine(combine_windows(curve, c, window_sums(curve, scalars, points, c)))
 
 
 def default_window_bits(n: int) -> int:
@@ -192,25 +228,34 @@ def msm(
 
     scalars_std: (8, b, n) canonical standard-form limbs (not Montgomery),
     on `device` (the CUDA card unless device="cpu"). points: the n affine
-    bases; scaled: their pre-scaled windows at window size c (built here
-    from `points` when not given)."""
+    bases (8, n), shared by the batch; scaled: their pre-scaled windows at
+    window size c. With `scaled` the MSM takes the scaled path; with only
+    `points` the unscaled path (window sums, then K8), as the JAX package
+    does for bases that change per call."""
     check_device(scalars_std, resolve_device(device), "scalars")
     curve = device_curve(curve_params)
     b, n = scalars_std.shape[1], scalars_std.shape[2]
     if c is None:
         c = default_window_bits(n)
     windows = num_windows(c)
-    if scaled is None:
-        if points is None:
-            raise ValueError("msm needs the points or their scaled basis")
-        scaled = scale_basis(curve, points, c, windows)
-    if tuple(scaled.x.shape[1:]) != (windows, n):
-        raise ValueError(f"scaled basis {tuple(scaled.x.shape)} does not match c={c}, n={n}")
+    if scaled is not None:
+        if tuple(scaled.x.shape[1:]) != (windows, n):
+            raise ValueError(f"scaled basis {tuple(scaled.x.shape)} does not match c={c}, n={n}")
+
+        def run(part):
+            return msm_affine_scaled(curve, part, scaled, c)
+    elif points is not None:
+        if tuple(points.x.shape) != (limb.NLIMBS, n):
+            raise ValueError(f"points {tuple(points.x.shape)} do not match n={n}")
+
+        def run(part):
+            return msm_affine(curve, part, points, c)
+    else:
+        raise ValueError("msm needs the points or their scaled basis")
     split = b
     while split > 1 and windows * split * n > MAX_WINDOW_ELEMS:
         split = -(-split // 2)
     out = []
     for lo in range(0, b, split):
-        part = scalars_std[:, lo : lo + split]
-        out.extend(curve.unpack_affine(msm_affine_scaled(curve, part, scaled, c)))
+        out.extend(curve.unpack_affine(run(scalars_std[:, lo : lo + split])))
     return out

@@ -102,6 +102,24 @@ class NttPlan:
         return self.intt_t(evals, self.inv_twiddles)
 
 
+def sum_mod(F: DeviceField, a: torch.Tensor) -> torch.Tensor:
+    """Modular sum along the last axis by a halving tree of field adds.
+
+    a: (8, ..., n) with n a power of two. Returns (8, ..., 1)."""
+    n = a.shape[-1]
+    if n & (n - 1):
+        raise ValueError(f"sum_mod needs a power-of-two length, got {n}")
+    while n > 1:
+        n //= 2
+        a = limb.add(F, a[..., :n], a[..., n:])
+    return a
+
+
+def dot_mod(F: DeviceField, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """<a, b> over the field along the last (power-of-two) axis."""
+    return sum_mod(F, limb.mont_mul(F, a, b))
+
+
 @functools.lru_cache(maxsize=None)
 def _plan(field: FieldParams, log_n: int, device: torch.device) -> NttPlan:
     return NttPlan(field, log_n, device)

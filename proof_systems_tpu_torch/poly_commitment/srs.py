@@ -104,6 +104,7 @@ class SRS:
         self.device = device
         self._g_dev: APoint | None = None
         self._gh_dev: APoint | None = None
+        self._hg_dev: APoint | None = None
         self._scaled: dict[int, JPoint] = {}
 
     @classmethod
@@ -142,6 +143,16 @@ class SRS:
             )
         return self._gh_dev
 
+    @property
+    def hg_dev(self) -> APoint:
+        """[h] ++ g: the fixed head of the verifier's MSM basis, packed once
+        per SRS (verify_batch packs only the per-proof points per call)."""
+        if self._hg_dev is None:
+            self._hg_dev = device_curve(self.curve).pack_affine(
+                [self.h] + self.g, device=self.device
+            )
+        return self._hg_dev
+
     def scaled_basis(self, c: int) -> JPoint:
         """Pre-scaled windows 2^(cw)*(g ++ [h]), (8, W, n + 1), cached per
         window size (fixed per SRS, so commits skip the Horner chain)."""
@@ -151,6 +162,13 @@ class SRS:
         return self._scaled[c]
 
     # -- committing --------------------------------------------------------
+
+    def mask(self, comm: PolyComm, blinders: list[int]) -> PolyComm:
+        """Hiding on the host: chunk_i + blinders_i * H (ipa.rs mask_custom)."""
+        c = self.curve
+        return PolyComm(
+            [c.add(ch, c.scalar_mul(w, self.h)) for ch, w in zip(comm.chunks, blinders)]
+        )
 
     def _commit_rows(self, rows: torch.Tensor) -> list:
         """MSMs of (8, B, n + 1) standard-form scalar rows over g ++ [h]."""

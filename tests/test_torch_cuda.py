@@ -84,3 +84,61 @@ def test_wrappers_reject_mixed_devices(dev):
     a = F.pack([1, 2], device=dev)
     with pytest.raises(ValueError):
         kernels.mont_mul(F, a, a.cpu())
+
+
+def _window_partials(rng, dev, W, b):
+    """(8, W, b) general Jacobian window sums (z != 1), one at infinity."""
+    dc = device_curve(Vesta)
+    g = Vesta.generator
+    pts = [Vesta.scalar_mul(rng.randrange(1, Vesta.scalar.p), g) for _ in range(W * b)]
+    pts[1] = None
+    J = dc.double(dc.to_jacobian(dc.pack_affine(pts, device=dev)))
+    return dc, [t.reshape(8, W, b).contiguous() for t in J]
+
+
+def test_combine_windows_matches_plain(dev):
+    """K8 at the verifier's shape (W = 24, c = 11, b = 1) and a fold
+    step's (b = 2), and at W = 3, c = 2, b = 130 (more than one block)."""
+    rng = random.Random(603)
+    for W, b, c in [(24, 1, 11), (26, 2, 10), (3, 130, 2)]:
+        dc, win = _window_partials(rng, dev, W, b)
+        got, want = _pair("combine_windows", dc.F, c, *win)
+        for x, y in zip(got, want):
+            assert torch.equal(x, y), (W, b, c)
+
+
+def test_sponge_squeeze2_matches_plain_and_host(dev):
+    """K10 on the kimchi Fq sponge, with L at infinity as (0, 0)."""
+    from proof_systems_tpu_torch.poseidon import fq_kimchi, poseidon_block_cipher
+
+    rng = random.Random(604)
+    Fqd = limb.device_field(Fq)
+    state = [rng.randrange(Fq.p) for _ in range(3)]
+    R = Vesta.scalar_mul(rng.randrange(1, Vesta.scalar.p), Vesta.generator)
+    xs, ys = [0, R[0]], [0, R[1]]
+    args = (Fqd, fq_kimchi.rounds_full, Fqd.pack_mont(state, device=dev),
+            Fqd.pack_mont(xs, device=dev), Fqd.pack_mont(ys, device=dev),
+            kernels.sponge_consts(fq_kimchi, dev))
+    (st, chal), (st_p, chal_p) = _pair("sponge_squeeze2", *args)
+    assert torch.equal(st, st_p) and torch.equal(chal, chal_p)
+    host = list(state)
+    for k in range(2):
+        host[0] = (host[0] + xs[k]) % Fq.p
+        host[1] = (host[1] + ys[k]) % Fq.p
+        poseidon_block_cipher(fq_kimchi, host)
+    assert Fqd.unpack_mont(st) == host
+    assert Fqd.unpack(chal) == [host[0]]
+
+
+@pytest.mark.parametrize("pattern", ["zeros", "ones", "random"])
+def test_endo_inv_matches_plain(dev, pattern):
+    rng = random.Random(605)
+    bits = {"zeros": [0] * 128, "ones": [1] * 128,
+            "random": [rng.randrange(2) for _ in range(128)]}[pattern]
+    F = limb.device_field(Fp)
+    endo_r = Vesta.endos[1]
+    t = torch.tensor(bits, dtype=torch.int32, device=dev)
+    (u, u_inv), (u_p, u_inv_p) = _pair("endo_inv", F, endo_r, t)
+    assert torch.equal(u, u_p) and torch.equal(u_inv, u_inv_p)
+    [uv], [uiv] = F.unpack_mont(u), F.unpack_mont(u_inv)
+    assert uv * uiv % Fp.p == 1

@@ -1,7 +1,9 @@
 """The port's Pippenger MSM (proof_systems_tpu_torch.ops.msm) on the CPU,
-where the plain versions of K2, K6 and K7 run inside it, against the JAX
-package's _msm_affine_scaled and the host golden MSM; and K6's
-reconstruction identity against ops/scan.blocked_prefix_scan.
+where the plain versions of K2, K6, K7 and K8 run inside it, against the
+JAX package's _msm_affine_scaled and the host golden MSM, over pre-scaled
+bases and over unscaled ones (shared, one set per MSM, and a table with
+composed row indices); and K6's reconstruction identity against
+ops/scan.blocked_prefix_scan.
 
 Scaled bases are built with exact host arithmetic, as
 tests/test_msm_graph.py does (the doubling chain is slow on the CPU)."""
@@ -91,14 +93,20 @@ def test_msm_b1_small_c_matches_host(c):
 
 
 def test_msm_builds_scaled_basis_and_splits(monkeypatch):
-    """Without a scaled basis msm builds one (K3 chain); a small batch limit
-    forces the batch split."""
+    """Without a scaled basis msm takes the unscaled path (window sums, then
+    K8), as the JAX package does, and builds no scaled basis; a small batch
+    limit forces the batch split."""
     rng = random.Random(404)
     n, b, c = 6, 2, 6
     pts = rand_points(rng, n)
     dc = device_curve(Vesta)
     rows, scal = scalar_rows(rng, b, n)
     monkeypatch.setattr(msm, "MAX_WINDOW_ELEMS", msm.num_windows(c) * n)
+
+    def no_scaled_basis(*args):
+        raise AssertionError("msm built a scaled basis for unscaled points")
+
+    monkeypatch.setattr(msm, "scale_basis", no_scaled_basis)
     got = msm.msm(Vesta, scal, dc.pack_affine(pts, device="cpu"), c=c, device="cpu")
     assert got == [Vesta.msm(row, pts) for row in rows]
 
@@ -170,3 +178,43 @@ def test_window_digits_sort_and_gather():
          for w in range(msm.num_windows(c))]
     )
     assert np.array_equal(jdig, digits.numpy())
+
+
+@pytest.mark.parametrize("b", [1, 2])
+def test_unscaled_msm_matches_jax_host_msm(b):
+    """msm() over shared affine bases with no scaled basis, at the default
+    window size, against the JAX package's msm (its host path on the CPU);
+    a point at infinity among the bases."""
+    rng = random.Random(407 + b)
+    n = 12
+    pts = rand_points(rng, n)
+    pts[4] = None
+    rows, scal = scalar_rows(rng, b, n)
+    dc = device_curve(Vesta)
+    got = msm.msm(Vesta, scal, dc.pack_affine(pts, device="cpu"), device="cpu")
+    jdc = jdevice_curve(JVesta)
+    want = jmsm.msm(JVesta, jnp.asarray(convert.limbs_to_numpy(scal)), jdc.pack_affine(pts))
+    assert got == want
+
+
+@pytest.mark.parametrize("source", ["per_msm_points", "table_rows"])
+def test_unscaled_sources_match_host_msm(source):
+    """b = 2 MSMs over one point set each, given as (8, b, n) bases or as
+    a packed table with composed row indices (the IPA rounds' forms), with
+    a point at infinity."""
+    rng = random.Random(409)
+    n, b, c = 10, 2, 6
+    table_pts = rand_points(rng, 2 * n)
+    table_pts[3] = None
+    sets = [table_pts[:n], table_pts[n:][::-1]]  # MSM 0 and MSM 1
+    rows, scal = scalar_rows(rng, b, n)
+    dc = device_curve(Vesta)
+    if source == "per_msm_points":
+        A = dc.pack_affine(sets[0] + sets[1], device="cpu")
+        src = type(A)(A.x.reshape(8, b, n), A.y.reshape(8, b, n), A.inf.reshape(b, n))
+    else:
+        idx = torch.tensor([list(range(n)), list(range(2 * n - 1, n - 1, -1))])
+        src = (dc.pack_affine(table_pts, device="cpu"), idx.expand(msm.num_windows(c), b, n))
+    got = dc.unpack_affine(msm.msm_affine(dc, scal, src, c))
+    want = [JVesta.msm(row, pts) for row, pts in zip(rows, sets)]
+    assert got == want
