@@ -257,7 +257,7 @@ def _serial(t: torch.Tensor) -> bool:
     the launches no longer dominate; for a narrow one its many small ops
     cost more than the word's fixed handful. The crossover is lower on the
     CPU, where an op costs microseconds, than on the card, where
-    scripts/torch_carry_ab.py finds it between 2^18 and 2^20 elements."""
+    scripts/torch_carry_ab.py finds it between 2^19 and 2^20 elements."""
     return t[0].numel() > (1 << 19 if t.is_cuda else 1 << 12)
 
 

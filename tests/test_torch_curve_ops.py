@@ -65,6 +65,18 @@ def test_add_double_neg_match_jax(name):
     assert same_limbs(dc.neg(P), jdc.neg(jP))
 
 
+def test_select_matches_jax():
+    """DeviceCurve.select per batch lane, with infinity on either side."""
+    rng = random.Random(204)
+    ps, qs = special_pairs(Vesta, rng)
+    cond = [rng.randrange(2) == 1 for _ in ps]
+    jdc, dc = jdevice_curve(JVesta), device_curve(Vesta)
+    jP, jQ = jdc.to_jacobian(jdc.pack_affine(ps)), jdc.to_jacobian(jdc.pack_affine(qs))
+    got = dc.select(torch.tensor(cond), to_port(jP), to_port(jQ))
+    assert same_limbs(got, jdc.select(np.array(cond), jP, jQ))
+    assert dc.unpack_jacobian(got) == [p if c else q for c, p, q in zip(cond, ps, qs)]
+
+
 @pytest.mark.parametrize("m", [8, 6], ids=["pow2-batch-inverse", "elementwise-inverse"])
 def test_to_affine_both_branches(m):
     """m = 8 goes through batch_inverse (K5 + K4), m = 6 through inv (K4)."""

@@ -63,3 +63,22 @@ def test_eval_at2_matches_jax_and_host():
     jc = jnp.asarray(convert.limbs_to_numpy(c_t))
     want = jpoly.eval_at2(JF, jc, jpoly.powers_dev(JF, za, L), jpoly.powers_dev(JF, zb, L))
     assert got == want
+
+
+def test_eval_at_matches_jax_and_host():
+    """One point, with the power vector shared by the rows (8, L) and given
+    per row (8, b, L)."""
+    pyrng = random.Random(13)
+    b, L = 2, 21
+    coeffs = [[pyrng.randrange(f.p) for _ in range(L)] for _ in range(b)]
+    z = pyrng.randrange(f.p)
+    F = limb.device_field(f)
+    c_t = F.pack_mont([x for row in coeffs for x in row], shape=(b, L), device="cpu")
+    pw = poly.powers_dev(F, z, L, device="cpu")
+    want = [host_eval(c, z) for c in coeffs]
+    assert poly.eval_at(F, c_t, pw) == want
+    assert poly.eval_at(F, c_t, pw[:, None, :].expand(8, b, L)) == want
+
+    JF = jlimb.device_field(JVesta.scalar)
+    jc = jnp.asarray(convert.limbs_to_numpy(c_t))
+    assert jpoly.eval_at(JF, jc, jpoly.powers_dev(JF, z, L)) == want

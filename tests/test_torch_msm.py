@@ -197,23 +197,24 @@ def test_unscaled_msm_matches_jax_host_msm(b):
     assert got == want
 
 
+@pytest.mark.parametrize("b", [1, 2])
 @pytest.mark.parametrize("source", ["per_msm_points", "table_rows"])
-def test_unscaled_sources_match_host_msm(source):
-    """b = 2 MSMs over one point set each, given as (8, b, n) bases or as
-    a packed table with composed row indices (the IPA rounds' forms), with
-    a point at infinity."""
-    rng = random.Random(409)
-    n, b, c = 10, 2, 6
+def test_unscaled_sources_match_host_msm(source, b):
+    """MSMs over one point set each, given as (8, b, n) bases or as a
+    packed table with composed row indices (the IPA rounds' forms), with a
+    point at infinity."""
+    rng = random.Random(409 + b)
+    n, c = 10, 6
     table_pts = rand_points(rng, 2 * n)
     table_pts[3] = None
-    sets = [table_pts[:n], table_pts[n:][::-1]]  # MSM 0 and MSM 1
+    sets = [table_pts[:n], table_pts[n:][::-1]][:b]  # MSM 0 and MSM 1
     rows, scal = scalar_rows(rng, b, n)
     dc = device_curve(Vesta)
     if source == "per_msm_points":
-        A = dc.pack_affine(sets[0] + sets[1], device="cpu")
+        A = dc.pack_affine([p for pts in sets for p in pts], device="cpu")
         src = type(A)(A.x.reshape(8, b, n), A.y.reshape(8, b, n), A.inf.reshape(b, n))
     else:
-        idx = torch.tensor([list(range(n)), list(range(2 * n - 1, n - 1, -1))])
+        idx = torch.tensor([list(range(n)), list(range(2 * n - 1, n - 1, -1))][:b])
         src = (dc.pack_affine(table_pts, device="cpu"), idx.expand(msm.num_windows(c), b, n))
     got = dc.unpack_affine(msm.msm_affine(dc, scal, src, c))
     want = [JVesta.msm(row, pts) for row, pts in zip(rows, sets)]
