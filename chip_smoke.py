@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Drive the PyTorch + CUDA port's commit, evaluation, opening and
-verification path on one GPU.
+verification path, and a whole Kimchi proof, on one GPU.
 
     python3 chip_smoke.py
 
@@ -21,13 +21,23 @@ Phases, each fatal on failure:
      and one b = 1 commit; the 16 polynomials evaluated at zeta and
      zeta*omega (eval_at2), opened together (ipa.open_proof: 5 fold steps,
      11 masked rounds at 2048 points) and the opening verified
-     (ipa.verify_batch); then the launches of one opening and of one
-     verification, and the steady-state stage times;
+     (ipa.verify_batch); then the proof path: the bench circuit of
+     2^k - 10 Const(1) generic gates through ConstraintSystem.create,
+     ProverIndex, verifier_index, create_proof of the packed witness,
+     verify and serialize_proof; then the launches of one opening, one
+     verification, one proof and one proof's verification, and the
+     steady-state stage times (the proof split by the tracer's checkpoints
+     in a separate, synchronised proof);
   5. every commitment against the native host MSM over g ++ [h], the iNTT
      against the CPU plain path, one b = 1 MSM at c = 10; the evaluations
      against host Horner; every round's L and R, sg, a0 and b0 against the
      host's masked-scalar rounds over the original basis (native MSM); the
-     verifier's rejection of z1 + 1 and of a changed evaluation;
+     verifier's rejection of z1 + 1 and of a changed evaluation; the
+     proof's 15 witness, z and 7 t commitments against the native host
+     MSM, its zero quotient remainder, its 5,306 bytes at k = 16, the
+     verifier's rejection of ft_eval1 + 1 and of a changed witness
+     evaluation, and the fixed 2^5 circuit's proof on the card
+     byte-identical to tests/vectors/proof_2^5.bin;
   6. the kernels' JSON line, the card line, and the result line.
 
 Exits non-zero without a CUDA device. Imports nothing of JAX.
@@ -47,6 +57,7 @@ import torch
 
 SEED = 20261016
 LOG_N = 16
+GOLDEN_PROOF = "tests/vectors/proof_2^5.bin"  # the fixed 2^5 circuit's proof
 COLUMNS = 15  # kimchi witness columns
 BW = 3.35e12  # H100 SXM HBM3, bytes/s (data sheet)
 # 32-bit integer multiply-adds: 64 per SM per clock on sm_90 (half the 128
@@ -70,8 +81,10 @@ SOURCES = {
     "ec_prefix_scan_parts": (CURVE_CU, 1333),
     "ec_prefix_scan_fused": (CURVE_CU, 1410),
     "combine_windows": (CURVE_CU, 560),
+    "linear_scan": (FIELD_CU, 1069),
     "sponge_squeeze2": (FIELD_CU, 646),
     "endo_inv": (FIELD_CU, 742),
+    "mont_prefix_scan_parts": (FIELD_CU, 956),
 }
 # The call of a kernel reported in the JSON line where the main path makes
 # two kinds (the others are printed): K6's mixed bucket scan.
@@ -152,41 +165,44 @@ class Recorder:
         return wrapper
 
 
-class OpenClock:
-    """Wraps the IPA's fold step and masked tail with CUDA events, so that
-    an opening splits into fold steps, tail and the rest (host work and the
-    device work around the rounds)."""
+class Clock:
+    """Wraps functions with CUDA events, so that a stage splits into the
+    device time of each wrapped function (summed per label over its calls)
+    and the rest. targets: (owner, attribute, label) triples; the owner is a
+    module or an object whose attribute the code under test looks up at
+    call time."""
 
-    def __init__(self, ipa) -> None:
-        self.ipa = ipa
+    def __init__(self, targets) -> None:
+        self.targets = targets
         self.events: list[tuple[str, torch.cuda.Event, torch.cuda.Event]] = []
 
     def __enter__(self):
-        self.saved = (self.ipa._ipa_fold_step, self.ipa._ipa_tail_rounds)
-        self.ipa._ipa_fold_step = self._timed("fold", self.saved[0])
-        self.ipa._ipa_tail_rounds = self._timed("tail", self.saved[1])
+        self.saved = [(owner, attr, getattr(owner, attr)) for owner, attr, _ in self.targets]
+        for (owner, attr, label), (_, _, fn) in zip(self.targets, self.saved):
+            setattr(owner, attr, self._timed(label, fn))
         return self
 
     def __exit__(self, *exc):
-        self.ipa._ipa_fold_step, self.ipa._ipa_tail_rounds = self.saved
+        for owner, attr, fn in self.saved:
+            setattr(owner, attr, fn)
 
-    def _timed(self, stage, fn):
+    def _timed(self, label, fn):
         def wrapper(*args, **kw):
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
             out = fn(*args, **kw)
             end.record()
-            self.events.append((stage, start, end))
+            self.events.append((label, start, end))
             return out
 
         return wrapper
 
     def totals(self) -> dict[str, float]:
         torch.cuda.synchronize()
-        out = {"fold": 0.0, "tail": 0.0}
-        for stage, start, end in self.events:
-            out[stage] += start.elapsed_time(end)
+        out = dict.fromkeys((label for _, _, label in self.targets), 0.0)
+        for label, start, end in self.events:
+            out[label] += start.elapsed_time(end)
         return out
 
 
@@ -224,8 +240,11 @@ def point_err(F, p, q) -> int:
 
 
 def outputs_err(name: str, F, got, want) -> int:
-    if name in ("mont_mul", "mont_pow", "mont_prefix_scan"):
+    if name in ("mont_mul", "mont_pow", "mont_prefix_scan", "linear_scan"):
         return field_err(got, want)
+    if name == "mont_prefix_scan_parts":
+        (gp, ge, gc), (wp, we, wc) = got, want
+        return max(field_err(gp, wp), field_err(ge, we)) if gc == wc else 1 << 32
     if name in ("combine_windows", "sponge_squeeze2", "endo_inv"):  # limb for limb
         return max(field_err(a, b) for a, b in zip(got, want))
     if name == "ec_prefix_scan_parts":
@@ -261,6 +280,17 @@ def bound_ms(name: str, args, kw) -> tuple[float, str]:
         nbytes, products = 2 * fe * elems, elems * (14 + 5 * nd)
     elif name == "mont_prefix_scan":
         nbytes, products = 2 * fe * elems, 2 * elems
+    elif name == "mont_prefix_scan_parts":  # partial and excl out
+        from proof_systems_tpu_torch.ops.kernels import scan_geometry
+
+        n = t[0].shape[-1]
+        rows = elems // n
+        nbytes = fe * (elems + rows * 128 * scan_geometry(n)[2] + rows * 128)
+        products = elems + 7 * 128 * rows
+    elif name == "linear_scan":  # chunk chain, lane scan, offsets
+        rows = elems // t[0].shape[-1]
+        nbytes = 2 * fe * elems
+        products = 2 * elems + 7 * 128 * rows
     elif name == "jacobian_add":
         nbytes, products = 9 * fe * elems, PRODUCTS["add"] * elems
     elif name == "jacobian_double":
@@ -283,10 +313,12 @@ def bound_ms(name: str, args, kw) -> tuple[float, str]:
 
 def edge_cases(device, curve_params):
     """Small inputs with the special values: 0, 1, p-1, 2^254-1 for the
-    field kernels; P+P, P+(-P), infinity on either side for the curve
-    kernels; identities inside a scan row of length 300; an infinity
-    window partial for K8; L at infinity, (0, 0), for K10; all-zero and
-    all-one challenge bits for K11."""
+    field kernels; two rows of 300 for K9 with c = 0, 1 (a prefix sum),
+    random and omega^(n - 3), and n = 1; two rows of 8,321 (C = 66,
+    Cp = 70) with a zero element for K12; P+P, P+(-P), infinity on either
+    side for the curve kernels; identities inside a scan row of length 300;
+    an infinity window partial for K8; L at infinity, (0, 0), for K10;
+    all-zero and all-one challenge bits for K11."""
     from proof_systems_tpu_torch.fields import Fp, Fq
     from proof_systems_tpu_torch.ops import limb
     from proof_systems_tpu_torch.ops.curve_ops import device_curve
@@ -306,6 +338,23 @@ def edge_cases(device, curve_params):
             ("mont_pow", [F, a, 5], {}),
             ("mont_prefix_scan", [F, a.reshape(8, 2, 32).contiguous()], {}),
         ]
+
+    F = limb.device_field(Fp)
+
+    def two_rows(n, zero_at=None):
+        xs = [rng.randrange(Fp.p) for _ in range(2 * n)]
+        if zero_at is not None:
+            xs[zero_at] = 0
+        return F.pack_mont(xs, shape=(2, n), device=device)
+
+    r300 = two_rows(300)
+    omega = Fp.root_of_unity(LOG_N)
+    cases += [("linear_scan", [F, r300, c], {})
+              for c in (0, 1, rng.randrange(Fp.p), pow(omega, (1 << LOG_N) - 3, Fp.p))]
+    cases += [
+        ("linear_scan", [F, two_rows(1), 5], {}),
+        ("mont_prefix_scan_parts", [F, two_rows(8321, zero_at=8321 + 40)], {}),
+    ]
     dc = device_curve(curve_params)
     g = curve_params.generator
     pts = [curve_params.scalar_mul(rng.randrange(1, curve_params.scalar.p), g) for _ in range(300)]
@@ -349,6 +398,49 @@ def edge_cases(device, curve_params):
     return cases, (dc, P, Q, want_add)
 
 
+def prefix_dispatch_check(device) -> None:
+    """limb.prefix_mul on both sides of its dispatch, C = 64 chunks of 128
+    (K5) and C = 65 (K12 + K1), against the host's prefix products."""
+    from proof_systems_tpu_torch.fields import Fp
+    from proof_systems_tpu_torch.ops import limb
+
+    F = limb.device_field(Fp)
+    rng = random.Random(SEED + 4)
+    for n in (64 * 128, 64 * 128 + 1):
+        xs = [rng.randrange(Fp.p) for _ in range(n)]
+        acc, want = 1, []
+        for x in xs:
+            acc = acc * x % Fp.p
+            want.append(acc)
+        if F.unpack_mont(limb.prefix_mul(F, F.pack_mont(xs, device=device))) != want:
+            raise AssertionError(f"prefix_mul at n = {n} differs from the host products")
+    log("kernels: prefix_mul at C = 64 (K5) and C = 65 (K12 + K1) equals the host products")
+
+
+def prefix_compare(kernels, args, device, reps: int) -> None:
+    """K5 alone against K12 + K1 (limb.prefix_mul's dispatch) on the row of
+    K12's largest main-path call."""
+    from proof_systems_tpu_torch.ops import limb
+
+    F, x = args
+    k5 = elapsed_ms(lambda: kernels.mont_prefix_scan(F, x), device, reps)
+    both = elapsed_ms(lambda: limb.prefix_mul(F, x), device, reps)
+    log(f"prefix products of {x.shape[-1]} in one row: K5 alone {k5:.4f} ms, "
+        f"K12 + K1 (prefix_mul) {both:.4f} ms")
+
+
+def chain_note(name: str, args) -> str:
+    """The dependent products one thread of a row scan runs."""
+    from proof_systems_tpu_torch.ops.kernels import scan_chunk, scan_geometry
+
+    if name not in ("linear_scan", "mont_prefix_scan", "mont_prefix_scan_parts"):
+        return ""
+    n = args[1].shape[-1]
+    if name == "mont_prefix_scan_parts":
+        return f"; chain {scan_geometry(n)[2]} + 7 products"
+    return f"; chain {scan_chunk(n)} + 7 + 1 products, then {scan_chunk(n)} offsets"
+
+
 def check_kernels(kernels, recorded, device, curve_params) -> list[dict]:
     """Each kernel against its plain version on the recorded main-path
     inputs (timed) and on the edge cases."""
@@ -364,6 +456,7 @@ def check_kernels(kernels, recorded, device, curve_params) -> list[dict]:
     if got != want_add:
         raise AssertionError("jacobian_add edge cases disagree with the host curve")
     log("kernels: edge cases agree with the plain versions (and K2 with the host curve)")
+    prefix_dispatch_check(device)
 
     for key, (_size, args, kw) in sorted(recorded.items()):
         name = key.split("[")[0]
@@ -379,13 +472,15 @@ def check_kernels(kernels, recorded, device, curve_params) -> list[dict]:
         b_ms, b_by = bound_ms(name, args, kw)
         shape = "x".join(str(s) for s in next(a for a in args if torch.is_tensor(a)).shape)
         log(f"kernel {key:28s} shape {shape:22s} {ms:10.4f} ms  plain {plain_s * 1e3:10.1f} ms  "
-            f"bound {b_ms:.3g} ms ({b_by})  max_abs_err {err}")
+            f"bound {b_ms:.3g} ms ({b_by})  max_abs_err {err}{chain_note(name, args)}")
         row = {"name": name, "route": "cuda", "source": SOURCES[name][0],
                "replaces": f"{PALLAS}:{SOURCES[name][1]}", "launches": 0, "max_abs_err": err,
                "ms": ms, "plain_ms": plain_s * 1e3, "bound_ms": b_ms, "bound_by": b_by,
                "library_ms": None}
         if key == JSON_KEY.get(name, name):
             rows[name] = row
+        if name == "mont_prefix_scan_parts":
+            prefix_compare(kernels, args, device, reps)
     missing = set(kernels.WRAPPERS) - set(rows)
     if missing:
         raise AssertionError(f"the main path never called {sorted(missing)}")
@@ -433,7 +528,56 @@ def main_path(log_n: int, device, cache_dir=None):
                blinders=blinders, comms=comms, z_coeffs=z_coeffs, z_blinder=z_blinder,
                z_comm=z_comm, times=times)
     run.update(open_and_verify(run, log_n, device))
+    run.update(prove_path(run, log_n, device))
     return run
+
+
+def prove_path(run, log_n: int, device) -> dict:
+    """The bench circuit of 2^k - 10 Const(1) generic gates through
+    ConstraintSystem.create, ProverIndex and verifier_index (timed apart),
+    create_proof of the witness packed in Montgomery form, verify and
+    serialize_proof over the path's SRS (bench.py:51-96)."""
+    from proof_systems_tpu_torch.circuits.builders import bench_circuit, bench_witness
+    from proof_systems_tpu_torch.circuits.constraints import ConstraintSystem
+    from proof_systems_tpu_torch.curves import Vesta
+    from proof_systems_tpu_torch.fields import Fp
+    from proof_systems_tpu_torch.prover_index import ProverIndex
+    from proof_systems_tpu_torch.serialization import serialize_proof
+
+    n = 1 << log_n
+    times, F = run["times"], run["F"]
+
+    def build():
+        cs = ConstraintSystem.create(Fp, bench_circuit(Fp, n - 10), public=0,
+                                     max_poly_size=n, device=device)
+        return ProverIndex(cs, Vesta, run["srs"])
+
+    index, times["index_s"] = wall(build, device)
+    vk, times["vk_s"] = wall(index.verifier_index, device)
+    host_witness = bench_witness(n - 10)
+    out = dict(index=index, vk=vk, witness=F.pack_mont(
+        [v for col in host_witness for v in col], shape=(COLUMNS, n - 10), device=device))
+    out["proof_debug"] = {}
+    out["kproof"], times["prove_s"] = wall(lambda: prove({**run, **out}, out["proof_debug"]), device)
+    ok, times["verify_proof_s"] = wall(lambda: verify_proof(out, out["kproof"]), device)
+    if not ok:
+        raise AssertionError(f"verify rejected the honest proof at k = {log_n}")
+    out["proof_bytes"] = len(serialize_proof(Vesta, out["kproof"]))
+    return out
+
+
+def prove(run, debug=None):
+    from proof_systems_tpu_torch.prover import create_proof
+    from proof_systems_tpu_torch.utils.rng import TestRng
+
+    return create_proof(run["index"], run["witness"], TestRng(SEED), debug=debug)
+
+
+def verify_proof(run, proof, seed=SEED + 1) -> bool:
+    from proof_systems_tpu_torch.utils.rng import TestRng
+    from proof_systems_tpu_torch.verifier import verify as kimchi_verify
+
+    return kimchi_verify(run["vk"], proof, [], TestRng(seed))
 
 
 def ipa_inputs(log_n: int) -> dict:
@@ -537,7 +681,7 @@ def steady_times(run, device, reps: int = 3) -> dict:
 
     out["eval2_ms"] = elapsed_ms(lambda: evaluate(run), device, reps)
     opens = []
-    with OpenClock(ipa) as clock:
+    with Clock([(ipa, "_ipa_fold_step", "fold"), (ipa, "_ipa_tail_rounds", "tail")]) as clock:
         for _ in range(reps):
             opens.append(wall(lambda: open_proof(run), device)[1] * 1e3)
     stages = clock.totals()
@@ -546,6 +690,61 @@ def steady_times(run, device, reps: int = 3) -> dict:
     out["open_tail_ms"] = stages["tail"] / reps
     out["open_host_ms"] = out["open_ms"] - out["open_fold_steps_ms"] - out["open_tail_ms"]
     out["verify_ms"] = elapsed_ms(lambda: verify(run, run["proof"]), device, reps)
+    out.update(proof_times(run, device, reps))
+    return out
+
+
+# The prover's checkpoints (utils/tracing.py) that open each stage of a proof.
+PROOF_STAGES = [
+    ("witness_commit", "create_recursive"),
+    ("z", "commit_to_witness_columns"),
+    ("quotient", "z_permutation_aggregation_polynomial"),
+    ("t_commit", "commit_quotient"),
+    ("evaluations", "lagrange_basis_eval_zeta_poly"),
+    ("ft", "compute_ft_poly"),
+    ("opening", "create_aggregated_ipa"),
+]
+
+
+def proof_times(run, device, reps: int) -> dict:
+    """prove_ms over `reps` proofs with the tracer off; the stage split
+    from one more proof with the tracer on and a synchronize before every
+    checkpoint, where CUDA events also time the quotient's d8 transforms
+    and its AST walk; verify_proof_ms; the peak device memory of one
+    proof."""
+    from proof_systems_tpu_torch.utils.tracing import TRACER
+
+    out = {}
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+        base = torch.cuda.memory_allocated(device)
+    out["prove_ms"] = sum(wall(lambda: prove(run), device)[1] for _ in range(reps)) * 1e3 / reps
+    if device.type == "cuda":
+        out["proof_peak_gib"] = (torch.cuda.max_memory_allocated(device) - base) / 2**30
+    TRACER.enable(hook=lambda: sync(device))
+    if device.type == "cuda":  # the quotient's d8 transforms and walk
+        from proof_systems_tpu_torch.circuits import expr
+
+        d8 = run["index"].cs.domain.d8
+        with Clock([(d8, "ntt_t", "d8_ntt"), (d8, "intt_t", "d8_ntt"),
+                    (expr, "eval_dev", "walk")]) as clock:
+            prove(run)
+        for label, ms in clock.totals().items():
+            out[f"prove_quotient_{label}_ms"] = ms
+    else:
+        prove(run)
+    TRACER.disable()
+    spans = TRACER.intervals()
+    stage_of = {cp: stage for stage, cp in PROOF_STAGES}
+    if [name for name, _ in spans if name in stage_of] != list(stage_of):
+        raise AssertionError("the prover's checkpoints are missing or out of order")
+    stage = None
+    for name, secs in spans:
+        log(f"trace {name:40s} {secs * 1e3:10.3f} ms")
+        stage = stage_of.get(name, stage)
+        out[f"prove_{stage}_ms"] = out.get(f"prove_{stage}_ms", 0.0) + secs * 1e3
+    out["verify_proof_ms"] = sum(
+        wall(lambda: verify_proof(run, run["kproof"]), device)[1] for _ in range(reps)) * 1e3 / reps
     return out
 
 
@@ -593,6 +792,7 @@ def golden_checks(run, device, log_n: int) -> None:
 
     polys = [job[:n] for job in jobs]
     ipa_checks(run, polys, nat)
+    proof_checks(run, device, log_n, nat)
 
 
 def horner(p: int, coeffs: list[int], x: int) -> int:
@@ -696,6 +896,105 @@ def ipa_checks(run, polys: list[list[int]], nat) -> None:
         residency_check(run)
 
 
+def proof_size(log_n: int) -> int:
+    """Serialized bytes of a lookup-free proof with 2^k points and one chunk
+    (tests/test_serialization.py proof_size_model): 5,306 at k = 16; each
+    IPA round is 71 bytes, and the round list's header grows by 2 bytes
+    from 16 rounds on."""
+    return 5306 + 71 * (log_n - 16) - (2 if log_n < 16 else 0)
+
+
+def proof_checks(run, device, log_n: int, nat) -> None:
+    """The proof of the main path: a second proof of the same inputs repeats
+    it exactly, and its 15 witness, z and 7 t commitments equal the native
+    host MSM of the fetched coefficients and blinders over g ++ [h]; its
+    quotient's remainder is zero; its size; the verifier's rejections; and
+    the fixed 2^5 circuit proved on the card byte for byte."""
+    import copy
+    import pathlib
+
+    from proof_systems_tpu_torch.ops import limb
+    from proof_systems_tpu_torch.fields import Fp
+
+    if not run["proof_debug"]["quotient_rem_zero"]:
+        raise AssertionError("the quotient's remainder by the vanishing polynomial is not zero")
+    if run["proof_bytes"] != proof_size(log_n):
+        raise AssertionError(f"proof is {run['proof_bytes']} bytes, expected {proof_size(log_n)}")
+    log(f"check: the k = {log_n} proof verifies, its quotient remainder is zero, and it "
+        f"serializes to {run['proof_bytes']} bytes")
+
+    srs, n = run["srs"], 1 << log_n
+    calls = []
+    commit = srs.commit_coeffs_dev
+
+    def spy(coeffs, num_chunks=1, blinders=None):
+        out = commit(coeffs, num_chunks, blinders)
+        calls.append((coeffs, num_chunks, blinders, out))
+        return out
+
+    srs.commit_coeffs_dev = spy  # an instance attribute over the method
+    again = prove(run)
+    del srs.commit_coeffs_dev
+    if again != run["kproof"]:
+        raise AssertionError("a second proof of the same inputs differs")
+    t0 = time.perf_counter()
+    F, basis, jobs, got = limb.device_field(Fp), srs.g + [srs.h], [], []
+    for coeffs, num_chunks, blinders, out in calls:
+        rows = limb.limbs_to_ints(limb.from_mont(F, coeffs))
+        b, L = coeffs.shape[1], coeffs.shape[2]
+        chunks = max(-(-L // n), num_chunks)
+        for i in range(b):
+            row = rows[i * L : (i + 1) * L]
+            row += [0] * (chunks * n - L)
+            for ci in range(chunks):
+                jobs.append(row[ci * n : (ci + 1) * n] + [blinders[i][ci]])
+            got += out[i].chunks
+    with concurrent.futures.ThreadPoolExecutor(8) as pool:
+        want = list(pool.map(lambda sc: nat.msm(sc, basis), jobs))
+    if [len(c[3]) for c in calls] != [COLUMNS, 1, 1] or got != want:
+        raise AssertionError("the proof's commitments differ from the host MSM")
+    log(f"check: the proof repeats exactly; its {COLUMNS} witness, z and "
+        f"{len(calls[2][3][0].chunks)} t commitments equal the host MSM over g ++ [h] "
+        f"({time.perf_counter() - t0:.1f} s on the host)")
+
+    bad = copy.deepcopy(run["kproof"])
+    bad.ft_eval1 = (bad.ft_eval1 + 1) % Fp.p
+    if verify_proof(run, bad, SEED + 2):
+        raise AssertionError("verify accepted ft_eval1 + 1")
+    bad = copy.deepcopy(run["kproof"])
+    bad.evals.w[0].zeta[0] = (bad.evals.w[0].zeta[0] + 1) % Fp.p
+    if verify_proof(run, bad, SEED + 3):
+        raise AssertionError("verify accepted a changed witness evaluation")
+    log("check: verify rejects the proof with ft_eval1 + 1 and with a changed witness evaluation")
+
+    golden = golden_proof(device)
+    want = (pathlib.Path(__file__).resolve().parent / GOLDEN_PROOF).read_bytes()
+    if golden != want:
+        raise AssertionError(f"the fixed 2^5 circuit's proof differs from {GOLDEN_PROOF}")
+    log(f"check: the fixed 2^5 circuit proved on the card is byte-identical to {GOLDEN_PROOF} "
+        f"({len(golden)} bytes)")
+
+
+def golden_proof(device) -> bytes:
+    """The fixed circuit of tests/test_serialization.py:122-136: 22 Const(1)
+    gates over a 32-point derived SRS, bench_witness(22), TestRng(5)."""
+    from proof_systems_tpu_torch.circuits.builders import bench_circuit, bench_witness
+    from proof_systems_tpu_torch.circuits.constraints import ConstraintSystem
+    from proof_systems_tpu_torch.curves import Vesta
+    from proof_systems_tpu_torch.fields import Fp
+    from proof_systems_tpu_torch.poly_commitment.srs import SRS, derive_g, derive_h
+    from proof_systems_tpu_torch.prover import create_proof
+    from proof_systems_tpu_torch.prover_index import ProverIndex
+    from proof_systems_tpu_torch.serialization import serialize_proof
+    from proof_systems_tpu_torch.utils.rng import TestRng
+
+    srs = SRS(Vesta, [derive_g(Vesta, i) for i in range(32)], derive_h(Vesta), device)
+    cs = ConstraintSystem.create(Fp, bench_circuit(Fp, 22), public=0, max_poly_size=32,
+                                 device=device)
+    proof = create_proof(ProverIndex(cs, Vesta, srs), bench_witness(22), TestRng(5))
+    return serialize_proof(Vesta, proof)
+
+
 def residency_check(run) -> None:
     """The rounds of an opening wait for the host nowhere: CUDA's sync debug
     mode is "error" inside every fold step and the tail, so a torch op that
@@ -771,6 +1070,13 @@ def run(device, log_n: int = LOG_N, cache_dir=None) -> list[dict]:
     kernels.reset_launch_counts()
     verify(result, result["proof"])
     log(f"launches per verification: {json.dumps(kernels.launch_counts())}")
+    kernels.reset_launch_counts()
+    prove(result)
+    log(f"launches per proof: {json.dumps(kernels.launch_counts())}")
+    kernels.reset_launch_counts()
+    verify_proof(result, result["kproof"])
+    log(f"launches per proof verification: {json.dumps(kernels.launch_counts())}")
+    log(f"proof_bytes: {result['proof_bytes']}")
     for k, v in steady_times(result, device).items():
         log(f"steady {k}: {v:.3f}")
 
@@ -784,7 +1090,8 @@ def main() -> int:
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--log-n", type=int, default=LOG_N,
-                    help="log2 of the SRS depth and domain (default 16)")
+                    help="log2 of the SRS depth and domain (default 16; from 14 on "
+                         "every kernel is on the path)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)

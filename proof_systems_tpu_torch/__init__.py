@@ -1,5 +1,6 @@
 """PyTorch + CUDA port of proof_systems_tpu (slice 1: the witness-commit
-path; slice 2: evaluation, IPA opening and batch verification).
+path; slice 2: evaluation, IPA opening and batch verification; slice 3: the
+circuit layer and whole proofs: prove, verify, serialize).
 
 The JAX package `proof_systems_tpu` is the reference; this package imports
 neither it nor JAX. Field elements are Montgomery integers with R = 2^256

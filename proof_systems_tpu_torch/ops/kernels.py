@@ -1,20 +1,22 @@
 """The port's hand-written CUDA kernels: loader, wrappers, plain versions.
 
-Counterpart of proof_systems_tpu/ops/pallas_field.py. Ten of its twelve
+Counterpart of proof_systems_tpu/ops/pallas_field.py. All twelve of its
 TPU kernels are ported; each has a CUDA C++ kernel for sm_90a in `csrc/`
 and, beside its wrapper here, a plain PyTorch version with the same
 signature and the same results:
 
-  K1 mont_mul              (pallas_field.py:398)   csrc/field_kernels.cu
-  K2 jacobian_add          (pallas_field.py:412)   csrc/curve_kernels.cu
-  K3 jacobian_double       (pallas_field.py:439)   csrc/curve_kernels.cu
-  K4 mont_pow              (pallas_field.py:481)   csrc/field_kernels.cu
-  K5 mont_prefix_scan      (pallas_field.py:1019)  csrc/field_kernels.cu
-  K6 ec_prefix_scan_parts  (pallas_field.py:1333)  csrc/curve_kernels.cu
-  K7 ec_prefix_scan_fused  (pallas_field.py:1410)  csrc/curve_kernels.cu
-  K8 combine_windows       (pallas_field.py:560)   csrc/curve_kernels.cu
-  K10 sponge_squeeze2      (pallas_field.py:646)   csrc/field_kernels.cu
-  K11 endo_inv             (pallas_field.py:742)   csrc/field_kernels.cu
+  K1 mont_mul                 (pallas_field.py:398)   csrc/field_kernels.cu
+  K2 jacobian_add             (pallas_field.py:412)   csrc/curve_kernels.cu
+  K3 jacobian_double          (pallas_field.py:439)   csrc/curve_kernels.cu
+  K4 mont_pow                 (pallas_field.py:481)   csrc/field_kernels.cu
+  K5 mont_prefix_scan         (pallas_field.py:1019)  csrc/field_kernels.cu
+  K6 ec_prefix_scan_parts     (pallas_field.py:1333)  csrc/curve_kernels.cu
+  K7 ec_prefix_scan_fused     (pallas_field.py:1410)  csrc/curve_kernels.cu
+  K8 combine_windows          (pallas_field.py:560)   csrc/curve_kernels.cu
+  K9 linear_scan              (pallas_field.py:1069)  csrc/field_kernels.cu
+  K10 sponge_squeeze2         (pallas_field.py:646)   csrc/field_kernels.cu
+  K11 endo_inv                (pallas_field.py:742)   csrc/field_kernels.cu
+  K12 mont_prefix_scan_parts  (pallas_field.py:956)   csrc/field_kernels.cu
 
 `bits128` (pallas_field.py:733) is a torch op.
 
@@ -138,9 +140,12 @@ def _bind_field(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.pst_mont_mul.argtypes = [_P, _P, _P, _P, _I64, _P]
     lib.pst_mont_pow.argtypes = [_P, ctypes.c_char_p, ctypes.c_int, _P, _P, _I64, _P]
     lib.pst_mont_prefix.argtypes = [_P, _P, _P, _I64, _I64, _I64, _P]
+    lib.pst_mont_prefix_parts.argtypes = [_P, _P, _P, _P, _I64, _I64, _I64, _P]
+    lib.pst_linear_scan.argtypes = [_P, _P, _P, _P, _I64, _I64, _I64, _P]
     lib.pst_sponge_squeeze2.argtypes = [_P, _P, _P, _P, _P, ctypes.c_int, _P, _P, _P]
     lib.pst_endo_inv.argtypes = [_P, _P, ctypes.c_char_p, ctypes.c_int, _P, _P, _P, _P]
     for fn in (lib.pst_mont_mul, lib.pst_mont_pow, lib.pst_mont_prefix,
+               lib.pst_mont_prefix_parts, lib.pst_linear_scan,
                lib.pst_sponge_squeeze2, lib.pst_endo_inv):
         fn.restype = ctypes.c_int
     lib.pst_field_error_string.argtypes = [ctypes.c_int]
@@ -567,13 +572,29 @@ def mont_pow(F, a: torch.Tensor, e: int) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# Row scans: K5 mont_prefix_scan, K6 ec_prefix_scan_parts, K7 ec_prefix_scan_fused
+# Row scans: K5 mont_prefix_scan, K12 mont_prefix_scan_parts, K9 linear_scan,
+# K6 ec_prefix_scan_parts, K7 ec_prefix_scan_fused
 # ---------------------------------------------------------------------------
 
 
 def scan_chunk(n: int) -> int:
     """Positions per thread (cp) of a row of length n: ceil(n / LANES)."""
     return max(1, -(-n // LANES))
+
+
+# Most chunks of 128 a K12 block folds per step on the TPU (its PST_SCAN_CB
+# default): the padding of the row follows from it (scan_geometry).
+SCAN_CB = 16
+
+
+def scan_geometry(n: int) -> tuple[int, int, int]:
+    """(cb, nC, Cp) of a K12 row of length n (pallas_field._scan_geometry):
+    C = ceil(n / 128) chunks split into nC near-equal blocks of cb <= 16,
+    and Cp = cb * nC >= C positions per lane."""
+    C = scan_chunk(n)
+    nC = -(-C // min(SCAN_CB, C))
+    cb = -(-C // nC)
+    return cb, nC, cb * nC
 
 
 def _rows_n(x: torch.Tensor) -> tuple[int, int]:
@@ -583,11 +604,12 @@ def _rows_n(x: torch.Tensor) -> tuple[int, int]:
     return x[0].numel() // n, n
 
 
-def mont_prefix_scan_plain(F, x: torch.Tensor) -> torch.Tensor:
-    _check(x)
+def _mont_scan_phases(P: Field16, x: torch.Tensor, cp: int):
+    """Phases 1-2 of the blocked product scan of (8, ..., n) rows, lane l
+    owning positions [l * cp, l * cp + cp), one past n: the inclusive chunk
+    products (16, rows, LANES, cp) and the exclusive lane offsets (16, rows,
+    LANES), as k_mont_prefix and k_mont_prefix_parts compute them."""
     rows, n = _rows_n(x)
-    P = field16(F, x.device)
-    cp = scan_chunk(n)
     one = P.col(P.one16, 2)
     a = to16(x.reshape(NL, rows, n))
     a = torch.cat([a, one.expand(16, rows, LANES * cp - n)], dim=-1)
@@ -602,7 +624,16 @@ def mont_prefix_scan_plain(F, x: torch.Tensor) -> torch.Tensor:
     while s < LANES:
         excl = mul16(P, excl, _shift_lanes(excl, s, one))
         s *= 2
-    out = mul16(P, excl[..., None], torch.stack(parts, dim=-1))
+    return torch.stack(parts, dim=-1), excl
+
+
+def mont_prefix_scan_plain(F, x: torch.Tensor) -> torch.Tensor:
+    _check(x)
+    rows, n = _rows_n(x)
+    P = field16(F, x.device)
+    cp = scan_chunk(n)
+    parts, excl = _mont_scan_phases(P, x, cp)
+    out = mul16(P, excl[..., None], parts)
     return from16(out.reshape(16, rows, LANES * cp)[..., :n]).reshape(x.shape)
 
 
@@ -617,6 +648,91 @@ def mont_prefix_scan(F, x: torch.Tensor) -> torch.Tensor:
     _launch(lib, "pst_mont_prefix", "pst_field_error_string", dev,
             _field_words(F), x.data_ptr(), out.data_ptr(), rows, n, scan_chunk(n))
     LAUNCHES["mont_prefix_scan"] += 1
+    return out
+
+
+def mont_prefix_scan_parts_plain(F, x: torch.Tensor):
+    _check(x)
+    cp = scan_geometry(_rows_n(x)[1])[2]
+    parts, excl = _mont_scan_phases(field16(F, x.device), x, cp)
+    batch = x.shape[1:-1]
+    return (from16(parts).reshape(NL, *batch, LANES * cp),
+            from16(excl).reshape(NL, *batch, LANES), cp)
+
+
+def mont_prefix_scan_parts(F, x: torch.Tensor):
+    """Blocked Montgomery prefix product, phases 1-2, along the last axis.
+
+    Returns (partial, excl, cp) with cp = scan_geometry(n)[2]: partial
+    (8, ..., LANES * cp), position j of lane j // cp holding the product of
+    its lane's positions up to j (one past n); excl (8, ..., LANES), the
+    exclusive products of the lane totals. The inclusive prefix product of
+    position j is excl[..., j // cp] * partial[..., j]."""
+    dev = _check(x)
+    if dev.type == "cpu":
+        return mont_prefix_scan_parts_plain(F, x)
+    rows, n = _rows_n(x)
+    cp = scan_geometry(n)[2]
+    batch = x.shape[1:-1]
+    partial = torch.empty((NL, *batch, LANES * cp), dtype=torch.int32, device=dev)
+    excl = torch.empty((NL, *batch, LANES), dtype=torch.int32, device=dev)
+    lib = LIBRARY.load().field
+    _launch(lib, "pst_mont_prefix_parts", "pst_field_error_string", dev,
+            _field_words(F), x.data_ptr(), partial.data_ptr(), excl.data_ptr(), rows, n, cp)
+    LAUNCHES["mont_prefix_scan_parts"] += 1
+    return partial, excl, cp
+
+
+@functools.lru_cache(maxsize=None)
+def _linear_table(p: int, r_mod_p: int, c: int, cp: int, device: str) -> torch.Tensor:
+    vals = [pow(c, i + 1, p) for i in range(cp)] + [pow(c, cp << k, p) for k in range(7)]
+    arr = torch.tensor([_words(v * r_mod_p % p) for v in vals], dtype=torch.int64).T
+    return torch.where(arr >= 1 << 31, arr - (1 << 32), arr).to(torch.int32).contiguous().to(device)
+
+
+def linear_table(F, c: int, n: int, device) -> torch.Tensor:
+    """(8, cp + 7) Montgomery constants of K9 for a row of length n
+    (cp = scan_chunk(n)): c^(i+1) for i < cp, then c^(cp * 2^k) for k < 7.
+    Built on the host and copied to `device` once per (field, c, cp)."""
+    return _linear_table(F.p, F.r_mod_p, c % F.p, scan_chunk(n), str(torch.device(device)))
+
+
+def linear_scan_plain(F, x: torch.Tensor, c: int) -> torch.Tensor:
+    _check(x)
+    rows, n = _rows_n(x)
+    P = field16(F, x.device)
+    cp = scan_chunk(n)
+    tab = to16(linear_table(F, c, n, x.device))
+    zero = torch.zeros((16, 1, 1), dtype=torch.int64, device=x.device)
+    a = torch.nn.functional.pad(to16(x.reshape(NL, rows, n)), (0, LANES * cp - n))
+    a = a.view(16, rows, LANES, cp)
+    cm = P.col(tab[:, 0], 2)
+    s = zero.expand(16, rows, LANES)
+    parts = []
+    for i in range(cp):
+        s = add16(P, a[..., i], mul16(P, cm, s))
+        parts.append(s)
+    for k in range(7):
+        s = add16(P, s, mul16(P, P.col(tab[:, cp + k], 2), _shift_lanes(s, 1 << k, zero)))
+    excl = _shift_lanes(s, 1, zero)
+    out = add16(P, torch.stack(parts, dim=-1), mul16(P, tab[:, None, None, :cp], excl[..., None]))
+    return from16(out.reshape(16, rows, LANES * cp)[..., :n]).reshape(x.shape)
+
+
+def linear_scan(F, x: torch.Tensor, c: int) -> torch.Tensor:
+    """Inclusive recurrence s_j = x_j + c * s_(j-1) along the last axis, for
+    a static int c; x in Montgomery form."""
+    dev = _check(x)
+    if dev.type == "cpu":
+        return linear_scan_plain(F, x, c)
+    rows, n = _rows_n(x)
+    tab = linear_table(F, c, n, dev)
+    out = torch.empty_like(x)
+    lib = LIBRARY.load().field
+    _launch(lib, "pst_linear_scan", "pst_field_error_string", dev,
+            _field_words(F), x.data_ptr(), tab.data_ptr(), out.data_ptr(), rows, n,
+            scan_chunk(n))
+    LAUNCHES["linear_scan"] += 1
     return out
 
 
@@ -901,8 +1017,10 @@ WRAPPERS = {
     "ec_prefix_scan_parts": ec_prefix_scan_parts,
     "ec_prefix_scan_fused": ec_prefix_scan_fused,
     "combine_windows": combine_windows,
+    "linear_scan": linear_scan,
     "sponge_squeeze2": sponge_squeeze2,
     "endo_inv": endo_inv,
+    "mont_prefix_scan_parts": mont_prefix_scan_parts,
 }
 
 # Kernel launches per wrapper: each wrapper adds one where it launches its

@@ -9,7 +9,7 @@ int32 tensors (bit pattern of the uint32 limb): torch indexes, gathers and
 sorts int32 on every device.
 
 The Montgomery product, powers and prefix products run through the hand
-written kernels (ops/kernels.py: K1, K4, K5). Addition, subtraction and the
+written kernels (ops/kernels.py: K1, K4, K5 and K12). Addition, subtraction and the
 selects are torch ops, as they were XLA ops in the JAX package; they compute
 in int64 on 16-bit limbs (kernels.Field16).
 
@@ -199,15 +199,27 @@ def inv(F: DeviceField, a: torch.Tensor) -> torch.Tensor:
     return select(is_zero(F, a), torch.zeros_like(a), r)
 
 
+# Longest row, in chunks of 128, that K5 scans in one block; longer rows
+# stream through K12 and one K1 combine (pallas_field.py:1030-1034).
+FUSED_SCAN_CHUNKS = 64
+
+
 def prefix_mul(F: DeviceField, a: torch.Tensor) -> torch.Tensor:
-    """Inclusive prefix products along the last axis (K5), any length."""
-    return kernels.mont_prefix_scan(F, a.contiguous())
+    """Inclusive prefix products along the last axis: K5 for rows of at
+    most 64 chunks of 128, else K12's parts and one K1 product of each
+    position with its lane's offset, sliced to n."""
+    a = a.contiguous()
+    n = a.shape[-1]
+    if kernels.scan_chunk(n) <= FUSED_SCAN_CHUNKS:
+        return kernels.mont_prefix_scan(F, a)
+    partial, excl, cp = kernels.mont_prefix_scan_parts(F, a)
+    return mont_mul(F, partial, excl.repeat_interleave(cp, dim=-1))[..., :n]
 
 
 def batch_inverse(F: DeviceField, a: torch.Tensor) -> torch.Tensor:
     """Montgomery-trick batch inversion of all elements; zeros -> zero.
 
-    Prefix and suffix products (two K5 launches), one Fermat inversion of
+    Prefix and suffix products (prefix_mul twice), one Fermat inversion of
     the total (K4) and a combine, as in the JAX package."""
     shape = a.shape
     a2 = a.reshape(NLIMBS, -1)

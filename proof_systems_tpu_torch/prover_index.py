@@ -1,0 +1,189 @@
+"""Prover index: device-resident column data and the linearization.
+
+Counterpart of proof_systems_tpu/prover_index.py (kimchi/src/prover_index.rs
+ProverIndex::create, :66, and the column precomputation of
+constraints.rs:700-770): every indexed column lives as one batched limb
+tensor on the SRS's device, in coefficient form (for the evaluations at
+zeta) and in d8 evaluation form (for the quotient), made by one batched
+iNTT and one batched NTT.
+
+Not ported, by design: the reference's disk cache of the verifier-index
+commitments (prover_index.py:210-315), which saved a TPU compile of
+minutes; here the b = 28 commit costs about as much as the witness commit.
+The lookup columns come with ROADMAP Queue 1 item 8.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Any
+
+import torch
+
+from .circuits.alphas import Alphas, default_alphas
+from .circuits.constraints import ConstraintSystem
+from .circuits.gate import GateType
+from .circuits.polynomials import gates as gate_constraints
+from .curves import CurveParams, Pallas, Vesta
+from .ops import limb, poly
+from .verifier_index import VerifierIndex
+
+ALWAYS_ON = [
+    GateType.Generic,
+    GateType.Poseidon,
+    GateType.CompleteAdd,
+    GateType.VarBaseMul,
+    GateType.EndoMul,
+    GateType.EndoMulScalar,
+]
+
+
+def build_linearization(f, feature_flags, lookup_cs):
+    """Full constraint AST and alpha registry (linearization.rs:43-367;
+    constant term only: berkeley index_terms are empty). The optional gates
+    and the lookup constraints are not ported yet (ROADMAP Queue 1 items 8
+    and 9). Returns (alphas, linearization_expr)."""
+    if feature_flags or lookup_cs is not None:
+        raise NotImplementedError("optional gates and lookups: ROADMAP Queue 1 items 8, 9")
+    alphas: Alphas = default_alphas(0)
+    total = None
+    for g in ALWAYS_ON:
+        term = gate_constraints.combined(g, f, alphas)
+        total = term if total is None else total + term
+    return alphas, total
+
+
+@dataclass
+class ColumnData:
+    """Batched device columns (coefficient and d8 evaluation forms)."""
+
+    sigma_coeff: Any  # (8, 7, n)
+    sigma8: Any  # (8, 7, 8n)
+    coefficients_coeff: Any  # (8, 15, n)
+    coefficients8: Any  # (8, 15, 8n)
+    selector_coeff: dict  # GateType -> (8, n)
+    selector8: dict  # GateType -> (8, 8n)
+    zkpl8: Any  # permutation vanishing poly on d8 (8, 8n)
+    vanishes_zk_prev8: Any  # vanishes_on_last_n_rows(zk+1) on d8
+    x_d8: Any  # the polynomial x evaluated on d8 (= d8 domain elements)
+
+
+class ProverIndex:
+    def __init__(self, cs: ConstraintSystem, curve: CurveParams, srs):
+        """curve: the commitment curve (Vesta for Fp proofs); srs over it.
+        The columns live on the SRS's device, as cs's domains must."""
+        assert curve.scalar is cs.f
+        self.cs = cs
+        self.curve = curve
+        self.srs = srs
+        self.device = srs.device
+        if cs.domain.d1.device != self.device:
+            raise ValueError(f"domains on {cs.domain.d1.device}, SRS on {self.device}")
+        self.max_poly_size = len(srs.g)
+        n = cs.domain.d1.n
+        self.num_chunks = 1 if n < self.max_poly_size else n // self.max_poly_size
+        # endo used in-circuit = endo_q of the *other* curve, which lives in
+        # our scalar field (curve.rs other_curve_endo; prover_index.rs:192)
+        other = Pallas if curve.name == "Vesta" else Vesta
+        cs.endo = other.endos[0]
+
+        self.alphas, self.linearization_expr = build_linearization(
+            cs.f, cs.feature_flags, cs.lookup_cs
+        )
+        self.column_data = self._build_columns()
+        self._verifier_index: VerifierIndex | None = None
+
+    # -- column device data ------------------------------------------------
+
+    def _build_columns(self) -> ColumnData:
+        cs = self.cs
+        f = cs.f
+        F = limb.device_field(f)
+        dev = self.device
+        d1, d8 = cs.domain.d1, cs.domain.d8
+        n = d1.n
+
+        host_cols = cs.sigma_d1 + cs.coefficients_d1 + [cs.selectors_d1[g] for g in ALWAYS_ON]
+        arr = F.pack_mont([v for col in host_cols for v in col], shape=(len(host_cols), n),
+                          device=dev)
+        coeffs = d1.intt_t(arr, d1.inv_twiddles)
+        evals8 = d8.ntt_t(torch.nn.functional.pad(coeffs, (0, 7 * n)), d8.fwd_twiddles)
+
+        # zk polynomials evaluated on d8 from the d8 element vector
+        x_d8 = poly.powers_dev(F, d8.group_gen, d8.n, device=dev)
+        omega = d1.group_gen
+
+        def prod_of_linear(roots: list[int]):
+            acc = None
+            for r in roots:
+                term = limb.sub(F, x_d8, F.const_mont(r, (1,), device=dev))
+                acc = term if acc is None else limb.mont_mul(F, acc, term)
+            return acc
+
+        zk = cs.zk_rows
+        zkpl_roots = [
+            pow(omega, n - zk, f.p),
+            pow(omega, n - zk + 1, f.p),
+            pow(omega, n - 1, f.p),
+        ]
+        vzp_roots = [pow(omega, n - (zk + 1) + i, f.p) for i in range(zk + 1)]
+
+        return ColumnData(
+            sigma_coeff=coeffs[:, :7],
+            sigma8=evals8[:, :7],
+            coefficients_coeff=coeffs[:, 7:22],
+            coefficients8=evals8[:, 7:22],
+            selector_coeff={g: coeffs[:, 22 + i] for i, g in enumerate(ALWAYS_ON)},
+            selector8={g: evals8[:, 22 + i] for i, g in enumerate(ALWAYS_ON)},
+            zkpl8=prod_of_linear(zkpl_roots),
+            vanishes_zk_prev8=prod_of_linear(vzp_roots),
+            x_d8=x_d8,
+        )
+
+    # -- verifier index ----------------------------------------------------
+
+    def _compute_vk_comms(self) -> list:
+        """The 28 column commitments (7 sigma, 15 coefficients, 6 selectors)
+        in one b = 28 commit; the selectors are fixed-hiding (+1*H,
+        verifier_index.rs:173)."""
+        cd = self.column_data
+        all_coeffs = torch.cat(
+            [
+                cd.sigma_coeff,
+                cd.coefficients_coeff,
+                torch.stack([cd.selector_coeff[g] for g in ALWAYS_ON], dim=1),
+            ],
+            dim=1,
+        )  # (8, 28, n)
+        comms = self.srs.commit_coeffs_dev(all_coeffs, self.num_chunks)
+        ones = [1] * self.num_chunks
+        for i in range(22, 28):
+            comms[i] = self.srs.mask(comms[i], ones)
+        return comms
+
+    def verifier_index(self) -> VerifierIndex:
+        if self._verifier_index is None:
+            comms = self._compute_vk_comms()
+            self._verifier_index = VerifierIndex(
+                curve=self.curve,
+                domain=self.cs.domain.d1,
+                max_poly_size=self.max_poly_size,
+                zk_rows=self.cs.zk_rows,
+                public=self.cs.public,
+                sigma_comm=comms[:7],
+                coefficients_comm=comms[7:22],
+                generic_comm=comms[22],
+                psm_comm=comms[23],
+                complete_add_comm=comms[24],
+                mul_comm=comms[25],
+                emul_comm=comms[26],
+                endomul_scalar_comm=comms[27],
+                shift=self.cs.shift,
+                endo=self.cs.endo,
+                zkpm_eval=self.cs.eval_zkpm,
+                srs=self.srs,
+                linearization_expr=self.linearization_expr,
+                alphas=self.alphas,
+                zk_w=self.cs.zk_w(),
+            )
+        return self._verifier_index

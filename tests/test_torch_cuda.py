@@ -142,3 +142,56 @@ def test_endo_inv_matches_plain(dev, pattern):
     assert torch.equal(u, u_p) and torch.equal(u_inv, u_inv_p)
     [uv], [uiv] = F.unpack_mont(u), F.unpack_mont(u_inv)
     assert uv * uiv % Fp.p == 1
+
+
+def _field_row(rng, F, rows, n, dev, zero_at=None):
+    xs = [rng.randrange(F.p) for _ in range(rows * n)]
+    if zero_at is not None:
+        xs[zero_at] = 0
+    return F.pack_mont(xs, shape=(rows, n), device=dev)
+
+
+@pytest.mark.parametrize("n,c", [(1, 5), (300, 0), (300, 1), (300, "random"),
+                                 (1 << 16, "omega")])
+def test_linear_scan_matches_plain(dev, n, c):
+    """K9 on two rows, for c = 0, c = 1 (a prefix sum), a random c and the
+    boundary's omega^(n - 3), at n = 1, n not a multiple of 128 and the
+    prover's 2^16."""
+    rng = random.Random(606)
+    F = limb.device_field(Fp)
+    c = {"random": rng.randrange(Fp.p), "omega": pow(Fp.root_of_unity(16), n - 3, Fp.p)}.get(c, c)
+    x = _field_row(rng, F, 2, n, dev)
+    before = kernels.launch_counts()["linear_scan"]
+    got, want = _pair("linear_scan", F, x, c)
+    assert torch.equal(got, want)
+    assert kernels.launch_counts()["linear_scan"] == before + 1
+
+
+@pytest.mark.parametrize("n", [8321, 1 << 16])
+def test_mont_prefix_scan_parts_matches_plain(dev, n):
+    """K12 on two rows with a zero element (Cp = 70 at n = 8,321)."""
+    rng = random.Random(607)
+    F = limb.device_field(Fp)
+    x = _field_row(rng, F, 2, n, dev, zero_at=n + 17)
+    (part, excl, cp), (part_p, excl_p, cp_p) = _pair("mont_prefix_scan_parts", F, x)
+    assert cp == cp_p == kernels.scan_geometry(n)[2]
+    assert torch.equal(part, part_p) and torch.equal(excl, excl_p)
+
+
+@pytest.mark.parametrize("n", [64 * 128, 64 * 128 + 1])
+def test_prefix_mul_dispatch_on_the_card(dev, n):
+    """prefix_mul at C = 64 (K5) and C = 65 (K12 + K1) against the host."""
+    rng = random.Random(608)
+    F = limb.device_field(Fp)
+    x = _field_row(rng, F, 1, n, dev)
+    before = kernels.launch_counts()
+    got = F.unpack_mont(limb.prefix_mul(F, x))
+    acc, want = 1, []
+    for v in F.unpack_mont(x):
+        acc = acc * v % Fp.p
+        want.append(acc)
+    assert got == want
+    after = kernels.launch_counts()
+    long_row = n > 64 * 128
+    assert after["mont_prefix_scan_parts"] - before["mont_prefix_scan_parts"] == int(long_row)
+    assert after["mont_prefix_scan"] - before["mont_prefix_scan"] == int(not long_row)
