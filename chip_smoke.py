@@ -13,8 +13,10 @@ Phases, each fatal on failure:
   3. warm-up run of the main path, recording every kernel's largest call;
      then each kernel against its plain PyTorch version on those inputs and
      on edge cases (field and transcript kernels and K8 exact, the other
-     curve kernels as group elements), with the kernel's and the plain
-     version's times;
+     curve kernels as group elements; K6 also on rows that split each lane
+     chunk over a team of threads), with the kernel's and the plain
+     version's times, and K6's team size, tile width, registers and local
+     memory;
   4. the main path at k = 16 on Vesta, with launch counts zeroed just
      before and read just after: SRS.create(2^16), the scaled basis of
      g ++ [h], iNTT of 15 random witness columns, their 15 hiding commits
@@ -27,7 +29,9 @@ Phases, each fatal on failure:
      verify and serialize_proof; then the launches of one opening, one
      verification, one proof and one proof's verification, and the
      steady-state stage times (the proof split by the tracer's checkpoints
-     in a separate, synchronised proof);
+     in a separate, synchronised proof); then each kernel's device time
+     and launches over one more proof and one more verification (CUDA
+     events around every wrapper call), and K6's time at each call shape;
   5. every commitment against the native host MSM over g ++ [h], the iNTT
      against the CPU plain path, one b = 1 MSM at c = 10; the evaluations
      against host Horner; every round's L and R, sg, a0 and b0 against the
@@ -45,6 +49,7 @@ Exits non-zero without a CUDA device. Imports nothing of JAX.
 
 from __future__ import annotations
 
+import collections
 import concurrent.futures
 import json
 import random
@@ -170,7 +175,10 @@ class Clock:
     device time of each wrapped function (summed per label over its calls)
     and the rest. targets: (owner, attribute, label) triples; the owner is a
     module or an object whose attribute the code under test looks up at
-    call time."""
+    call time; a label is a string or a function of the call's arguments
+    that returns one. An interval runs from the start event to the end
+    event on the stream, so it also holds any wait for the host inside the
+    wrapped function."""
 
     def __init__(self, targets) -> None:
         self.targets = targets
@@ -193,17 +201,52 @@ class Clock:
             start.record()
             out = fn(*args, **kw)
             end.record()
-            self.events.append((label, start, end))
+            self.events.append((label(*args, **kw) if callable(label) else label, start, end))
             return out
 
         return wrapper
 
     def totals(self) -> dict[str, float]:
         torch.cuda.synchronize()
-        out = dict.fromkeys((label for _, _, label in self.targets), 0.0)
+        out = dict.fromkeys((label for _, _, label in self.targets if isinstance(label, str)), 0.0)
         for label, start, end in self.events:
-            out[label] += start.elapsed_time(end)
+            out[label] = out.get(label, 0.0) + start.elapsed_time(end)
         return out
+
+    def calls(self) -> dict[str, int]:
+        return dict(collections.Counter(label for label, _, _ in self.events))
+
+
+def k6_label(F, x, y, z, mixed=False) -> str:
+    """A K6 call's label: its variant and shape."""
+    shape = "x".join(str(d) for d in x.shape[1:])
+    return f"ec_prefix_scan_parts[{'mixed' if mixed else 'general'} {shape}]"
+
+
+def kernel_times(result, device) -> None:
+    """Each kernel's device time and launches over one proof and over one
+    verification of it, largest first, and K6's time at each call shape."""
+    from proof_systems_tpu_torch.ops import kernels
+
+    targets = [(kernels, name, k6_label if name == "ec_prefix_scan_parts" else name)
+               for name in kernels.WRAPPERS]
+    for label, fn in (("proof", lambda: prove(result)),
+                      ("proof verification", lambda: verify_proof(result, result["kproof"]))):
+        sync(device)
+        kernels.reset_launch_counts()
+        with Clock(targets) as clock:
+            fn()
+        counts = kernels.launch_counts()
+        ms, calls = clock.totals(), clock.calls()
+        per_kernel = {name: [sum(v for k, v in d.items() if k.split("[")[0] == name)
+                             for d in (ms, calls)] for name in kernels.WRAPPERS}
+        log(f"kernel time over one {label}: {sum(ms.values()):.3f} ms in all")
+        for name, (t, n) in sorted(per_kernel.items(), key=lambda kv: -kv[1][0]):
+            log(f"  {label} kernel {name:24s} {t:10.3f} ms  launches {counts[name]:5d}  "
+                f"calls timed {n:5d}")
+        for key in sorted((k for k in ms if "[" in k), key=lambda k: -ms[k]):
+            log(f"  {label} K6 {key[21:-1]:22s} {calls[key]:3d} calls  {ms[key]:10.3f} ms  "
+                f"{ms[key] / calls[key]:.4f} ms a call")
 
 
 # ---------------------------------------------------------------------------
@@ -311,14 +354,52 @@ def bound_ms(name: str, args, kw) -> tuple[float, str]:
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
+# K6 edge rows (rows, n): n = 1; n < 128 (cp = 1); 8,321 (cp = 66, a team
+# of 8 threads a chunk, 9 positions each); b = 1 with 24 rows of 65,537 (a
+# team of 16, 33 positions each). The row of 300 (cp = 3) is above.
+K6_EDGE_SHAPES = [(2, 1), (2, 100), (2, 8321), (24, 65537)]
+
+
+def k6_rows(dc, pts, rows: int, n: int, mixed: bool, device):
+    """(8, rows, n) K6 input gathered on the card from the host points
+    `pts` (pts[0] = P, finite): lane 3 only P, P at positions 3 and 4 of its
+    chunk, lane 5 only P, -P there, lane 6 only P, P at 1 and 2 (each pair
+    across a sub-chunk boundary: the doubling and negation fallbacks), lane
+    7 all identities (a whole team), identities at 3 and 4 of lane 9, the
+    other positions random points of `pts`; doubled (z != R) for the
+    general variant."""
+    from proof_systems_tpu_torch.curves import Vesta
+    from proof_systems_tpu_torch.ops.kernels import scan_chunk
+
+    table = [None, pts[0], Vesta.neg(pts[0])] + [p for p in pts[5:] if p is not None][:61]
+    cp = scan_chunk(n)
+    gen = torch.Generator().manual_seed(SEED + rows * n)
+    idx = torch.randint(3, len(table), (rows, n), generator=gen)
+    for lane, pairs in [(3, [(3, 1), (4, 1)]), (5, [(3, 1), (4, 2)]), (6, [(1, 1), (2, 1)]),
+                        (7, [])]:
+        idx[:, lane * cp:lane * cp + cp] = 0
+        for j, k in pairs:
+            if j < cp and lane * cp + j < n:
+                idx[:, lane * cp + j] = k
+    for j in (3, 4):
+        if j < cp:
+            idx[:, 9 * cp + j:9 * cp + j + 1] = 0
+    J = dc.to_jacobian(dc.pack_affine(table, device=device))
+    if not mixed:
+        J = dc.double(J)
+    flat = idx.reshape(-1).to(device)
+    return [t[:, flat].reshape(8, rows, n).contiguous() for t in J]
+
+
 def edge_cases(device, curve_params):
     """Small inputs with the special values: 0, 1, p-1, 2^254-1 for the
     field kernels; two rows of 300 for K9 with c = 0, 1 (a prefix sum),
     random and omega^(n - 3), and n = 1; two rows of 8,321 (C = 66,
     Cp = 70) with a zero element for K12; P+P, P+(-P), infinity on either
     side for the curve kernels; identities inside a scan row of length 300;
-    an infinity window partial for K8; L at infinity, (0, 0), for K10;
-    all-zero and all-one challenge bits for K11."""
+    K6's team geometry on the rows of k6_rows, both variants; an infinity
+    window partial for K8; L at infinity, (0, 0), for K10; all-zero and
+    all-one challenge bits for K11."""
     from proof_systems_tpu_torch.fields import Fp, Fq
     from proof_systems_tpu_torch.ops import limb
     from proof_systems_tpu_torch.ops.curve_ops import device_curve
@@ -374,6 +455,9 @@ def edge_cases(device, curve_params):
         ("ec_prefix_scan_parts", [dc.F, *row], {"mixed": False}),
         ("ec_prefix_scan_fused", [dc.F, *row], {}),
     ]
+    cases += [("ec_prefix_scan_parts", [dc.F, *k6_rows(dc, pts, rows, n, mixed, device)],
+               {"mixed": mixed})
+              for rows, n in K6_EDGE_SHAPES for mixed in (True, False)]
     want_add = [curve_params.add(p, q) for p, q in zip(pts, qs)]
 
     from proof_systems_tpu_torch.poseidon import fq_kimchi
@@ -441,6 +525,18 @@ def chain_note(name: str, args) -> str:
     return f"; chain {scan_chunk(n)} + 7 + 1 products, then {scan_chunk(n)} offsets"
 
 
+def k6_note(kernels, args, device) -> str:
+    """K6's team size and tile width at this call, and the registers and
+    local (stack) bytes of its kernels."""
+    x = args[1]
+    rows, n = x[0].numel() // x.shape[-1], x.shape[-1]
+    team, kt = kernels.parts_geometry(rows, kernels.scan_chunk(n),
+                                      torch.cuda.get_device_properties(device).multi_processor_count)
+    attrs = ", ".join(f"{name}: {regs} registers, {local} B local"
+                      for name, (regs, local, *_) in kernels.ec_prefix_scan_parts_attrs().items())
+    return f"K6 here: team S = {team}, tile KT = {kt}; {attrs}"
+
+
 def check_kernels(kernels, recorded, device, curve_params) -> list[dict]:
     """Each kernel against its plain version on the recorded main-path
     inputs (timed) and on the edge cases."""
@@ -477,6 +573,8 @@ def check_kernels(kernels, recorded, device, curve_params) -> list[dict]:
                "replaces": f"{PALLAS}:{SOURCES[name][1]}", "launches": 0, "max_abs_err": err,
                "ms": ms, "plain_ms": plain_s * 1e3, "bound_ms": b_ms, "bound_by": b_by,
                "library_ms": None}
+        if name == "ec_prefix_scan_parts":
+            log("  " + k6_note(kernels, args, device))
         if key == JSON_KEY.get(name, name):
             rows[name] = row
         if name == "mont_prefix_scan_parts":
@@ -1079,6 +1177,8 @@ def run(device, log_n: int = LOG_N, cache_dir=None) -> list[dict]:
     log(f"proof_bytes: {result['proof_bytes']}")
     for k, v in steady_times(result, device).items():
         log(f"steady {k}: {v:.3f}")
+    if device.type == "cuda":
+        kernel_times(result, device)
 
     log("== checks")
     golden_checks(result, device, log_n)

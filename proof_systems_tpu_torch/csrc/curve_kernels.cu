@@ -12,8 +12,8 @@
 //      inclusive prefix of position j is excl[j / cp] + partial[j]. With
 //      mixed=1 the chunk scan uses madd on affine-encoded input (z in {0, R},
 //      as msm.py:338-342 requires) and phase 2 stays general adds.
-//   K7 ec_prefix_scan_fused (l.1410, _ec_scan_kernel l.834): the same
-//      phases 1-2 plus the combine, giving the full inclusive prefix scan.
+//   K7 ec_prefix_scan_fused (l.1410, _ec_scan_kernel l.834): phases 1-2
+//      plus the combine, giving the full inclusive prefix scan.
 //   K8 combine_windows_fused (l.560): the Pippenger window recombination
 //      sum_w 2^(cw) win_w as a Horner chain from the top window (c doublings
 //      and one general add per window, the order of l.596-607). The TPU
@@ -25,15 +25,46 @@
 // sequentially.
 //
 // Simple design, left for later: one thread per element for K2/K3, one block
-// of PST_LANES threads per row for K6/K7 with a contiguous chunk of
+// of PST_LANES threads per row for K7 with a contiguous chunk of
 // cp = ceil(n / PST_LANES) positions per thread (loads are strided by cp
 // across a warp, not coalesced), and a Hillis-Steele scan over the chunk
-// totals in 12 KB of shared memory. At the main path's shapes K6 runs
-// 360 rows (24 windows x 15 columns): 360 blocks of 128 threads that need
-// up to 254 registers each, so about two blocks an SM and under two waves,
-// each thread a chain of ceil(65537 / 128) dependent adds. The curve
-// formulas are __noinline__ functions to bound code size and build time;
-// ptxas reports their registers and stack frames.
+// totals in 12 KB of shared memory. The curve formulas are __noinline__
+// functions to bound code size and build time; ptxas reports their
+// registers and stack frames.
+//
+// K6, redesigned for this card (k_ec_parts + k_ec_lane_offsets below). The
+// old K6 was K7's kernel without the combine. What bounds K6 here: the
+// madds themselves, a chain of dependent 8x8-limb products a thread, which
+// need about 160 registers (the __noinline__ formulas pass their operands
+// through a 264-byte stack frame), so an SM holds 12 warps at most; and
+// the memory pattern: with one position a thread a step, each warp load
+// and store touched 32 sectors for 4 bytes each, and the stores to the
+// card-wide set of open output lines did not merge in L2. What the design
+// does about it:
+//   - loads and stores go through shared memory: a warp copies KT columns
+//     of its 32 sub-chunks at a time, so each store instruction writes
+//     KT-word runs (KT = 16: 64-byte runs), and each thread reads and
+//     writes its own positions there;
+//   - one thread still scans one contiguous chunk when the rows alone fill
+//     the card (S = 1: no extra work, the plain version's limbs); with few
+//     rows (the z commit and the verifier, 24 rows) a team of S threads
+//     shares each chunk: each reduces its sub-chunk, the team takes an
+//     exclusive scan of the S totals through warp shuffles (general adds),
+//     and each rescans its sub-chunk from its offset (about twice the
+//     madds, on S times the threads). Splitting where the rows already fill
+//     the card only doubles the work. The wrapper derives S and KT from the
+//     shape (kernels.parts_geometry; scripts/torch_k6_bench.py times every
+//     choice);
+//   - __launch_bounds__ caps the registers at 168, three blocks an SM; KT =
+//     16 fills the shared memory with one block of 128 threads, whose
+//     64-byte runs more than pay for the fewer resident warps;
+//   - S = 1 is compiled apart from the team code (TEAM = false), which
+//     keeps its stack frame at 264 bytes instead of about 700;
+//   - the exclusive scan of each row's 128 lane totals is a second, small
+//     kernel (one block a row, 7 levels of general adds); the wrapper's
+//     launch count still counts calls, one a call.
+// The result is the same group elements as the plain version's; the
+// Jacobian limbs differ when S > 1 (another association order).
 //
 // K8 is one thread per MSM column: at the verifier's b = 1 a single thread
 // runs W * (c + 1) dependent curve operations (288 at c = 11, W = 24), a
@@ -121,6 +152,207 @@ __global__ void __launch_bounds__(PST_LANES)
     }
 }
 
+// K6 phase 1. Rows of length n (limb stride rows * n); lane L of a row owns
+// positions [L * cp, L * cp + cp), and a team of S = 1 << team_log2 threads
+// shares it: member s owns the sub-chunk [s * sc, s * sc + sc) of the lane,
+// sc = ceil(cp / S). A block is PARTS_WARPS warps, a warp 32 / S lanes of
+// one row. partial (rows, PST_LANES * cp) is written at every position (the
+// input past n is the identity); the lane totals go to (tx, ty, tz), (rows,
+// PST_LANES), for k_ec_lane_offsets.
+#define PARTS_WARPS 4
+
+__device__ __forceinline__ Jac jac_shfl_up(const Jac &a, int d, int width) {
+    Jac r;
+#pragma unroll
+    for (int l = 0; l < PST_NL; ++l) {
+        r.x.v[l] = __shfl_up_sync(0xffffffffu, a.x.v[l], d, width);
+        r.y.v[l] = __shfl_up_sync(0xffffffffu, a.y.v[l], d, width);
+        r.z.v[l] = __shfl_up_sync(0xffffffffu, a.z.v[l], d, width);
+    }
+    return r;
+}
+
+// TEAM = false compiles S = 1 alone: no team code, fewer live registers.
+template <bool MIXED, int KT, bool TEAM>
+__global__ void __launch_bounds__(32 * PARTS_WARPS, 3)
+    k_ec_parts(FieldParams F, const uint32_t *x, const uint32_t *y, const uint32_t *z,
+               uint32_t *ox, uint32_t *oy, uint32_t *oz, uint32_t *tx, uint32_t *ty,
+               uint32_t *tz, int64_t rows, int64_t n, int64_t cp, int team_log2_arg) {
+    // a warp's tile: word a (coordinate a / 8, limb a % 8) of column col of
+    // thread m's sub-chunk at (a * 32 + m) * (KT + 1) + col; the odd row
+    // length keeps a thread's own reads free of bank conflicts
+    constexpr int KP = KT + 1;
+    extern __shared__ uint32_t smem[];
+    const int team_log2 = TEAM ? team_log2_arg : 0;
+    const int S = 1 << team_log2;
+    const int w = threadIdx.x / 32, t = threadIdx.x % 32, s = t & (S - 1);
+    uint32_t *tile = smem + w * (24 * 32 * KP);
+    const int64_t lane0 = ((int64_t)blockIdx.x * PARTS_WARPS + w) * (32 >> team_log2);
+    if (lane0 >= rows * PST_LANES) return;
+    const int64_t row = lane0 / PST_LANES, lane_r = lane0 % PST_LANES;
+    const int64_t in_stride = rows * n, in_base = row * n;
+    const int64_t olen = PST_LANES * cp, out_stride = rows * olen, out_base = row * olen;
+    const int64_t sc = (cp + S - 1) >> team_log2;
+    // first position (in the row) and length of thread m's sub-chunk
+    auto start = [&](int m) {
+        return (lane_r + (m >> team_log2)) * cp + (int64_t)(m & (S - 1)) * sc;
+    };
+    auto len = [&](int m) {
+        int64_t a = (int64_t)(m & (S - 1)) * sc, b = a + sc < cp ? a + sc : cp;
+        return b > a ? b - a : (int64_t)0;
+    };
+    const int64_t lo = start(t), cnt = len(t);
+
+    // coalesced copies of columns [k0, k0 + KT) of the warp's 32 sub-chunks
+    auto load_tile = [&](int64_t k0) {
+        int64_t pos[KT];
+        bool ok[KT];
+#pragma unroll
+        for (int i = 0; i < KT; ++i) {
+            int idx = t + 32 * i, m = idx / KT, col = idx % KT;
+            pos[i] = start(m) + k0 + col;
+            ok[i] = k0 + col < len(m) && pos[i] < n;
+        }
+#pragma unroll 1
+        for (int a = 0; a < 24; ++a) {
+            const uint32_t *src = (a < 8 ? x : a < 16 ? y : z) + (a & 7) * in_stride + in_base;
+#pragma unroll
+            for (int i = 0; i < KT; ++i) {
+                int idx = t + 32 * i;
+                if (ok[i]) tile[(a * 32 + idx / KT) * KP + idx % KT] = src[pos[i]];
+            }
+        }
+    };
+    auto store_tile = [&](int64_t k0) {
+        int64_t pos[KT];
+        bool ok[KT];
+#pragma unroll
+        for (int i = 0; i < KT; ++i) {
+            int idx = t + 32 * i, m = idx / KT, col = idx % KT;
+            pos[i] = start(m) + k0 + col;
+            ok[i] = k0 + col < len(m);
+        }
+#pragma unroll 1
+        for (int a = 0; a < 24; ++a) {
+            uint32_t *dst = (a < 8 ? ox : a < 16 ? oy : oz) + (a & 7) * out_stride + out_base;
+#pragma unroll
+            for (int i = 0; i < KT; ++i) {
+                int idx = t + 32 * i;
+                if (ok[i]) dst[pos[i]] = tile[(a * 32 + idx / KT) * KP + idx % KT];
+            }
+        }
+    };
+    auto read = [&](int col) {
+        Jac v;
+#pragma unroll
+        for (int l = 0; l < PST_NL; ++l) {
+            v.x.v[l] = tile[(l * 32 + t) * KP + col];
+            v.y.v[l] = tile[((8 + l) * 32 + t) * KP + col];
+            v.z.v[l] = tile[((16 + l) * 32 + t) * KP + col];
+        }
+        return v;
+    };
+    auto write = [&](int col, const Jac &v) {
+#pragma unroll
+        for (int l = 0; l < PST_NL; ++l) {
+            tile[(l * 32 + t) * KP + col] = v.x.v[l];
+            tile[((8 + l) * 32 + t) * KP + col] = v.y.v[l];
+            tile[((16 + l) * 32 + t) * KP + col] = v.z.v[l];
+        }
+    };
+
+    Jac carry = jac_identity();
+    if constexpr (TEAM) {
+        // (a) reduce the sub-chunk, storing nothing
+        Jac tot = jac_identity();
+        bool started = false;
+        for (int64_t k0 = 0; k0 < sc; k0 += KT) {
+            load_tile(k0);
+            __syncwarp();
+            for (int col = 0; col < KT; ++col) {
+                int64_t k = k0 + col;
+                if (k < cnt && lo + k < n) {
+                    Jac v = read(col);
+                    tot = !started ? v : MIXED ? ec_madd(F, tot, v) : ec_add(F, tot, v);
+                    started = true;
+                }
+            }
+            __syncwarp();
+        }
+        // (b) exclusive scan of the team's totals, general adds
+        Jac incl = tot;
+        for (int d = 1; d < S; d <<= 1) {
+            Jac o = jac_shfl_up(incl, d, S);
+            if (s >= d) incl = ec_add(F, o, incl);
+        }
+        carry = jac_shfl_up(incl, 1, S);
+        if (s == 0) carry = jac_identity();
+    }
+    // (c) scan the sub-chunk from its offset, storing every position; member
+    //     0 starts from the identity, and identity + v is v exactly
+    for (int64_t k0 = 0; k0 < sc; k0 += KT) {
+        load_tile(k0);
+        __syncwarp();
+        for (int col = 0; col < KT; ++col) {
+            int64_t k = k0 + col;
+            if (k < cnt) {
+                if (lo + k < n) {
+                    Jac v = read(col);
+                    carry = MIXED ? ec_madd(F, carry, v) : ec_add(F, carry, v);
+                }
+                write(col, carry);
+            }
+        }
+        __syncwarp();
+        store_tile(k0);
+        __syncwarp();
+    }
+    // the last member's carry is the lane total
+    if (s == S - 1)
+        jac_store(tx, ty, tz, rows * PST_LANES, lane0 + (t >> team_log2), carry);
+}
+
+// K6 phase 2: exclusive Hillis-Steele over each row's PST_LANES lane totals,
+// general adds, the identity shifted in (_hs_scan_ec), in place in
+// (ex, ey, ez), (rows, PST_LANES). One block a row.
+__global__ void __launch_bounds__(PST_LANES)
+    k_ec_lane_offsets(FieldParams F, uint32_t *ex, uint32_t *ey, uint32_t *ez, int64_t rows) {
+    __shared__ Jac sh[PST_LANES];
+    const int t = threadIdx.x;
+    const int64_t stride = rows * PST_LANES, i = (int64_t)blockIdx.x * PST_LANES + t;
+    sh[t] = jac_load(ex, ey, ez, stride, i);
+    __syncthreads();
+    Jac excl = t > 0 ? sh[t - 1] : jac_identity();
+    __syncthreads();
+    sh[t] = excl;
+    __syncthreads();
+    for (int s = 1; s < PST_LANES; s <<= 1) {
+        Jac other = t >= s ? sh[t - s] : jac_identity();
+        __syncthreads();
+        excl = ec_add(F, excl, other);
+        sh[t] = excl;
+        __syncthreads();
+    }
+    jac_store(ex, ey, ez, stride, i, excl);
+}
+
+typedef void (*EcPartsFn)(FieldParams, const uint32_t *, const uint32_t *, const uint32_t *,
+                          uint32_t *, uint32_t *, uint32_t *, uint32_t *, uint32_t *,
+                          uint32_t *, int64_t, int64_t, int64_t, int);
+
+// The K6 instantiations, mixed or general: one thread a chunk with tile
+// width 4 or 16, or a team of S > 1 threads with tile width 4.
+static EcPartsFn ec_parts_fn(int team_log2, int kt, int mixed) {
+    if (team_log2 > 0)
+        return kt == 4 ? (mixed ? k_ec_parts<true, 4, true> : k_ec_parts<false, 4, true>)
+                       : nullptr;
+    if (kt == 4) return mixed ? k_ec_parts<true, 4, false> : k_ec_parts<false, 4, false>;
+    if (kt == 16) return mixed ? k_ec_parts<true, 16, false> : k_ec_parts<false, 16, false>;
+    return nullptr;
+}
+
+static int ec_parts_smem(int kt) { return PARTS_WARPS * 24 * 32 * (kt + 1) * 4; }
+
 // wx, wy, wz: (8, W, b) window sums, limb stride W * b; out: (8, b).
 __global__ void __launch_bounds__(128)
     k_combine_windows(FieldParams F, const uint32_t *wx, const uint32_t *wy,
@@ -161,21 +393,45 @@ int pst_jacobian_double(const uint32_t *fp, const uint32_t *px, const uint32_t *
     return (int)cudaGetLastError();
 }
 
+// K6: team_log2 in [0, 4]; kt 4 or, with team_log2 = 0, 16
+// (kernels.parts_geometry).
 int pst_ec_scan_parts(const uint32_t *fp, const uint32_t *x, const uint32_t *y,
                       const uint32_t *z, uint32_t *px, uint32_t *py, uint32_t *pz,
                       uint32_t *ex, uint32_t *ey, uint32_t *ez, int64_t rows, int64_t n,
-                      int64_t cp, int mixed, void *stream) {
+                      int64_t cp, int mixed, int team_log2, int kt, void *stream) {
+    EcPartsFn fn = ec_parts_fn(team_log2, kt, mixed);
+    if (fn == nullptr || team_log2 < 0 || team_log2 > 4) return (int)cudaErrorInvalidValue;
     if (rows > 0 && n > 0) {
         FieldParams F = pst_field_params(fp);
         cudaStream_t s = (cudaStream_t)stream;
-        if (mixed)
-            k_ec_scan<true, false><<<(unsigned)rows, PST_LANES, 0, s>>>(
-                F, x, y, z, px, py, pz, ex, ey, ez, rows, n, cp);
-        else
-            k_ec_scan<false, false><<<(unsigned)rows, PST_LANES, 0, s>>>(
-                F, x, y, z, px, py, pz, ex, ey, ez, rows, n, cp);
+        int smem = ec_parts_smem(kt);
+        cudaError_t e = cudaFuncSetAttribute((const void *)fn,
+                                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        if (e != cudaSuccess) return (int)e;
+        // rows * PST_LANES lanes, 32 * PARTS_WARPS >> team_log2 lanes a block
+        fn<<<(unsigned)(rows << team_log2), 32 * PARTS_WARPS, smem, s>>>(
+            F, x, y, z, px, py, pz, ex, ey, ez, rows, n, cp, team_log2);
+        e = cudaGetLastError();
+        if (e != cudaSuccess) return (int)e;
+        k_ec_lane_offsets<<<(unsigned)rows, PST_LANES, 0, s>>>(F, ex, ey, ez, rows);
     }
     return (int)cudaGetLastError();
+}
+
+// Registers, local (stack) bytes, static and dynamic shared memory of a K6
+// kernel: k_ec_parts of (team_log2, kt, mixed), or k_ec_lane_offsets when
+// kt = 0.
+int pst_ec_scan_parts_attrs(int team_log2, int kt, int mixed, int *out) {
+    const void *fn = kt == 0 ? (const void *)k_ec_lane_offsets
+                             : (const void *)ec_parts_fn(team_log2, kt, mixed);
+    if (fn == nullptr) return (int)cudaErrorInvalidValue;
+    cudaFuncAttributes a;
+    cudaError_t e = cudaFuncGetAttributes(&a, fn);
+    out[0] = a.numRegs;
+    out[1] = (int)a.localSizeBytes;
+    out[2] = (int)a.sharedSizeBytes;
+    out[3] = kt == 0 ? 0 : ec_parts_smem(kt);
+    return (int)e;
 }
 
 int pst_ec_scan_fused(const uint32_t *fp, const uint32_t *x, const uint32_t *y,

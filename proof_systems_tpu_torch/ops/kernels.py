@@ -28,7 +28,8 @@ Layout: a field element is (8, ...) int32, the 32-bit limbs of its
 Montgomery integer (limb-major, little-endian). The plain versions compute
 in int64 on 16-bit limbs (a 32x32-bit product overflows int64, and the CPU
 build of torch has no uint32 arithmetic). They follow the kernels' formulas
-and association order, so the two agree limb for limb.
+and association order, so the two agree limb for limb; K6 where a team of
+threads shares a lane chunk agrees as group elements.
 
 The library is built with nvcc (one process per source, all started
 together) into the gitignored build directory at first use, keyed by a
@@ -156,11 +157,13 @@ def _bind_field(lib: ctypes.CDLL) -> ctypes.CDLL:
 def _bind_curve(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.pst_jacobian_add.argtypes = [_P] * 10 + [_I64, _P]
     lib.pst_jacobian_double.argtypes = [_P] * 7 + [_I64, _P]
-    lib.pst_ec_scan_parts.argtypes = [_P] * 10 + [_I64, _I64, _I64, ctypes.c_int, _P]
+    lib.pst_ec_scan_parts.argtypes = [_P] * 10 + [_I64, _I64, _I64] + [ctypes.c_int] * 3 + [_P]
+    lib.pst_ec_scan_parts_attrs.argtypes = [ctypes.c_int] * 3 + [_P]
     lib.pst_ec_scan_fused.argtypes = [_P] * 7 + [_I64, _I64, _I64, _P]
     lib.pst_combine_windows.argtypes = [_P] * 7 + [_I64, _I64, ctypes.c_int, _P]
     for fn in (lib.pst_jacobian_add, lib.pst_jacobian_double,
-               lib.pst_ec_scan_parts, lib.pst_ec_scan_fused, lib.pst_combine_windows):
+               lib.pst_ec_scan_parts, lib.pst_ec_scan_parts_attrs, lib.pst_ec_scan_fused,
+               lib.pst_combine_windows):
         fn.restype = ctypes.c_int
     lib.pst_curve_error_string.argtypes = [ctypes.c_int]
     lib.pst_curve_error_string.restype = ctypes.c_char_p
@@ -787,16 +790,61 @@ def ec_prefix_scan_parts_plain(F, x, y, z, mixed: bool = False):
     return _ec_scan_plain(F, x, y, z, mixed, fused=False)
 
 
-def ec_prefix_scan_parts(F, x, y, z, mixed: bool = False):
-    """Blocked Jacobian prefix scan, phases 1-2, along the last axis.
+# K6 geometry (csrc/curve_kernels.cu k_ec_parts): the threads of one SM
+# that a team split aims to fill (three blocks of 128 at the kernel's
+# register cap), and the largest team.
+PARTS_SM_THREADS = 3 * 128
+PARTS_TEAM_MAX = 16
 
-    Returns (partial, excl, cp): partial leaves (8, ..., LANES * cp) and
-    excl leaves (8, ..., LANES); the inclusive prefix of position j is
-    excl[..., j // cp] + partial[..., j]. mixed=True requires affine-encoded
-    input (z in {0, R}) and uses mixed additions in the chunk scan."""
-    dev = _check(x, y, z)
-    if dev.type == "cpu":
-        return ec_prefix_scan_parts_plain(F, x, y, z, mixed)
+
+def parts_geometry(rows: int, cp: int, sms: int) -> tuple[int, int]:
+    """(S, KT) of K6 for `rows` rows of lane chunks of cp positions on a card
+    of `sms` SMs: S threads share each lane chunk and KT columns are staged
+    a copy. One thread a chunk (S = 1, no extra work) unless the rows fill
+    less than a quarter of the card; then S doubles while the threads still
+    fit in one pass and each keeps at least 8 positions. KT = 16 (64-byte
+    store runs) for one thread a chunk of 64 positions or more, else 4."""
+    lanes, slots = rows * LANES, sms * PARTS_SM_THREADS
+    s = 1
+    if 4 * lanes < slots:
+        while s < PARTS_TEAM_MAX and 2 * s * lanes <= slots and cp >= 16 * s:
+            s *= 2
+    return s, 16 if s == 1 and cp >= 64 else 4
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+# K6's kernels: (team, kt) of each k_ec_parts instantiation, and
+# k_ec_lane_offsets as kt 0
+PARTS_KERNELS = {"S 1 KT 16": (1, 16), "S 1 KT 4": (1, 4), "S > 1 KT 4": (2, 4),
+                 "lane offsets": (1, 0)}
+
+
+def ec_prefix_scan_parts_attrs() -> dict[str, tuple[int, ...]]:
+    """(registers, local bytes, static and dynamic shared bytes) of each K6
+    kernel (PARTS_KERNELS; k_ec_parts mixed then general), from
+    cudaFuncGetAttributes."""
+    lib = LIBRARY.load().curve
+    out = {}
+    for name, (team, kt) in PARTS_KERNELS.items():
+        for mixed in ((1, 0) if kt else (0,)):
+            buf = (ctypes.c_int * 4)()
+            rc = lib.pst_ec_scan_parts_attrs(team.bit_length() - 1, kt, mixed, buf)
+            if rc:
+                raise RuntimeError(f"pst_ec_scan_parts_attrs: CUDA error {rc}")
+            key = name if not kt else f"{name} {'mixed' if mixed else 'general'}"
+            out[key] = tuple(buf)
+    return out
+
+
+def _ec_parts_launch(F, x, y, z, mixed: bool, team: int, kt: int):
+    """K6's two kernels on (8, ..., n) CUDA rows with `team` threads a lane
+    chunk (a power of two up to PARTS_TEAM_MAX) and tile width kt (4, or 16
+    with team = 1); counts nothing."""
+    dev = x.device
     rows, n = _rows_n(x)
     cp = scan_chunk(n)
     batch = x.shape[1:-1]
@@ -807,9 +855,27 @@ def ec_prefix_scan_parts(F, x, y, z, mixed: bool = False):
     lib = LIBRARY.load().curve
     _launch(lib, "pst_ec_scan_parts", "pst_curve_error_string", dev,
             _field_words(F), *_ptrs((x, y, z)), *_ptrs(partial),
-            *_ptrs(excl), rows, n, cp, int(mixed))
-    LAUNCHES["ec_prefix_scan_parts"] += 1
+            *_ptrs(excl), rows, n, cp, int(mixed), team.bit_length() - 1, kt)
     return partial, excl, cp
+
+
+def ec_prefix_scan_parts(F, x, y, z, mixed: bool = False):
+    """Blocked Jacobian prefix scan, phases 1-2, along the last axis.
+
+    Returns (partial, excl, cp): partial leaves (8, ..., LANES * cp) and
+    excl leaves (8, ..., LANES); the inclusive prefix of position j is
+    excl[..., j // cp] + partial[..., j]. mixed=True requires affine-encoded
+    input (z in {0, R}) and uses mixed additions in the chunk scan. The
+    kernel's values are the plain version's as group elements; the limbs
+    differ where a team of threads shares a chunk (parts_geometry)."""
+    dev = _check(x, y, z)
+    if dev.type == "cpu":
+        return ec_prefix_scan_parts_plain(F, x, y, z, mixed)
+    rows, n = _rows_n(x)
+    team, kt = parts_geometry(rows, scan_chunk(n), _sm_count(dev))
+    out = _ec_parts_launch(F, x, y, z, mixed, team, kt)
+    LAUNCHES["ec_prefix_scan_parts"] += 1
+    return out
 
 
 def ec_prefix_scan_fused_plain(F, x, y, z):

@@ -79,6 +79,81 @@ def test_curve_kernels_match_plain(dev):
     assert sums == [Vesta.add(p, q) for p, q in zip(ps, qs)]
 
 
+def _k6_rows(rng, dev, rows, n, mixed):
+    """(8, rows, n) points gathered on the card from a pool of 32: lane 3
+    only P, P at 3 and 4 of its chunk, lane 5 only P, -P there, lane 6 only
+    P, P at 1 and 2 (across sub-chunk boundaries), lane 7 all identities,
+    identities at 3 and 4 of lane 9, random pool points elsewhere; doubled
+    (z != R) for the general variant."""
+    dc = device_curve(Vesta)
+    pool = [Vesta.scalar_mul(rng.randrange(1, Vesta.scalar.p), Vesta.generator)
+            for _ in range(32)]
+    table = [None] + pool + [Vesta.neg(pool[0])]  # 0: identity, 33: -pool[0]
+    cp = kernels.scan_chunk(n)
+    idx = torch.randint(1, 33, (rows, n), generator=torch.Generator().manual_seed(rows * n))
+    for L, pairs in [(3, [(3, 1), (4, 1)]), (5, [(3, 1), (4, 33)]), (6, [(1, 1), (2, 1)]),
+                     (7, [])]:
+        idx[:, L * cp:L * cp + cp] = 0
+        for j, k in pairs:
+            if j < cp and L * cp + j < n:
+                idx[:, L * cp + j] = k
+    for j in (3, 4):
+        if j < cp:
+            idx[:, 9 * cp + j:9 * cp + j + 1] = 0
+    J = dc.to_jacobian(dc.pack_affine(table, device=dev))
+    if not mixed:
+        J = dc.double(J)
+    flat = idx.reshape(-1).to(dev)
+    return dc, [t[:, flat].reshape(8, rows, n).contiguous() for t in J]
+
+
+def _same_points(dc, p, q):
+    """Whether the Jacobian tuples p, q hold the same group elements: the
+    infinity flags agree and X1 Z2^2 = X2 Z1^2, Y1 Z2^3 = Y2 Z1^3 where
+    finite (on the card, through K1)."""
+    F = dc.F
+    pinf, qinf = limb.is_zero(F, p[2]), limb.is_zero(F, q[2])
+    if not torch.equal(pinf, qinf):
+        return False
+    z1z1, z2z2 = limb.mont_sqr(F, p[2]), limb.mont_sqr(F, q[2])
+    ex = limb.mont_mul(F, p[0], z2z2) != limb.mont_mul(F, q[0], z1z1)
+    ey = (limb.mont_mul(F, p[1], limb.mont_mul(F, z2z2, q[2]))
+          != limb.mont_mul(F, q[1], limb.mont_mul(F, z1z1, p[2])))
+    return not bool(((ex | ey) & ~pinf[None]).any())
+
+
+# every (team size, tile width) k_ec_parts is built for
+K6_GEOMETRIES = [(1, 4), (1, 16), (2, 4), (4, 4), (8, 4), (16, 4)]
+
+
+@pytest.mark.parametrize("mixed", [True, False], ids=["mixed", "general"])
+@pytest.mark.parametrize("rows,n", [(2, 1), (2, 100), (1, 300), (2, 8321), (2, 65537),
+                                    (24, 65537)])
+def test_ec_parts_team_sizes_match_plain(dev, rows, n, mixed):
+    """K6 as the wrapper launches it, and with every team size and tile
+    width through its launcher, against the plain version as group elements
+    (cp unchanged): n = 1, n < 128 (cp = 1), n = 300 (cp = 3 < S), n =
+    8,321 and 65,537 (not multiples of S * 128), b = 1 with 24 rows, on
+    rows with identities at sub-chunk boundaries and filling a lane, and P
+    then P and P then -P across a boundary."""
+    rng = random.Random(609)
+    dc, pts = _k6_rows(rng, dev, rows, n, mixed)
+    want_p, want_e, want_cp = kernels.ec_prefix_scan_parts_plain(dc.F, *pts, mixed=mixed)
+    before = kernels.launch_counts()["ec_prefix_scan_parts"]
+    got = kernels.ec_prefix_scan_parts(dc.F, *pts, mixed=mixed)
+    assert kernels.launch_counts()["ec_prefix_scan_parts"] == before + 1
+    runs = [got] + [kernels._ec_parts_launch(dc.F, *pts, mixed, team, kt)
+                    for team, kt in K6_GEOMETRIES]
+    for part, excl, cp in runs:
+        assert cp == want_cp
+        assert _same_points(dc, part, want_p) and _same_points(dc, excl, want_e)
+    # one thread a chunk keeps the plain version's association order
+    for kt in (4, 16):
+        part, excl, _ = kernels._ec_parts_launch(dc.F, *pts, mixed, 1, kt)
+        for x, y in zip(part + excl, want_p + want_e):
+            assert torch.equal(x, y)
+
+
 def test_wrappers_reject_mixed_devices(dev):
     F = limb.device_field(Fp)
     a = F.pack([1, 2], device=dev)
