@@ -14,9 +14,10 @@ Phases, each fatal on failure:
      then each kernel against its plain PyTorch version on those inputs and
      on edge cases (field and transcript kernels and K8 exact, the other
      curve kernels as group elements; K6 also on rows that split each lane
-     chunk over a team of threads), with the kernel's and the plain
-     version's times, and K6's team size, tile width, registers and local
-     memory;
+     chunk over a team of threads; K8 also on its fallback and identity
+     windows), with the kernel's and the plain version's times, K6's team
+     size, tile width, registers and local memory, and K8's geometry,
+     registers, local memory and chain (products, levels, time a product);
   4. the main path at k = 16 on Vesta, with launch counts zeroed just
      before and read just after: SRS.create(2^16), the scaled basis of
      g ++ [h], iNTT of 15 random witness columns, their 15 hiding commits
@@ -31,7 +32,8 @@ Phases, each fatal on failure:
      steady-state stage times (the proof split by the tracer's checkpoints
      in a separate, synchronised proof); then each kernel's device time
      and launches over one more proof and one more verification (CUDA
-     events around every wrapper call), and K6's time at each call shape;
+     events around every wrapper call), and K6's and K8's time at each
+     call shape;
   5. every commitment against the native host MSM over g ++ [h], the iNTT
      against the CPU plain path, one b = 1 MSM at c = 10; the evaluations
      against host Horner; every round's L and R, sg, a0 and b0 against the
@@ -223,12 +225,22 @@ def k6_label(F, x, y, z, mixed=False) -> str:
     return f"ec_prefix_scan_parts[{'mixed' if mixed else 'general'} {shape}]"
 
 
+def k8_label(F, c, wx, wy, wz) -> str:
+    """A K8 call's label: its windows, columns and window size."""
+    return f"combine_windows[{wx.shape[1]}x{wx.shape[2]} c={c}]"
+
+
+# kernels whose time kernel_times also splits by call shape: short name, label
+SHAPE_LABELS = {"ec_prefix_scan_parts": ("K6", k6_label), "combine_windows": ("K8", k8_label)}
+
+
 def kernel_times(result, device) -> None:
     """Each kernel's device time and launches over one proof and over one
-    verification of it, largest first, and K6's time at each call shape."""
+    verification of it, largest first, and K6's and K8's time at each call
+    shape."""
     from proof_systems_tpu_torch.ops import kernels
 
-    targets = [(kernels, name, k6_label if name == "ec_prefix_scan_parts" else name)
+    targets = [(kernels, name, SHAPE_LABELS[name][1] if name in SHAPE_LABELS else name)
                for name in kernels.WRAPPERS]
     for label, fn in (("proof", lambda: prove(result)),
                       ("proof verification", lambda: verify_proof(result, result["kproof"]))):
@@ -245,8 +257,9 @@ def kernel_times(result, device) -> None:
             log(f"  {label} kernel {name:24s} {t:10.3f} ms  launches {counts[name]:5d}  "
                 f"calls timed {n:5d}")
         for key in sorted((k for k in ms if "[" in k), key=lambda k: -ms[k]):
-            log(f"  {label} K6 {key[21:-1]:22s} {calls[key]:3d} calls  {ms[key]:10.3f} ms  "
-                f"{ms[key] / calls[key]:.4f} ms a call")
+            name, shape = key[:-1].split("[")
+            log(f"  {label} {SHAPE_LABELS[name][0]} {shape:22s} {calls[key]:3d} calls  "
+                f"{ms[key]:10.3f} ms  {ms[key] / calls[key]:.4f} ms a call")
 
 
 # ---------------------------------------------------------------------------
@@ -306,10 +319,10 @@ def bound_ms(name: str, args, kw) -> tuple[float, str]:
     elems = t[0][0].numel()
     fe = 32  # bytes per field element
     hs = PRODUCTS["add"] * 128 * 7  # Hillis-Steele adds of one row
-    if name == "combine_windows":  # W windows x b columns in, b out
+    if name == "combine_windows":  # W windows x b columns in, b out; W - 1 Horner steps
         c, (W, b) = args[1], t[0].shape[1:]
         nbytes = 3 * fe * (W * b + b)
-        products = W * b * (c * PRODUCTS["dbl"] + PRODUCTS["add"])
+        products = b * k8_chain(W, c)[0]
     elif name == "sponge_squeeze2":  # 2 permutations: sbox 4, MDS 9 a round
         nbytes = fe * sum(a[0].numel() for a in t) + fe * 4
         products = 2 * args[1] * (3 * 4 + 9) + 1
@@ -391,6 +404,40 @@ def k6_rows(dc, pts, rows: int, n: int, mixed: bool, device):
     return [t[:, flat].reshape(8, rows, n).contiguous() for t in J]
 
 
+# K8 edge rows (W, b, c), on the columns of k8_windows: W = 1, c = 1, b = 33
+# and b = 130 (more than one block of columns)
+K8_EDGE_SHAPES = [(4, 5, 3), (1, 4, 4), (3, 5, 1), (3, 33, 2), (2, 130, 2)]
+
+
+def k8_windows(curve, dc, rng, W: int, b: int, c: int, device):
+    """(8, W, b) general Jacobian window sums (z != R) from random points of
+    `curve`: column 0 all identities; where W >= 2, in column 1 window W - 2
+    is 2^c times window W - 1, so the first add meets the accumulator itself
+    (the doubling fallback), and in column 2 its negation (the infinity
+    fallback); where W >= 3, in column 3 window W - 3 is 2^c times the
+    accumulator after window W - 2 (the doubling fallback mid-chain);
+    identities scattered over the other columns."""
+    def times2c(pt):
+        for _ in range(c):
+            pt = curve.double(pt)
+        return pt
+
+    pool = [curve.scalar_mul(rng.randrange(1, curve.scalar.p), curve.generator) for _ in range(32)]
+    host = [[rng.choice(pool) for _ in range(b)] for _ in range(W)]  # host[w][col]
+    for w in range(W):
+        host[w][0] = None
+        for col in range(4, b):
+            if (w + col) % 5 == 3:
+                host[w][col] = None
+    if W >= 2 and b >= 3:
+        host[W - 2][1] = times2c(host[W - 1][1])
+        host[W - 2][2] = curve.neg(times2c(host[W - 1][2]))
+    if W >= 3 and b >= 4:
+        host[W - 3][3] = times2c(curve.add(times2c(host[W - 1][3]), host[W - 2][3]))
+    J = dc.double(dc.to_jacobian(dc.pack_affine([pt for row in host for pt in row], device=device)))
+    return [t.reshape(8, W, b).contiguous() for t in J]
+
+
 def edge_cases(device, curve_params):
     """Small inputs with the special values: 0, 1, p-1, 2^254-1 for the
     field kernels; two rows of 300 for K9 with c = 0, 1 (a prefix sum),
@@ -398,8 +445,10 @@ def edge_cases(device, curve_params):
     Cp = 70) with a zero element for K12; P+P, P+(-P), infinity on either
     side for the curve kernels; identities inside a scan row of length 300;
     K6's team geometry on the rows of k6_rows, both variants; an infinity
-    window partial for K8; L at infinity, (0, 0), for K10; all-zero and
-    all-one challenge bits for K11."""
+    window partial for K8, and its edge rows (k8_windows: identity columns,
+    the doubling and infinity fallbacks, W = 1, c = 1, b = 33 and 130); L
+    at infinity, (0, 0), for K10; all-zero and all-one challenge bits for
+    K11."""
     from proof_systems_tpu_torch.fields import Fp, Fq
     from proof_systems_tpu_torch.ops import limb
     from proof_systems_tpu_torch.ops.curve_ops import device_curve
@@ -473,6 +522,10 @@ def edge_cases(device, curve_params):
     cases += [
         ("combine_windows", [dc.F, 11, *wins], {}),
         ("combine_windows", [dc.F, 2, *(w[:, :3].contiguous() for w in wins)], {}),
+    ] + [
+        ("combine_windows", [dc.F, c, *k8_windows(curve_params, dc, rng, W, b, c, device)], {})
+        for W, b, c in K8_EDGE_SHAPES
+    ] + [
         ("sponge_squeeze2", [Fb, fq_kimchi.rounds_full, state, xs, ys,
                              kernels.sponge_consts(fq_kimchi, device)], {}),
     ] + [
@@ -513,10 +566,22 @@ def prefix_compare(kernels, args, device, reps: int) -> None:
         f"K12 + K1 (prefix_mul) {both:.4f} ms")
 
 
-def chain_note(name: str, args) -> str:
-    """The dependent products one thread of a row scan runs."""
+def k8_chain(W: int, c: int) -> tuple[int, int]:
+    """(dependent products, levels) of one K8 column: the chain skips the
+    top window's c doublings and its add to the identity, and the kernel
+    runs a doubling's 7 products in 3 levels and an add's 16 in 5."""
+    return (W - 1) * (7 * c + 16), (W - 1) * (3 * c + 5)
+
+
+def chain_note(name: str, args, ms: float) -> str:
+    """The dependent products one thread of a row scan runs; for K8 one
+    column's chain, its levels and the time a product and a level."""
     from proof_systems_tpu_torch.ops.kernels import scan_chunk, scan_geometry
 
+    if name == "combine_windows":
+        products, levels = k8_chain(args[2].shape[1], args[1])
+        return (f"; chain {products} dependent products in {levels} levels a column, "
+                f"{ms * 1e3 / products:.4f} us a product, {ms * 1e3 / levels:.4f} us a level")
     if name not in ("linear_scan", "mont_prefix_scan", "mont_prefix_scan_parts"):
         return ""
     n = args[1].shape[-1]
@@ -535,6 +600,16 @@ def k6_note(kernels, args, device) -> str:
     attrs = ", ".join(f"{name}: {regs} registers, {local} B local"
                       for name, (regs, local, *_) in kernels.ec_prefix_scan_parts_attrs().items())
     return f"K6 here: team S = {team}, tile KT = {kt}; {attrs}"
+
+
+def k8_note(kernels, args) -> str:
+    """K8's geometry at this call, and the registers and local (stack) bytes
+    of every K8 kernel."""
+    c, (W, b) = args[1], args[2].shape[1:]
+    lanes, groups = kernels.combine_geometry(W, b, c)
+    attrs = ", ".join(f"L {ln} G {g}: {regs} registers, {local} B local"
+                      for (ln, g), (regs, local, *_) in kernels.combine_windows_attrs().items())
+    return f"K8 here: {lanes} lanes an element, {groups} lane groups; {attrs}"
 
 
 def check_kernels(kernels, recorded, device, curve_params) -> list[dict]:
@@ -568,13 +643,15 @@ def check_kernels(kernels, recorded, device, curve_params) -> list[dict]:
         b_ms, b_by = bound_ms(name, args, kw)
         shape = "x".join(str(s) for s in next(a for a in args if torch.is_tensor(a)).shape)
         log(f"kernel {key:28s} shape {shape:22s} {ms:10.4f} ms  plain {plain_s * 1e3:10.1f} ms  "
-            f"bound {b_ms:.3g} ms ({b_by})  max_abs_err {err}{chain_note(name, args)}")
+            f"bound {b_ms:.3g} ms ({b_by})  max_abs_err {err}{chain_note(name, args, ms)}")
         row = {"name": name, "route": "cuda", "source": SOURCES[name][0],
                "replaces": f"{PALLAS}:{SOURCES[name][1]}", "launches": 0, "max_abs_err": err,
                "ms": ms, "plain_ms": plain_s * 1e3, "bound_ms": b_ms, "bound_by": b_by,
                "library_ms": None}
         if name == "ec_prefix_scan_parts":
             log("  " + k6_note(kernels, args, device))
+        if name == "combine_windows":
+            log("  " + k8_note(kernels, args))
         if key == JSON_KEY.get(name, name):
             rows[name] = row
         if name == "mont_prefix_scan_parts":

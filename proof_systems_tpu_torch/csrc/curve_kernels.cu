@@ -16,8 +16,9 @@
 //      plus the combine, giving the full inclusive prefix scan.
 //   K8 combine_windows_fused (l.560): the Pippenger window recombination
 //      sum_w 2^(cw) win_w as a Horner chain from the top window (c doublings
-//      and one general add per window, the order of l.596-607). The TPU
-//      kernel's cap of 128 columns was its tile width and is not ported.
+//      and one general add per window, the order of l.596-607), in
+//      k8_combine.cuh with its own inlined arithmetic. The TPU kernel's cap
+//      of 128 columns was its tile width and is not ported.
 //
 // Bound on this card: integer multiplies. A general add is 16 Montgomery
 // products (11 for madd), each 128 IMAD.WIDE and 8 IMUL, against 192 B of
@@ -66,11 +67,21 @@
 // The result is the same group elements as the plain version's; the
 // Jacobian limbs differ when S > 1 (another association order).
 //
-// K8 is one thread per MSM column: at the verifier's b = 1 a single thread
-// runs W * (c + 1) dependent curve operations (288 at c = 11, W = 24), a
-// latency chain that no other block overlaps. Its time is kept in PERF.md.
+// K8, redesigned for this card (k_combine_windows below, k8_combine.cuh).
+// What bounds it: the latency of one dependent chain, not the integer rate.
+// On the main path a call has one or two columns, each a Horner chain of
+// 2,200-2,400 Montgomery products, each waiting for the one before it; the
+// old kernel ran a chain in one thread through the __noinline__ formulas at
+// about 1.1 us a product. The design: one warp a column; the independent
+// products of each formula side by side on G lane groups (3 levels a
+// doubling, 5 an add: 26 levels a Horner step at c = 7 instead of 65
+// products); a field element in one lane or split over L = 4 or 8 lanes
+// (column-parallel products whose deferred carries a __ballot_sync carry
+// lookahead resolves); all inlined, no stack; the chain starts from the top
+// window. Every (L, G) gives the plain version's limbs;
+// kernels.combine_geometry picks (L, G) = (1, 4), the fastest here.
 
-#include "field.cuh"
+#include "k8_combine.cuh"
 
 __global__ void __launch_bounds__(128)
     k_jacobian_add(FieldParams F, const uint32_t *px, const uint32_t *py, const uint32_t *pz,
@@ -353,19 +364,32 @@ static EcPartsFn ec_parts_fn(int team_log2, int kt, int mixed) {
 
 static int ec_parts_smem(int kt) { return PARTS_WARPS * 24 * 32 * (kt + 1) * 4; }
 
-// wx, wy, wz: (8, W, b) window sums, limb stride W * b; out: (8, b).
-__global__ void __launch_bounds__(128)
-    k_combine_windows(FieldParams F, const uint32_t *wx, const uint32_t *wy,
-                      const uint32_t *wz, uint32_t *ox, uint32_t *oy, uint32_t *oz,
-                      int64_t W, int64_t b, int c) {
-    const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-    if (i >= b) return;
-    Jac acc = jac_identity();
-    for (int64_t w = W - 1; w >= 0; --w) {
-        for (int k = 0; k < c; ++k) acc = ec_double(F, acc);
-        acc = ec_add(F, acc, jac_load(wx, wy, wz, W * b, w * b + i));
-    }
-    jac_store(ox, oy, oz, b, i, acc);
+// K8: one warp a column (k8_combine.cuh), K8_WARPS columns a block; a
+// field element over L lanes, the products of a level on G lane groups.
+template <int L, int G>
+__global__ void __launch_bounds__(32 * K8_WARPS, 1)
+    k_combine_windows(FieldParams F, K8Consts kc, const uint32_t *wx, const uint32_t *wy,
+                      const uint32_t *wz, uint32_t *ox, uint32_t *oy, uint32_t *oz, int64_t W,
+                      int64_t b, int c) {
+    const int64_t col = (int64_t)blockIdx.x * K8_WARPS + threadIdx.x / 32;
+    if (col >= b) return;  // whole warps
+    k8_combine_column<L, G>(F, kc, wx, wy, wz, ox, oy, oz, W, b, c, col, threadIdx.x % 32);
+}
+
+typedef void (*CombineFn)(FieldParams, K8Consts, const uint32_t *, const uint32_t *,
+                          const uint32_t *, uint32_t *, uint32_t *, uint32_t *, int64_t, int64_t,
+                          int);
+
+// The K8 instantiations: lanes an element L in {1, 4, 8}, lane groups G in
+// {1, 2, 4}.
+static CombineFn combine_fn(int lanes, int groups) {
+#define K8_CASE(l, g) \
+    if (lanes == l && groups == g) return k_combine_windows<l, g>;
+    K8_CASE(1, 1) K8_CASE(1, 2) K8_CASE(1, 4)
+    K8_CASE(4, 1) K8_CASE(4, 2) K8_CASE(4, 4)
+    K8_CASE(8, 1) K8_CASE(8, 2) K8_CASE(8, 4)
+#undef K8_CASE
+    return nullptr;
 }
 
 extern "C" {
@@ -444,15 +468,36 @@ int pst_ec_scan_fused(const uint32_t *fp, const uint32_t *x, const uint32_t *y,
     return (int)cudaGetLastError();
 }
 
-int pst_combine_windows(const uint32_t *fp, const uint32_t *wx, const uint32_t *wy,
-                        const uint32_t *wz, uint32_t *ox, uint32_t *oy, uint32_t *oz,
-                        int64_t W, int64_t b, int c, void *stream) {
+// K8: pinv points to the 8 words of -p^-1 mod 2^256; (lanes, groups) from
+// kernels.combine_geometry.
+int pst_combine_windows(const uint32_t *fp, const uint32_t *pinv, const uint32_t *wx,
+                        const uint32_t *wy, const uint32_t *wz, uint32_t *ox, uint32_t *oy,
+                        uint32_t *oz, int64_t W, int64_t b, int c, int lanes, int groups,
+                        void *stream) {
+    CombineFn fn = combine_fn(lanes, groups);
+    if (fn == nullptr) return (int)cudaErrorInvalidValue;
     if (W > 0 && b > 0) {
-        int64_t blocks = (b + 127) / 128;
-        k_combine_windows<<<(unsigned)blocks, 128, 0, (cudaStream_t)stream>>>(
-            pst_field_params(fp), wx, wy, wz, ox, oy, oz, W, b, c);
+        K8Consts kc;
+        std::memcpy(kc.pinv, pinv, sizeof(kc.pinv));
+        int64_t blocks = (b + K8_WARPS - 1) / K8_WARPS;
+        fn<<<(unsigned)blocks, 32 * K8_WARPS, 0, (cudaStream_t)stream>>>(
+            pst_field_params(fp), kc, wx, wy, wz, ox, oy, oz, W, b, c);
     }
     return (int)cudaGetLastError();
+}
+
+// Registers, local (stack) bytes, static and dynamic shared memory of the
+// K8 kernel of (lanes, groups).
+int pst_combine_windows_attrs(int lanes, int groups, int *out) {
+    const void *fn = (const void *)combine_fn(lanes, groups);
+    if (fn == nullptr) return (int)cudaErrorInvalidValue;
+    cudaFuncAttributes a;
+    cudaError_t e = cudaFuncGetAttributes(&a, fn);
+    out[0] = a.numRegs;
+    out[1] = (int)a.localSizeBytes;
+    out[2] = (int)a.sharedSizeBytes;
+    out[3] = 0;
+    return (int)e;
 }
 
 const char *pst_curve_error_string(int code) {

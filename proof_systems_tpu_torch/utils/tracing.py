@@ -10,10 +10,15 @@ card finished the work before it. A caller that wants the card's stages
 passes a hook that runs before each timestamp (`torch.cuda.synchronize`),
 which costs one synchronisation per checkpoint, so a traced run is not the
 run to time as a whole.
+
+`dump_json` exports the checkpoints as the reference does, one JSON line
+each with its wall-clock time in microseconds; `intervals` measures on the
+monotonic clock.
 """
 
 from __future__ import annotations
 
+import json
 import time
 
 
@@ -21,13 +26,14 @@ class Tracer:
     def __init__(self):
         self.enabled = False
         self.hook = None
-        self.events: list[tuple[str, float]] = []
+        self.events: list[tuple[str, float]] = []  # (name, perf_counter)
+        self.stamps_us: list[int] = []  # wall-clock microseconds of each event
 
     def enable(self, hook=None) -> None:
         """Record checkpoints from now on; `hook()` runs before each stamp."""
         self.enabled = True
         self.hook = hook
-        self.events.clear()
+        self.reset()
 
     def disable(self) -> None:
         self.enabled = False
@@ -39,6 +45,17 @@ class Tracer:
         if self.hook is not None:
             self.hook()
         self.events.append((name, time.perf_counter()))
+        self.stamps_us.append(int(time.time() * 1e6))
+
+    def dump_json(self) -> str:
+        """One line {"checkpoint": name, "ts_us": wall-clock microseconds}
+        for each checkpoint, in order (the reference's exporter)."""
+        return "\n".join(json.dumps({"checkpoint": name, "ts_us": ts})
+                         for (name, _), ts in zip(self.events, self.stamps_us))
+
+    def reset(self) -> None:
+        self.events.clear()
+        self.stamps_us.clear()
 
     def intervals(self) -> list[tuple[str, float]]:
         """(checkpoint, seconds from it to the next one), in order."""

@@ -7,10 +7,11 @@ import random
 import pytest
 import torch
 
+import chip_smoke
 from proof_systems_tpu_torch.curves import Vesta
 from proof_systems_tpu_torch.fields import Fp, Fq
 from proof_systems_tpu_torch.ops import kernels, limb
-from proof_systems_tpu_torch.ops.curve_ops import device_curve
+from proof_systems_tpu_torch.ops.curve_ops import JPoint, device_curve
 
 pytestmark = pytest.mark.cuda
 
@@ -180,6 +181,53 @@ def test_combine_windows_matches_plain(dev):
         got, want = _pair("combine_windows", dc.F, c, *win)
         for x, y in zip(got, want):
             assert torch.equal(x, y), (W, b, c)
+
+
+# (W, b, c) of every K8 call on the main path: the fold steps, the 11 tail
+# rounds, the sg MSM and the verifier's MSM
+K8_MAIN_SHAPES = [(26, 2, 10), (29, 2, 9), (32, 2, 8), (37, 2, 7), (37, 1, 7), (24, 1, 11)]
+
+
+@pytest.mark.parametrize("W,b,c", K8_MAIN_SHAPES)
+def test_combine_windows_main_path_shapes(dev, W, b, c):
+    """K8 as the wrapper launches it (one launch a call) at every main-path
+    call shape, limb for limb against the plain version."""
+    rng = random.Random(610 + W + b)
+    dc, win = _window_partials(rng, dev, W, b)
+    before = kernels.launch_counts()["combine_windows"]
+    got, want = _pair("combine_windows", dc.F, c, *win)
+    assert kernels.launch_counts()["combine_windows"] == before + 1
+    for x, y in zip(got, want):
+        assert torch.equal(x, y), (W, b, c)
+
+
+@pytest.mark.parametrize("W,b,c", chip_smoke.K8_EDGE_SHAPES)
+def test_combine_windows_edge_rows_every_geometry(dev, W, b, c):
+    """K8 through the wrapper and with every geometry (lanes an element,
+    lane groups) on chip_smoke.py's edge rows: an all-identity column, a
+    window equal to 2^c times the accumulator (the doubling fallback, at the
+    first add and mid-chain), one equal to its negation (the infinity
+    fallback), W = 1, c = 1, b = 33 and b = 130; limb for limb against the
+    plain version, and as points against host Horner."""
+    rng = random.Random(611 + W * b * c)
+    dc = device_curve(Vesta)
+    wins = chip_smoke.k8_windows(Vesta, dc, rng, W, b, c, dev)
+    want = kernels.combine_windows_plain(dc.F, c, *wins)
+    runs = [kernels.combine_windows(dc.F, c, *wins)]
+    runs += [kernels._combine_launch(dc.F, c, *wins, *g) for g in kernels.COMBINE_KERNELS]
+    for got in runs:
+        for x, y in zip(got, want):
+            assert torch.equal(x, y), (W, b, c)
+    host_wins = dc.unpack_jacobian(JPoint(*(t.reshape(8, W * b) for t in wins)))
+    host = []
+    for col in range(b):
+        acc = None
+        for w in range(W - 1, -1, -1):
+            for _ in range(c):
+                acc = Vesta.double(acc)
+            acc = Vesta.add(acc, host_wins[w * b + col])
+        host.append(acc)
+    assert dc.unpack_jacobian(JPoint(*runs[0])) == host
 
 
 def test_sponge_squeeze2_matches_plain_and_host(dev):
