@@ -16,8 +16,8 @@ Phases, each fatal on failure:
      curve kernels as group elements; K6 also on rows that split each lane
      chunk over a team of threads; K8 also on its fallback and identity
      windows), with the kernel's and the plain version's times, K6's team
-     size, tile width, registers and local memory, and K8's geometry,
-     registers, local memory and chain (products, levels, time a product);
+     size, tile width, registers and local memory, and K8's registers,
+     local memory and chain (products, levels, time a product);
   4. the main path at k = 16 on Vesta, with launch counts zeroed just
      before and read just after: SRS.create(2^16), the scaled basis of
      g ++ [h], iNTT of 15 random witness columns, their 15 hiding commits
@@ -602,14 +602,11 @@ def k6_note(kernels, args, device) -> str:
     return f"K6 here: team S = {team}, tile KT = {kt}; {attrs}"
 
 
-def k8_note(kernels, args) -> str:
-    """K8's geometry at this call, and the registers and local (stack) bytes
-    of every K8 kernel."""
-    c, (W, b) = args[1], args[2].shape[1:]
-    lanes, groups = kernels.combine_geometry(W, b, c)
-    attrs = ", ".join(f"L {ln} G {g}: {regs} registers, {local} B local"
-                      for (ln, g), (regs, local, *_) in kernels.combine_windows_attrs().items())
-    return f"K8 here: {lanes} lanes an element, {groups} lane groups; {attrs}"
+def k8_note(kernels) -> str:
+    """K8's lanes and the registers and local (stack) bytes of its kernel."""
+    regs, local, *_ = kernels.combine_windows_attrs()
+    return (f"K8 here: one warp a column, a level's products on 4 lanes; {regs} registers, "
+            f"{local} B local")
 
 
 def check_kernels(kernels, recorded, device, curve_params) -> list[dict]:
@@ -651,7 +648,7 @@ def check_kernels(kernels, recorded, device, curve_params) -> list[dict]:
         if name == "ec_prefix_scan_parts":
             log("  " + k6_note(kernels, args, device))
         if name == "combine_windows":
-            log("  " + k8_note(kernels, args))
+            log("  " + k8_note(kernels))
         if key == JSON_KEY.get(name, name):
             rows[name] = row
         if name == "mont_prefix_scan_parts":

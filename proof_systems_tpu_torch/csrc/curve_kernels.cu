@@ -17,8 +17,8 @@
 //   K8 combine_windows_fused (l.560): the Pippenger window recombination
 //      sum_w 2^(cw) win_w as a Horner chain from the top window (c doublings
 //      and one general add per window, the order of l.596-607), in
-//      k8_combine.cuh with its own inlined arithmetic. The TPU kernel's cap
-//      of 128 columns was its tile width and is not ported.
+//      k8_combine.cuh with its own inlined curve formulas. The TPU kernel's
+//      cap of 128 columns was its tile width and is not ported.
 //
 // Bound on this card: integer multiplies. A general add is 16 Montgomery
 // products (11 for madd), each 128 IMAD.WIDE and 8 IMUL, against 192 B of
@@ -70,16 +70,12 @@
 // K8, redesigned for this card (k_combine_windows below, k8_combine.cuh).
 // What bounds it: the latency of one dependent chain, not the integer rate.
 // On the main path a call has one or two columns, each a Horner chain of
-// 2,200-2,400 Montgomery products, each waiting for the one before it; the
+// 2,100-2,400 Montgomery products, each waiting for the one before it; the
 // old kernel ran a chain in one thread through the __noinline__ formulas at
 // about 1.1 us a product. The design: one warp a column; the independent
-// products of each formula side by side on G lane groups (3 levels a
-// doubling, 5 an add: 26 levels a Horner step at c = 7 instead of 65
-// products); a field element in one lane or split over L = 4 or 8 lanes
-// (column-parallel products whose deferred carries a __ballot_sync carry
-// lookahead resolves); all inlined, no stack; the chain starts from the top
-// window. Every (L, G) gives the plain version's limbs;
-// kernels.combine_geometry picks (L, G) = (1, 4), the fastest here.
+// products of each formula side by side on 4 lanes (3 levels a doubling, 5
+// an add: 26 levels a Horner step at c = 7 instead of 65 products); all
+// inlined, no stack; the chain starts from the top window.
 
 #include "k8_combine.cuh"
 
@@ -364,32 +360,13 @@ static EcPartsFn ec_parts_fn(int team_log2, int kt, int mixed) {
 
 static int ec_parts_smem(int kt) { return PARTS_WARPS * 24 * 32 * (kt + 1) * 4; }
 
-// K8: one warp a column (k8_combine.cuh), K8_WARPS columns a block; a
-// field element over L lanes, the products of a level on G lane groups.
-template <int L, int G>
+// K8: one warp a column (k8_combine.cuh), K8_WARPS columns a block.
 __global__ void __launch_bounds__(32 * K8_WARPS, 1)
-    k_combine_windows(FieldParams F, K8Consts kc, const uint32_t *wx, const uint32_t *wy,
-                      const uint32_t *wz, uint32_t *ox, uint32_t *oy, uint32_t *oz, int64_t W,
-                      int64_t b, int c) {
+    k_combine_windows(FieldParams F, const uint32_t *wx, const uint32_t *wy, const uint32_t *wz,
+                      uint32_t *ox, uint32_t *oy, uint32_t *oz, int64_t W, int64_t b, int c) {
     const int64_t col = (int64_t)blockIdx.x * K8_WARPS + threadIdx.x / 32;
     if (col >= b) return;  // whole warps
-    k8_combine_column<L, G>(F, kc, wx, wy, wz, ox, oy, oz, W, b, c, col, threadIdx.x % 32);
-}
-
-typedef void (*CombineFn)(FieldParams, K8Consts, const uint32_t *, const uint32_t *,
-                          const uint32_t *, uint32_t *, uint32_t *, uint32_t *, int64_t, int64_t,
-                          int);
-
-// The K8 instantiations: lanes an element L in {1, 4, 8}, lane groups G in
-// {1, 2, 4}.
-static CombineFn combine_fn(int lanes, int groups) {
-#define K8_CASE(l, g) \
-    if (lanes == l && groups == g) return k_combine_windows<l, g>;
-    K8_CASE(1, 1) K8_CASE(1, 2) K8_CASE(1, 4)
-    K8_CASE(4, 1) K8_CASE(4, 2) K8_CASE(4, 4)
-    K8_CASE(8, 1) K8_CASE(8, 2) K8_CASE(8, 4)
-#undef K8_CASE
-    return nullptr;
+    k8_combine_column(F, wx, wy, wz, ox, oy, oz, W, b, c, col, threadIdx.x % 32);
 }
 
 extern "C" {
@@ -468,31 +445,21 @@ int pst_ec_scan_fused(const uint32_t *fp, const uint32_t *x, const uint32_t *y,
     return (int)cudaGetLastError();
 }
 
-// K8: pinv points to the 8 words of -p^-1 mod 2^256; (lanes, groups) from
-// kernels.combine_geometry.
-int pst_combine_windows(const uint32_t *fp, const uint32_t *pinv, const uint32_t *wx,
-                        const uint32_t *wy, const uint32_t *wz, uint32_t *ox, uint32_t *oy,
-                        uint32_t *oz, int64_t W, int64_t b, int c, int lanes, int groups,
-                        void *stream) {
-    CombineFn fn = combine_fn(lanes, groups);
-    if (fn == nullptr) return (int)cudaErrorInvalidValue;
+int pst_combine_windows(const uint32_t *fp, const uint32_t *wx, const uint32_t *wy,
+                        const uint32_t *wz, uint32_t *ox, uint32_t *oy, uint32_t *oz,
+                        int64_t W, int64_t b, int c, void *stream) {
     if (W > 0 && b > 0) {
-        K8Consts kc;
-        std::memcpy(kc.pinv, pinv, sizeof(kc.pinv));
         int64_t blocks = (b + K8_WARPS - 1) / K8_WARPS;
-        fn<<<(unsigned)blocks, 32 * K8_WARPS, 0, (cudaStream_t)stream>>>(
-            pst_field_params(fp), kc, wx, wy, wz, ox, oy, oz, W, b, c);
+        k_combine_windows<<<(unsigned)blocks, 32 * K8_WARPS, 0, (cudaStream_t)stream>>>(
+            pst_field_params(fp), wx, wy, wz, ox, oy, oz, W, b, c);
     }
     return (int)cudaGetLastError();
 }
 
-// Registers, local (stack) bytes, static and dynamic shared memory of the
-// K8 kernel of (lanes, groups).
-int pst_combine_windows_attrs(int lanes, int groups, int *out) {
-    const void *fn = (const void *)combine_fn(lanes, groups);
-    if (fn == nullptr) return (int)cudaErrorInvalidValue;
+// Registers, local (stack) bytes, static and dynamic shared memory of K8.
+int pst_combine_windows_attrs(int *out) {
     cudaFuncAttributes a;
-    cudaError_t e = cudaFuncGetAttributes(&a, fn);
+    cudaError_t e = cudaFuncGetAttributes(&a, (const void *)k_combine_windows);
     out[0] = a.numRegs;
     out[1] = (int)a.localSizeBytes;
     out[2] = (int)a.sharedSizeBytes;

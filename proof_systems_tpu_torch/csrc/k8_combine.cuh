@@ -3,38 +3,29 @@
 // (c doublings, then one complete add, per window: the order of
 // proof_systems_tpu/ops/pallas_field.py:596-607, combine_windows_fused l.560).
 //
-// This header is K8's own arithmetic, all of it inlined. It calls none of
-// field.cuh's __noinline__ formulas (ec_double, ec_add, ec_madd), which K2,
-// K3, K6 and K7 share; with one lane an element it uses field.cuh's
-// forceinline fe_mul, fe_add and fe_sub.
+// This header is K8's own curve formulas, all of them inlined. It calls none
+// of field.cuh's __noinline__ formulas (ec_double, ec_add, ec_madd), which
+// K2, K3, K6 and K7 share; it uses field.cuh's forceinline fe_mul, fe_add
+// and fe_sub.
 //
 // What bounds K8 on this card: not the integer rate (a call is W * (7c + 16)
 // products a column, microseconds of the card's multiply-add rate) but the
 // latency of one dependent chain. On the main path b = 1 or 2 columns, so a
-// call is one or two chains of 2,200-2,400 Montgomery products, each waiting
+// call is one or two chains of 2,100-2,400 Montgomery products, each waiting
 // for the one before it. The old kernel ran a chain in one thread through
 // the __noinline__ formulas (a 264-byte stack frame) at about 1.1 us a
 // product. What this design does about it:
 //   - one warp a column, so a chain has 32 lanes; columns go over blocks of
 //     K8_WARPS warps;
-//   - the independent products of a formula run side by side on G lane
-//     groups of the warp, a level at a time: dbl-2009-l's 7 products in 3
-//     levels, add-2007-bl's 16 in 5, so a Horner step at c = 7 is 26
-//     levels deep instead of 65 products. Every group keeps the whole state,
-//     so adds, subtractions and the fallbacks' branches run the same in
-//     every lane and nothing diverges; each level's products come back to
-//     every group through warp shuffles;
-//   - a field element is split over L lanes of a group, K = 8 / L 32-bit
-//     limbs a lane (L = 1, 4 or 8). With L > 1 a Montgomery product is three
-//     column-parallel multiplies: T = a*b, m = (T mod 2^256) * (-p^-1 mod
-//     2^256) mod 2^256 and T + m*p, whose top half is below 2p. Operands
-//     come by __shfl_sync; each lane sums its low and high columns with the
-//     carries deferred (a 64-bit sum and an overflow count a column); then
-//     each lane block's carry word moves one block up (twice for K = 1) and
-//     the last 0/1 carries are resolved at once by a carry lookahead over
-//     __ballot_sync votes of each block's generate and propagate bits, as
-//     CGBN does. Adds, subtractions and the zero test vote the same way.
-//     With L = 1 an element stays in one lane (field.cuh's CIOS fe_mul);
+//   - the independent products of a formula run side by side on
+//     K8_GROUPS = 4 lanes, a level at a time: dbl-2009-l's 7 products in 3
+//     levels, add-2007-bl's 16 in 5, so a Horner step at c = 7 is 26 levels
+//     deep instead of 65 products. Every lane keeps the whole state, so
+//     adds, subtractions and the fallbacks' branches run the same in every
+//     lane and nothing diverges; each level's products come back to every
+//     lane through warp shuffles (the other lanes of the warp repeat the
+//     first four);
+//   - each product is one lane's CIOS fe_mul;
 //   - everything is inlined, with one doubling site and one add site in the
 //     loop (the add's doubling fallback loops back to the doubling site);
 //     registers are capped at 255 (a block of 4 warps), and no stack is used;
@@ -43,464 +34,80 @@
 //     infinite), so the first c doublings are skipped.
 // Every product, add and subtraction returns the canonical value, and the
 // formulas are field.cuh's in their order with the complete add's fallbacks
-// in the same order, so every (L, G) gives the limbs of the plain version
-// (ops/kernels.py combine_windows_plain). The wrapper derives (L, G) from
-// the shape (kernels.combine_geometry; scripts/torch_k8_bench.py times every
-// choice against the others). On the H100 the levels pay and the limb split
-// does not: L = 1, G = 4 is the fastest at every main-path shape, about a
-// microsecond a level, which is one lane's CIOS product (PERF.md).
+// in the same order, so K8 gives the limbs of the plain version
+// (ops/kernels.py combine_windows_plain). On the H100 this is about a
+// microsecond a level (PERF.md). Splitting an element's limbs over 4 or 8
+// lanes (column-parallel products, carries resolved by a __ballot_sync
+// lookahead) or running a level on fewer lanes was slower at every
+// main-path shape (PERF.md).
 
 #pragma once
 
 #include "field.cuh"
 
-#define K8_WARPS 4  // columns (one a warp) of a block
+#define K8_WARPS 4   // columns (one a warp) of a block
+#define K8_GROUPS 4  // lanes that share the products of a level
 #define K8_FULL 0xffffffffu
 
-// -p^-1 mod 2^256: the whole-width Montgomery factor of the lane-split
-// product (the wrapper computes it).
-struct K8Consts {
-    uint32_t pinv[PST_NL];
-};
-
-// One lane's share of a field element: limbs s*K .. s*K + K - 1 of lane
-// slot s of its group; with L = 1 the whole element (field.cuh's Fe).
-template <int L> struct K8ElemT {
-    struct type {
-        uint32_t v[PST_NL / L];
-    };
-};
-template <> struct K8ElemT<1> {
-    using type = Fe;
-};
-template <int L> using K8E = typename K8ElemT<L>::type;
-
-template <int L> struct K8Jac {
-    K8E<L> x, y, z;
-};
-
-// Floor division and modulus, for the static limb offsets of the product.
-__host__ __device__ constexpr int k8_fdiv(int e, int k) {
-    return e >= 0 ? e / k : -((-e + k - 1) / k);
-}
-__host__ __device__ constexpr int k8_fmod(int e, int k) { return e - k8_fdiv(e, k) * k; }
-
-// A lane's place: group g of the warp's segment of L * G lanes (segments
-// past the first repeat it), slot s inside the group; gbit is the bit of
-// the group's first lane in a warp ballot. The rotated constants give the
-// limbs of p and -p^-1 that this lane's columns need with static indices:
-// p_rot[j] = p[(s*K + j) mod 8].
-template <int L, int G> struct K8Ctx {
-    static constexpr int K = PST_NL / L;
-    static constexpr int W = L * G;
-    int s, g, gbit;
-    uint32_t p_rot[PST_NL];
-    uint32_t pinv_rot[PST_NL];
-    uint32_t p_loc[K];
-};
-
-template <int L, int G>
-__device__ __forceinline__ K8Ctx<L, G> k8_ctx(const FieldParams &F, const K8Consts &kc, int lane) {
-    constexpr int K = K8Ctx<L, G>::K;
-    K8Ctx<L, G> c;
-    c.s = lane % L;
-    c.g = (lane / L) % G;
-    c.gbit = lane - c.s;
+// Lane j's copy of v (j in [0, K8_GROUPS)), in every lane.
+__device__ __forceinline__ Fe k8_from_lane(const Fe &v, int j) {
+    Fe r;
 #pragma unroll
-    for (int j = 0; j < PST_NL; ++j) {
-        const int at = (c.s * K + j) % PST_NL;
-        uint32_t pv = 0, iv = 0;
-#pragma unroll
-        for (int l = 0; l < PST_NL; ++l) {
-            pv = at == l ? F.p[l] : pv;
-            iv = at == l ? kc.pinv[l] : iv;
-        }
-        c.p_rot[j] = pv;
-        c.pinv_rot[j] = iv;
-    }
-#pragma unroll
-    for (int t = 0; t < K; ++t) c.p_loc[t] = c.p_rot[t];
-    return c;
-}
-
-// ---------------------------------------------------------------------------
-// Warp primitives inside one column's segment of W lanes
-// ---------------------------------------------------------------------------
-
-template <int W> __device__ __forceinline__ uint32_t k8_shfl(uint32_t v, int src) {
-    if constexpr (W == 1) {
-        return v;
-    } else {
-        return __shfl_sync(K8_FULL, v, src, W);
-    }
-}
-
-template <int W> __device__ __forceinline__ uint64_t k8_shfl64(uint64_t v, int src) {
-    const uint32_t lo = k8_shfl<W>((uint32_t)v, src);
-    const uint32_t hi = k8_shfl<W>((uint32_t)(v >> 32), src);
-    return ((uint64_t)hi << 32) | lo;
-}
-
-// Bit t: pred of slot t of this lane's group.
-template <int L, int G>
-__device__ __forceinline__ uint32_t k8_vote(const K8Ctx<L, G> &c, bool pred) {
-    return (__ballot_sync(K8_FULL, pred) >> c.gbit) & ((1u << L) - 1);
-}
-
-// Carry lookahead over blocks: with generate bits gen and propagate bits
-// prop (never both), bit k of the result is the carry into block k (and the
-// bit above the top block the carry out): the carry chain
-// c_(k+1) = g_k | (p_k & c_k) is that of the integer sum (g | p) + g.
-__device__ __forceinline__ uint32_t k8_lookahead(uint32_t gen, uint32_t prop) {
-    const uint32_t x = gen | prop;
-    return (x + gen) ^ x ^ gen;
-}
-
-// ---------------------------------------------------------------------------
-// A lane's block of K limbs
-// ---------------------------------------------------------------------------
-
-// v += c (c < 2^64); returns the carry out of the block.
-template <int K> __device__ __forceinline__ uint64_t k8_add_in(uint32_t (&v)[K], uint64_t c) {
-#pragma unroll
-    for (int t = 0; t < K; ++t) {
-        const uint64_t s = (uint64_t)v[t] + (uint32_t)c;
-        v[t] = (uint32_t)s;
-        c = (c >> 32) + (s >> 32);
-    }
-    return c;
-}
-
-// v -= b (b in {0, 1}); the borrow out is dropped.
-template <int K> __device__ __forceinline__ void k8_sub_in(uint32_t (&v)[K], uint32_t b) {
-#pragma unroll
-    for (int t = 0; t < K; ++t) {
-        const uint32_t nv = v[t] - b;
-        b = v[t] < b;
-        v[t] = nv;
-    }
-}
-
-template <int K> __device__ __forceinline__ bool k8_all_ones(const uint32_t (&v)[K]) {
-    uint32_t a = ~0u;
-#pragma unroll
-    for (int t = 0; t < K; ++t) a &= v[t];
-    return a == ~0u;
-}
-
-template <int K> __device__ __forceinline__ bool k8_any(const uint32_t (&v)[K]) {
-    uint32_t a = 0;
-#pragma unroll
-    for (int t = 0; t < K; ++t) a |= v[t];
-    return a != 0;
-}
-
-// Ripple the column sums a[t] + o[t] * 2^64 of one block into limbs r;
-// returns the carry out (below 2^36).
-template <int K>
-__device__ __forceinline__ uint64_t k8_ripple(const uint64_t (&a)[K], const uint32_t (&o)[K],
-                                              uint32_t (&r)[K]) {
-    uint64_t carry = 0;
-#pragma unroll
-    for (int t = 0; t < K; ++t) {
-        const uint64_t s = a[t] + carry;
-        const uint32_t over = o[t] + (s < carry);
-        r[t] = (uint32_t)s;
-        carry = (s >> 32) | ((uint64_t)over << 32);
-    }
-    return carry;
-}
-
-// Add a product into column t of the low (low = true) or the high block.
-template <int K>
-__device__ __forceinline__ void k8_acc(uint64_t (&a)[2][K], uint32_t (&o)[2][K], int t, bool low,
-                                       uint64_t pr) {
-    const uint64_t lo = low ? pr : 0, hi = low ? 0 : pr;
-    a[0][t] += lo;
-    o[0][t] += a[0][t] < lo;
-    a[1][t] += hi;
-    o[1][t] += a[1][t] < hi;
-}
-
-// ---------------------------------------------------------------------------
-// Carry resolution over the group: the low blocks are slots 0..L-1, the
-// high blocks (a 512-bit value) slots L..2L-1.
-// ---------------------------------------------------------------------------
-
-// Column sums of this lane's low columns (s*K + t) and high columns
-// (8 + s*K + t) -> the canonical limbs of their 512-bit total (below 2^512).
-template <int L, int G>
-__device__ __forceinline__ void k8_resolve2(const K8Ctx<L, G> &c,
-                                            const uint64_t (&a)[2][PST_NL / L],
-                                            const uint32_t (&o)[2][PST_NL / L],
-                                            uint32_t (&r)[2][PST_NL / L]) {
-    constexpr int K = PST_NL / L, W = L * G;
-    const int below = c.g * L + (c.s + L - 1) % L;  // the lane of the block below
-    uint64_t e0 = k8_ripple<K>(a[0], o[0], r[0]);
-    uint64_t e1 = k8_ripple<K>(a[1], o[1], r[1]);
-    {  // each block's carry word (< 2^36) into the block above
-        const uint64_t x = k8_shfl64<W>(e0, below), y = k8_shfl64<W>(e1, below);
-        e0 = k8_add_in<K>(r[0], c.s ? x : 0);
-        e1 = k8_add_in<K>(r[1], c.s ? y : x);
-    }
-    if constexpr (K == 1) {  // one limb a block: carries up to 16, once more
-        const uint32_t x = k8_shfl<W>((uint32_t)e0, below), y = k8_shfl<W>((uint32_t)e1, below);
-        e0 = k8_add_in<K>(r[0], c.s ? x : 0);
-        e1 = k8_add_in<K>(r[1], c.s ? y : x);
-    }
-    // now each carry is 0 or 1, and a block that carries is not all ones
-    const uint32_t gen = k8_vote(c, e0 != 0) | (k8_vote(c, e1 != 0) << L);
-    const uint32_t prop =
-        k8_vote(c, k8_all_ones<K>(r[0])) | (k8_vote(c, k8_all_ones<K>(r[1])) << L);
-    const uint32_t cin = k8_lookahead(gen, prop);
-    k8_add_in<K>(r[0], (cin >> c.s) & 1);
-    k8_add_in<K>(r[1], (cin >> (L + c.s)) & 1);
-}
-
-// The low block alone: limbs of the total mod 2^256.
-template <int L, int G>
-__device__ __forceinline__ void k8_resolve1(const K8Ctx<L, G> &c, const uint64_t (&a)[PST_NL / L],
-                                            const uint32_t (&o)[PST_NL / L],
-                                            uint32_t (&r)[PST_NL / L]) {
-    constexpr int K = PST_NL / L, W = L * G;
-    const int below = c.g * L + (c.s + L - 1) % L;
-    uint64_t e = k8_ripple<K>(a, o, r);
-    const uint64_t x = k8_shfl64<W>(e, below);
-    e = k8_add_in<K>(r, c.s ? x : 0);
-    if constexpr (K == 1) {
-        const uint32_t x = k8_shfl<W>((uint32_t)e, below);
-        e = k8_add_in<K>(r, c.s ? x : 0);
-    }
-    const uint32_t cin = k8_lookahead(k8_vote(c, e != 0), k8_vote(c, k8_all_ones<K>(r)));
-    k8_add_in<K>(r, (cin >> c.s) & 1);
-}
-
-// d = a + b over the group's 256 bits; returns the carry out (the same in
-// every lane of the group).
-template <int L, int G>
-__device__ __forceinline__ bool k8_add_raw(const K8Ctx<L, G> &c, uint32_t (&d)[PST_NL / L],
-                                           const uint32_t (&a)[PST_NL / L],
-                                           const uint32_t (&b)[PST_NL / L]) {
-    constexpr int K = PST_NL / L;
-    uint32_t carry = 0;
-#pragma unroll
-    for (int t = 0; t < K; ++t) {
-        const uint64_t s = (uint64_t)a[t] + b[t] + carry;
-        d[t] = (uint32_t)s;
-        carry = (uint32_t)(s >> 32);
-    }
-    const uint32_t cin = k8_lookahead(k8_vote(c, carry != 0), k8_vote(c, k8_all_ones<K>(d)));
-    k8_add_in<K>(d, (cin >> c.s) & 1);
-    return (cin >> L) & 1;
-}
-
-// d = a - b over the group's 256 bits; returns the borrow out.
-template <int L, int G>
-__device__ __forceinline__ bool k8_sub_raw(const K8Ctx<L, G> &c, uint32_t (&d)[PST_NL / L],
-                                           const uint32_t (&a)[PST_NL / L],
-                                           const uint32_t (&b)[PST_NL / L]) {
-    constexpr int K = PST_NL / L;
-    uint32_t borrow = 0;
-#pragma unroll
-    for (int t = 0; t < K; ++t) {
-        const uint64_t v = (uint64_t)a[t] - b[t] - borrow;
-        d[t] = (uint32_t)v;
-        borrow = (uint32_t)(v >> 63);
-    }
-    const uint32_t bin = k8_lookahead(k8_vote(c, borrow != 0), k8_vote(c, !k8_any<K>(d)));
-    k8_sub_in<K>(d, (bin >> c.s) & 1);
-    return (bin >> L) & 1;
-}
-
-// ---------------------------------------------------------------------------
-// Field operations on one element (canonical in, canonical out)
-// ---------------------------------------------------------------------------
-
-template <int L, int G>
-__device__ __forceinline__ K8E<L> k8_mul(const FieldParams &F, const K8Ctx<L, G> &c,
-                                         const K8E<L> &x, const K8E<L> &y) {
-    if constexpr (L == 1) {
-        return fe_mul(F, x, y);
-    } else {
-        constexpr int K = PST_NL / L, W = L * G;
-        const int base = c.g * L;   // the group's first lane in the segment
-        const int col0 = c.s * K;   // this lane's first low column
-        // yy[e + 7] = y[(col0 + e) mod 8] for e in [-7, K - 1]
-        uint32_t yy[7 + K];
-#pragma unroll
-        for (int e = -7; e < K; ++e) {
-            const int d = k8_fdiv(e, K), slot = k8_fmod(e, K);
-            yy[e + 7] = d == 0 ? y.v[slot] : k8_shfl<W>(y.v[slot], base + (c.s + d + L) % L);
-        }
-        uint64_t a[2][K];
-        uint32_t o[2][K];
-#pragma unroll
-        for (int t = 0; t < K; ++t) a[0][t] = a[1][t] = o[0][t] = o[1][t] = 0;
-        // 1. T = x * y: column col0 + t takes x_i y_(col0 + t - i), wrapping
-        //    into the high column 8 + col0 + t when i > col0 + t
-#pragma unroll
-        for (int i = 0; i < PST_NL; ++i) {
-            const uint32_t xi = k8_shfl<W>(x.v[i % K], base + i / K);
-#pragma unroll
-            for (int t = 0; t < K; ++t)
-                k8_acc<K>(a, o, t, i <= col0 + t, (uint64_t)xi * yy[t - i + 7]);
-        }
-        uint32_t T[2][K];
-        k8_resolve2<L, G>(c, a, o, T);
-        // 2. m = (T mod 2^256) * (-p^-1) mod 2^256: the low columns only
-        uint64_t ma[K];
-        uint32_t mo[K], m[K];
-#pragma unroll
-        for (int t = 0; t < K; ++t) ma[t] = mo[t] = 0;
-#pragma unroll
-        for (int i = 0; i < PST_NL; ++i) {
-            const uint32_t ti = k8_shfl<W>(T[0][i % K], base + i / K);
-#pragma unroll
-            for (int t = 0; t < K; ++t) {
-                const uint64_t pr =
-                    i <= col0 + t ? (uint64_t)ti * c.pinv_rot[k8_fmod(t - i, PST_NL)] : 0;
-                ma[t] += pr;
-                mo[t] += ma[t] < pr;
-            }
-        }
-        k8_resolve1<L, G>(c, ma, mo, m);
-        // 3. T + m p, whose low half is 0 and high half below 2p
-#pragma unroll
-        for (int t = 0; t < K; ++t) {
-            a[0][t] = T[0][t];
-            a[1][t] = T[1][t];
-            o[0][t] = o[1][t] = 0;
-        }
-#pragma unroll
-        for (int i = 0; i < PST_NL; ++i) {
-            const uint32_t mi = k8_shfl<W>(m[i % K], base + i / K);
-#pragma unroll
-            for (int t = 0; t < K; ++t)
-                k8_acc<K>(a, o, t, i <= col0 + t, (uint64_t)mi * c.p_rot[k8_fmod(t - i, PST_NL)]);
-        }
-        k8_resolve2<L, G>(c, a, o, T);
-        // 4. one conditional subtraction of p
-        K8E<L> u, d;
-#pragma unroll
-        for (int t = 0; t < K; ++t) u.v[t] = T[1][t];
-        const bool borrow = k8_sub_raw<L, G>(c, d.v, u.v, c.p_loc);
-        return borrow ? u : d;
-    }
-}
-
-template <int L, int G>
-__device__ __forceinline__ K8E<L> k8_add(const FieldParams &F, const K8Ctx<L, G> &c,
-                                         const K8E<L> &a, const K8E<L> &b) {
-    if constexpr (L == 1) {
-        return fe_add(F, a, b);
-    } else {
-        K8E<L> s, d;
-        const bool carry = k8_add_raw<L, G>(c, s.v, a.v, b.v);
-        const bool borrow = k8_sub_raw<L, G>(c, d.v, s.v, c.p_loc);
-        return (carry || !borrow) ? d : s;
-    }
-}
-
-template <int L, int G>
-__device__ __forceinline__ K8E<L> k8_sub(const FieldParams &F, const K8Ctx<L, G> &c,
-                                         const K8E<L> &a, const K8E<L> &b) {
-    if constexpr (L == 1) {
-        return fe_sub(F, a, b);
-    } else {
-        K8E<L> d;
-        if (!k8_sub_raw<L, G>(c, d.v, a.v, b.v)) return d;  // uniform: every group holds a, b
-        k8_add_raw<L, G>(c, d.v, d.v, c.p_loc);
-        return d;
-    }
-}
-
-template <int L, int G>
-__device__ __forceinline__ bool k8_is_zero(const K8Ctx<L, G> &c, const K8E<L> &a) {
-    if constexpr (L == 1) {
-        return fe_is_zero(a);
-    } else {
-        return k8_vote(c, k8_any<PST_NL / L>(a.v)) == 0;
-    }
-}
-
-template <int L> __device__ __forceinline__ K8E<L> k8_zero() {
-    K8E<L> r;
-#pragma unroll
-    for (int t = 0; t < PST_NL / L; ++t) r.v[t] = 0;
+    for (int t = 0; t < PST_NL; ++t) r.v[t] = __shfl_sync(K8_FULL, v.v[t], j, K8_GROUPS);
     return r;
 }
 
-// ---------------------------------------------------------------------------
-// Levels: the independent products of a formula on the G lane groups
-// ---------------------------------------------------------------------------
-
-// Group j's copy of v, in every group.
-template <int L, int G>
-__device__ __forceinline__ K8E<L> k8_from_group(const K8Ctx<L, G> &c, const K8E<L> &v, int j) {
-    if constexpr (G == 1) {
-        return v;
-    } else {
-        K8E<L> r;
-#pragma unroll
-        for (int t = 0; t < PST_NL / L; ++t) r.v[t] = k8_shfl<L * G>(v.v[t], j * L + c.s);
-        return r;
-    }
-}
-
-// out[j] = x[j] * y[j] for j < N: group g computes products g, g + G, ...
-// and every group receives all N. The operands are picked with bit masks:
+// out[j] = x[j] * y[j] for j < N: lane g computes products g, g + 4, ...
+// and every lane receives all N. The operands are picked with bit masks:
 // a chain of selects on a runtime index may be compiled as an indexed local
 // array.
-template <int L, int G, int N>
-__device__ __forceinline__ void k8_level(const FieldParams &F, const K8Ctx<L, G> &c,
-                                         K8E<L> (&out)[N], const K8E<L> (&x)[N],
-                                         const K8E<L> (&y)[N]) {
+template <int N>
+__device__ __forceinline__ void k8_level(const FieldParams &F, int g, Fe (&out)[N],
+                                         const Fe (&x)[N], const Fe (&y)[N]) {
 #pragma unroll
-    for (int r0 = 0; r0 < N; r0 += G) {
-        K8E<L> a = x[r0], b = y[r0];
+    for (int r0 = 0; r0 < N; r0 += K8_GROUPS) {
+        Fe a = x[r0], b = y[r0];
 #pragma unroll
-        for (int j = 1; j < G && r0 + j < N; ++j) {
-            const uint32_t take = 0u - (uint32_t)(c.g == j);
+        for (int j = 1; j < K8_GROUPS && r0 + j < N; ++j) {
+            const uint32_t take = 0u - (uint32_t)(g == j);
 #pragma unroll
-            for (int t = 0; t < PST_NL / L; ++t) {
+            for (int t = 0; t < PST_NL; ++t) {
                 a.v[t] = (a.v[t] & ~take) | (x[r0 + j].v[t] & take);
                 b.v[t] = (b.v[t] & ~take) | (y[r0 + j].v[t] & take);
             }
         }
-        const K8E<L> p = k8_mul<L, G>(F, c, a, b);
+        const Fe p = fe_mul(F, a, b);
 #pragma unroll
-        for (int j = 0; j < G && r0 + j < N; ++j) out[r0 + j] = k8_from_group<L, G>(c, p, j);
+        for (int j = 0; j < K8_GROUPS && r0 + j < N; ++j) out[r0 + j] = k8_from_lane(p, j);
     }
 }
 
 // dbl-2009-l (a = 0), ec_double of field.cuh by levels:
 // {X^2, Y^2, YZ} -> {B^2, (X + B)^2, E^2} -> E (D - X3).
-template <int L, int G>
-__device__ __forceinline__ K8Jac<L> k8_double(const FieldParams &F, const K8Ctx<L, G> &c,
-                                              const K8Jac<L> &p) {
-    K8E<L> l1[3];
+__device__ __forceinline__ Jac k8_double(const FieldParams &F, int g, const Jac &p) {
+    Fe l1[3];
     {
-        const K8E<L> x[3] = {p.x, p.y, p.y}, y[3] = {p.x, p.y, p.z};
-        k8_level<L, G, 3>(F, c, l1, x, y);
+        const Fe x[3] = {p.x, p.y, p.y}, y[3] = {p.x, p.y, p.z};
+        k8_level<3>(F, g, l1, x, y);
     }
-    const K8E<L> &a = l1[0], &b = l1[1], &yz = l1[2];
-    const K8E<L> xb = k8_add<L, G>(F, c, p.x, b);
-    const K8E<L> e = k8_add<L, G>(F, c, k8_add<L, G>(F, c, a, a), a);
-    K8E<L> l2[3];
+    const Fe &a = l1[0], &b = l1[1], &yz = l1[2];
+    const Fe xb = fe_add(F, p.x, b);
+    const Fe e = fe_add(F, fe_add(F, a, a), a);
+    Fe l2[3];
     {
-        const K8E<L> x[3] = {b, xb, e};
-        k8_level<L, G, 3>(F, c, l2, x, x);
+        const Fe x[3] = {b, xb, e};
+        k8_level<3>(F, g, l2, x, x);
     }
-    const K8E<L> &cc = l2[0], &xb2 = l2[1], &f = l2[2];
-    K8E<L> d = k8_sub<L, G>(F, c, k8_sub<L, G>(F, c, xb2, a), cc);
-    d = k8_add<L, G>(F, c, d, d);
-    K8Jac<L> r;
-    r.x = k8_sub<L, G>(F, c, f, k8_add<L, G>(F, c, d, d));
-    K8E<L> c8 = k8_add<L, G>(F, c, cc, cc);
-    c8 = k8_add<L, G>(F, c, c8, c8);
-    c8 = k8_add<L, G>(F, c, c8, c8);
-    r.y = k8_sub<L, G>(F, c, k8_mul<L, G>(F, c, e, k8_sub<L, G>(F, c, d, r.x)), c8);
-    r.z = k8_add<L, G>(F, c, yz, yz);
+    const Fe &cc = l2[0], &xb2 = l2[1], &f = l2[2];
+    Fe d = fe_sub(F, fe_sub(F, xb2, a), cc);
+    d = fe_add(F, d, d);
+    Jac r;
+    r.x = fe_sub(F, f, fe_add(F, d, d));
+    Fe c8 = fe_add(F, cc, cc);
+    c8 = fe_add(F, c8, c8);
+    c8 = fe_add(F, c8, c8);
+    r.y = fe_sub(F, fe_mul(F, e, fe_sub(F, d, r.x)), c8);
+    r.z = fe_add(F, yz, yz);
     return r;
 }
 
@@ -509,10 +116,9 @@ __device__ __forceinline__ K8Jac<L> k8_double(const FieldParams &F, const K8Ctx<
 // -> {J, V, r^2} -> {S1 J, r (V - X3)}. Its fallbacks in field.cuh's order;
 // returns true, leaving out unset, where the doubling fallback applies (the
 // caller then doubles p).
-template <int L, int G>
-__device__ __forceinline__ bool k8_add_pts(const FieldParams &F, const K8Ctx<L, G> &c,
-                                           const K8Jac<L> &p, const K8Jac<L> &q, K8Jac<L> &out) {
-    const bool p_inf = k8_is_zero<L, G>(c, p.z), q_inf = k8_is_zero<L, G>(c, q.z);
+__device__ __forceinline__ bool k8_add_pts(const FieldParams &F, int g, const Jac &p,
+                                           const Jac &q, Jac &out) {
+    const bool p_inf = fe_is_zero(p.z), q_inf = fe_is_zero(q.z);
     if (q_inf) {  // applied last in field.cuh, so it wins
         out = p;
         return false;
@@ -521,87 +127,68 @@ __device__ __forceinline__ bool k8_add_pts(const FieldParams &F, const K8Ctx<L, 
         out = q;
         return false;
     }
-    const K8E<L> zs = k8_add<L, G>(F, c, p.z, q.z);
-    K8E<L> l1[3];
+    const Fe zs = fe_add(F, p.z, q.z);
+    Fe l1[3];
     {
-        const K8E<L> x[3] = {p.z, q.z, zs};
-        k8_level<L, G, 3>(F, c, l1, x, x);
+        const Fe x[3] = {p.z, q.z, zs};
+        k8_level<3>(F, g, l1, x, x);
     }
-    const K8E<L> &z1z1 = l1[0], &z2z2 = l1[1], &zs2 = l1[2];
-    K8E<L> l2[4];
+    const Fe &z1z1 = l1[0], &z2z2 = l1[1], &zs2 = l1[2];
+    Fe l2[4];
     {
-        const K8E<L> x[4] = {p.x, q.x, q.z, p.z}, y[4] = {z2z2, z1z1, z2z2, z1z1};
-        k8_level<L, G, 4>(F, c, l2, x, y);
+        const Fe x[4] = {p.x, q.x, q.z, p.z}, y[4] = {z2z2, z1z1, z2z2, z1z1};
+        k8_level<4>(F, g, l2, x, y);
     }
-    const K8E<L> &u1 = l2[0], &u2 = l2[1], &t2 = l2[2], &t1 = l2[3];
-    const K8E<L> h = k8_sub<L, G>(F, c, u2, u1);
-    const K8E<L> h2 = k8_add<L, G>(F, c, h, h);
-    const K8E<L> zz = k8_sub<L, G>(F, c, k8_sub<L, G>(F, c, zs2, z1z1), z2z2);
-    K8E<L> l3[4];
+    const Fe &u1 = l2[0], &u2 = l2[1], &t2 = l2[2], &t1 = l2[3];
+    const Fe h = fe_sub(F, u2, u1);
+    const Fe h2 = fe_add(F, h, h);
+    const Fe zz = fe_sub(F, fe_sub(F, zs2, z1z1), z2z2);
+    Fe l3[4];
     {
-        const K8E<L> x[4] = {p.y, q.y, h2, zz}, y[4] = {t2, t1, h2, h};
-        k8_level<L, G, 4>(F, c, l3, x, y);
+        const Fe x[4] = {p.y, q.y, h2, zz}, y[4] = {t2, t1, h2, h};
+        k8_level<4>(F, g, l3, x, y);
     }
-    const K8E<L> &s1 = l3[0], &s2 = l3[1], &i = l3[2], &z3 = l3[3];
-    const K8E<L> rr = k8_sub<L, G>(F, c, s2, s1);
-    const K8E<L> r2 = k8_add<L, G>(F, c, rr, rr);
-    const bool h_zero = k8_is_zero<L, G>(c, h), r_zero = k8_is_zero<L, G>(c, r2);
+    const Fe &s1 = l3[0], &s2 = l3[1], &i = l3[2], &z3 = l3[3];
+    const Fe rr = fe_sub(F, s2, s1);
+    const Fe r2 = fe_add(F, rr, rr);
+    const bool h_zero = fe_is_zero(h), r_zero = fe_is_zero(r2);
     if (h_zero && r_zero) return true;
-    K8E<L> l4[3];
+    Fe l4[3];
     {
-        const K8E<L> x[3] = {h, u1, r2}, y[3] = {i, i, r2};
-        k8_level<L, G, 3>(F, c, l4, x, y);
+        const Fe x[3] = {h, u1, r2}, y[3] = {i, i, r2};
+        k8_level<3>(F, g, l4, x, y);
     }
-    const K8E<L> &j = l4[0], &v = l4[1], &r2sq = l4[2];
-    out.x = k8_sub<L, G>(F, c, k8_sub<L, G>(F, c, r2sq, j), k8_add<L, G>(F, c, v, v));
-    K8E<L> l5[2];
+    const Fe &j = l4[0], &v = l4[1], &r2sq = l4[2];
+    out.x = fe_sub(F, fe_sub(F, r2sq, j), fe_add(F, v, v));
+    Fe l5[2];
     {
-        const K8E<L> x[2] = {s1, r2}, y[2] = {j, k8_sub<L, G>(F, c, v, out.x)};
-        k8_level<L, G, 2>(F, c, l5, x, y);
+        const Fe x[2] = {s1, r2}, y[2] = {j, fe_sub(F, v, out.x)};
+        k8_level<2>(F, g, l5, x, y);
     }
-    out.y = k8_sub<L, G>(F, c, l5[1], k8_add<L, G>(F, c, l5[0], l5[0]));
-    out.z = h_zero ? k8_zero<L>() : z3;  // h = 0, r != 0: P + (-P), infinity
+    out.y = fe_sub(F, l5[1], fe_add(F, l5[0], l5[0]));
+    out.z = h_zero ? fe_zero() : z3;  // h = 0, r != 0: P + (-P), infinity
     return false;
 }
 
-// ---------------------------------------------------------------------------
-// One column's Horner chain
-// ---------------------------------------------------------------------------
-
-template <int L>
-__device__ __forceinline__ K8Jac<L> k8_load(const uint32_t *wx, const uint32_t *wy,
-                                            const uint32_t *wz, int64_t stride, int64_t i, int s) {
-    constexpr int K = PST_NL / L;
-    K8Jac<L> r;
-#pragma unroll
-    for (int t = 0; t < K; ++t) {
-        r.x.v[t] = wx[(s * K + t) * stride + i];
-        r.y.v[t] = wy[(s * K + t) * stride + i];
-        r.z.v[t] = wz[(s * K + t) * stride + i];
-    }
-    return r;
-}
-
-// wx, wy, wz: (8, W, b) window sums, limb stride W * b; out: (8, b). Every
-// lane of the warp calls it for column col; lanes 0..L-1 store.
-template <int L, int G>
-__device__ __forceinline__ void k8_combine_column(const FieldParams &F, const K8Consts &kc,
-                                                  const uint32_t *wx, const uint32_t *wy,
-                                                  const uint32_t *wz, uint32_t *ox, uint32_t *oy,
-                                                  uint32_t *oz, int64_t W, int64_t b, int c,
-                                                  int64_t col, int lane) {
-    constexpr int K = PST_NL / L;
-    const K8Ctx<L, G> ctx = k8_ctx<L, G>(F, kc, lane);
+// One column's Horner chain. wx, wy, wz: (8, W, b) window sums, limb stride
+// W * b; out: (8, b). Every lane of the warp calls it for column col; lane
+// 0 stores.
+__device__ __forceinline__ void k8_combine_column(const FieldParams &F, const uint32_t *wx,
+                                                  const uint32_t *wy, const uint32_t *wz,
+                                                  uint32_t *ox, uint32_t *oy, uint32_t *oz,
+                                                  int64_t W, int64_t b, int c, int64_t col,
+                                                  int lane) {
+    const int g = lane % K8_GROUPS;
     const int64_t stride = W * b;
     // identity + win_(W-1), then the top window's c doublings of it skipped
-    K8Jac<L> acc = k8_load<L>(wx, wy, wz, stride, (W - 1) * b + col, ctx.s);
-    if (k8_is_zero<L, G>(ctx, acc.z)) acc.x = acc.y = acc.z = k8_zero<L>();
+    Jac acc = jac_load(wx, wy, wz, stride, (W - 1) * b + col);
+    if (fe_is_zero(acc.z)) acc = jac_identity();
     int k = 0;
     bool redo = false;  // the add of window w took the doubling fallback
 #pragma unroll 1
     for (int64_t w = W - 2; w >= 0;) {
         if (k < c || redo) {
-            acc = k8_double<L, G>(F, ctx, acc);
+            acc = k8_double(F, g, acc);
             if (redo) {
                 redo = false;
                 k = 0;
@@ -610,9 +197,8 @@ __device__ __forceinline__ void k8_combine_column(const FieldParams &F, const K8
                 ++k;
             }
         } else {
-            K8Jac<L> sum;
-            redo = k8_add_pts<L, G>(F, ctx, acc, k8_load<L>(wx, wy, wz, stride, w * b + col, ctx.s),
-                                    sum);
+            Jac sum;
+            redo = k8_add_pts(F, g, acc, jac_load(wx, wy, wz, stride, w * b + col), sum);
             if (!redo) {
                 acc = sum;
                 k = 0;
@@ -620,12 +206,5 @@ __device__ __forceinline__ void k8_combine_column(const FieldParams &F, const K8
             }
         }
     }
-    if (lane < L) {
-#pragma unroll
-        for (int t = 0; t < K; ++t) {
-            ox[(ctx.s * K + t) * b + col] = acc.x.v[t];
-            oy[(ctx.s * K + t) * b + col] = acc.y.v[t];
-            oz[(ctx.s * K + t) * b + col] = acc.z.v[t];
-        }
-    }
+    if (lane == 0) jac_store(ox, oy, oz, b, col, acc);
 }

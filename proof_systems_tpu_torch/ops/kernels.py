@@ -29,9 +29,7 @@ Montgomery integer (limb-major, little-endian). The plain versions compute
 in int64 on 16-bit limbs (a 32x32-bit product overflows int64, and the CPU
 build of torch has no uint32 arithmetic). They follow the kernels' formulas
 and association order, so the two agree limb for limb; K6 where a team of
-threads shares a lane chunk agrees as group elements. K8's kernels may
-split a product over lanes (csrc/k8_combine.cuh), another way to the same
-canonical values, so their limbs agree too.
+threads shares a lane chunk agrees as group elements.
 
 The library is built with nvcc (one process per source, all started
 together) into the gitignored build directory at first use, keyed by a
@@ -162,8 +160,8 @@ def _bind_curve(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.pst_ec_scan_parts.argtypes = [_P] * 10 + [_I64, _I64, _I64] + [ctypes.c_int] * 3 + [_P]
     lib.pst_ec_scan_parts_attrs.argtypes = [ctypes.c_int] * 3 + [_P]
     lib.pst_ec_scan_fused.argtypes = [_P] * 7 + [_I64, _I64, _I64, _P]
-    lib.pst_combine_windows.argtypes = [_P] * 8 + [_I64, _I64] + [ctypes.c_int] * 3 + [_P]
-    lib.pst_combine_windows_attrs.argtypes = [ctypes.c_int] * 2 + [_P]
+    lib.pst_combine_windows.argtypes = [_P] * 7 + [_I64, _I64, ctypes.c_int, _P]
+    lib.pst_combine_windows_attrs.argtypes = [_P]
     for fn in (lib.pst_jacobian_add, lib.pst_jacobian_double,
                lib.pst_ec_scan_parts, lib.pst_ec_scan_parts_attrs, lib.pst_ec_scan_fused,
                lib.pst_combine_windows, lib.pst_combine_windows_attrs):
@@ -918,58 +916,21 @@ def combine_windows_plain(F, c: int, wx, wy, wz):
     return tuple(from16(t.contiguous()) for t in acc)
 
 
-# K8 geometry (csrc/k8_combine.cuh): one warp a column; a field element
-# over L lanes (K = 8 / L limbs a lane), the independent products of a
-# level on G lane groups. COMBINE_KERNELS lists every (L, G) built.
-COMBINE_KERNELS = [(1, 1), (1, 2), (1, 4), (4, 1), (4, 2), (4, 4), (8, 1), (8, 2), (8, 4)]
-
-
-def combine_geometry(W: int, b: int, c: int) -> tuple[int, int]:
-    """(L, G) of K8 for (8, W, b) window sums at window size c. A column's
-    chain is latency-bound at every shape, and one choice is fastest at all
-    six main-path shapes (scripts/torch_k8_bench.py on the H100): each
-    element in one lane, the products of a level on four lanes."""
-    return 1, 4
-
-
-@functools.lru_cache(maxsize=None)
-def _mont_factor(p: int) -> ctypes.Array:
-    """-p^-1 mod 2^256 as 8 host words (the lane-split product's factor)."""
-    return (ctypes.c_uint32 * NL)(*_words((-pow(p, -1, 1 << 256)) % (1 << 256)))
-
-
-def combine_windows_attrs() -> dict[tuple[int, int], tuple[int, ...]]:
-    """(registers, local bytes, static and dynamic shared bytes) of each K8
-    kernel (COMBINE_KERNELS), from cudaFuncGetAttributes."""
-    lib = LIBRARY.load().curve
-    out = {}
-    for lanes, groups in COMBINE_KERNELS:
-        buf = (ctypes.c_int * 4)()
-        rc = lib.pst_combine_windows_attrs(lanes, groups, buf)
-        if rc:
-            raise RuntimeError(f"pst_combine_windows_attrs: CUDA error {rc}")
-        out[(lanes, groups)] = tuple(buf)
-    return out
-
-
-def _combine_launch(F, c: int, wx, wy, wz, lanes: int, groups: int):
-    """K8's kernel of (lanes, groups) on (8, W, b) CUDA window sums; counts
-    nothing."""
-    dev = wx.device
-    W, b = wx.shape[1], wx.shape[2]
-    out = tuple(torch.empty((NL, b), dtype=torch.int32, device=dev) for _ in range(3))
-    lib = LIBRARY.load().curve
-    _launch(lib, "pst_combine_windows", "pst_curve_error_string", dev,
-            _field_words(F), ctypes.addressof(_mont_factor(F.p)), *_ptrs((wx, wy, wz)),
-            *_ptrs(out), W, b, c, lanes, groups)
-    return out
+def combine_windows_attrs() -> tuple[int, ...]:
+    """(registers, local bytes, static and dynamic shared bytes) of the K8
+    kernel, from cudaFuncGetAttributes."""
+    buf = (ctypes.c_int * 4)()
+    rc = LIBRARY.load().curve.pst_combine_windows_attrs(buf)
+    if rc:
+        raise RuntimeError(f"pst_combine_windows_attrs: CUDA error {rc}")
+    return tuple(buf)
 
 
 def combine_windows(F, c: int, wx, wy, wz):
     """Pippenger window recombination sum_w 2^(cw) * win_w for every column:
     (8, W, b) Jacobian window sums -> (8, b). Horner from the top window:
-    c doublings, then a general add of the next window. The kernel's limbs
-    are the plain version's for every geometry (combine_geometry)."""
+    c doublings, then a general add of the next window (csrc/k8_combine.cuh:
+    one warp a column, a level's products on four lanes)."""
     dev = _check(wx, wy, wz)
     if wx.dim() != 3:
         raise ValueError(f"window sums are (8, W, b), got {tuple(wx.shape)}")
@@ -977,7 +938,11 @@ def combine_windows(F, c: int, wx, wy, wz):
         raise ValueError(f"window size must be positive, got {c}")
     if dev.type == "cpu":
         return combine_windows_plain(F, c, wx, wy, wz)
-    out = _combine_launch(F, c, wx, wy, wz, *combine_geometry(*wx.shape[1:], c))
+    W, b = wx.shape[1], wx.shape[2]
+    out = tuple(torch.empty((NL, b), dtype=torch.int32, device=dev) for _ in range(3))
+    lib = LIBRARY.load().curve
+    _launch(lib, "pst_combine_windows", "pst_curve_error_string", dev,
+            _field_words(F), *_ptrs((wx, wy, wz)), *_ptrs(out), W, b, c)
     LAUNCHES["combine_windows"] += 1
     return out
 

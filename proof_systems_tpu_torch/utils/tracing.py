@@ -26,8 +26,8 @@ class Tracer:
     def __init__(self):
         self.enabled = False
         self.hook = None
-        self.events: list[tuple[str, float]] = []  # (name, perf_counter)
-        self.stamps_us: list[int] = []  # wall-clock microseconds of each event
+        # (name, perf_counter seconds, wall-clock microseconds)
+        self.events: list[tuple[str, float, int]] = []
 
     def enable(self, hook=None) -> None:
         """Record checkpoints from now on; `hook()` runs before each stamp."""
@@ -44,22 +44,20 @@ class Tracer:
             return
         if self.hook is not None:
             self.hook()
-        self.events.append((name, time.perf_counter()))
-        self.stamps_us.append(int(time.time() * 1e6))
+        self.events.append((name, time.perf_counter(), int(time.time() * 1e6)))
 
     def dump_json(self) -> str:
         """One line {"checkpoint": name, "ts_us": wall-clock microseconds}
         for each checkpoint, in order (the reference's exporter)."""
         return "\n".join(json.dumps({"checkpoint": name, "ts_us": ts})
-                         for (name, _), ts in zip(self.events, self.stamps_us))
+                         for name, _, ts in self.events)
 
     def reset(self) -> None:
         self.events.clear()
-        self.stamps_us.clear()
 
     def intervals(self) -> list[tuple[str, float]]:
         """(checkpoint, seconds from it to the next one), in order."""
-        return [(a, tb - ta) for (a, ta), (_, tb) in zip(self.events, self.events[1:])]
+        return [(a, tb - ta) for (a, ta, _), (_, tb, _) in zip(self.events, self.events[1:])]
 
 
 TRACER = Tracer()

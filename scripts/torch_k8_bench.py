@@ -4,27 +4,22 @@
     python3 scripts/torch_k8_bench.py
     python3 scripts/torch_k8_bench.py --root DIR --shapes-only
 
-Builds the CUDA kernels and prints the card's name and power limit and each
+Builds the CUDA kernels and prints the card's name and power limit and the
 K8 kernel's registers, local (stack) bytes and shared memory
 (cudaFuncGetAttributes). Then, at each (W, b, c) the main path gives K8 (W
 windows of b columns, window size c; chip_smoke.py's per-proof timing lists
-them), on random general Jacobian window sums, it prints:
-  - the wrapper's time (CUDA events, mean of REPS calls after one), the
-    geometry it derives (kernels.combine_geometry), the time of the
-    one-thread kernel it replaced where PERF.md records one, one column's
-    chain (dependent products, levels) with the time a product and
-    a level, and chip_smoke.py's bound for the call;
-  - the sweep: the time of every geometry (lanes an element L, lane groups
-    G) through the kernel's launcher, each checked against the plain
-    version limb for limb.
-Last, every geometry against the plain version on chip_smoke.py's K8 edge
-rows (identity columns, the doubling and infinity fallbacks, W = 1, c = 1,
-b = 33 and 130).
+them), on random general Jacobian window sums, it prints the wrapper's time
+(CUDA events, mean of REPS calls after one), the time of the one-thread
+kernel it replaced where PERF.md records one, one column's chain (dependent
+products, levels) with the time a product and a level, and chip_smoke.py's
+bound for the call, and checks the result against the plain version limb
+for limb. Last, the same check on chip_smoke.py's K8 edge rows (identity
+columns, the doubling and infinity fallbacks, W = 1, c = 1, b = 33 and 130).
 
 --shapes-only times the public wrapper at the six shapes and nothing else,
-so that a tree without the geometry sweep (another checkout, given with
---root) can be timed beside this one in the same call. Needs a CUDA
-device; exits 2 without one, 1 on a mismatch.
+so that another checkout (given with --root) can be timed beside this one
+in the same call. Needs a CUDA device; exits 2 without one, 1 on a
+mismatch.
 """
 
 from __future__ import annotations
@@ -81,9 +76,9 @@ def main() -> int:
     lib = kernels.LIBRARY.load()
     print(f"build: CUDA kernels {lib.build_seconds:.1f} s", flush=True)
     if not args.shapes_only:
-        for (lanes, groups), (regs, local, static, dyn) in kernels.combine_windows_attrs().items():
-            print(f"K8 L {lanes} G {groups}: {regs} registers, {local} B local, {static} B "
-                  f"static and {dyn} B dynamic shared memory", flush=True)
+        regs, local, static, dyn = kernels.combine_windows_attrs()
+        print(f"K8: {regs} registers, {local} B local, {static} B static and {dyn} B dynamic "
+              "shared memory", flush=True)
     dev = torch.device("cuda")
     dc = device_curve(Vesta)
     F = dc.F
@@ -104,31 +99,21 @@ def main() -> int:
             print(f"K8 {shape:12s} ({where}): {ms:.4f} ms ({old})", flush=True)
             continue
         products, levels = chip_smoke.k8_chain(W, c)
-        lanes, groups = kernels.combine_geometry(W, b, c)
-        print(f"K8 {shape:12s} ({where}) L {lanes} G {groups}: {ms:.4f} ms ({old}); chain "
-              f"{products} products in {levels} levels a column, {ms * 1e3 / products:.4f} us a "
-              f"product, {ms * 1e3 / levels:.4f} us a level; bound {b_ms:.3g} ms ({b_by})",
+        equal = same(kernels.combine_windows(F, c, *wins),
+                     kernels.combine_windows_plain(F, c, *wins))
+        ok &= equal
+        print(f"K8 {shape:12s} ({where}): {ms:.4f} ms ({old}); chain {products} products in "
+              f"{levels} levels a column, {ms * 1e3 / products:.4f} us a product, "
+              f"{ms * 1e3 / levels:.4f} us a level; bound {b_ms:.3g} ms ({b_by}); = plain: {equal}",
               flush=True)
-        want = kernels.combine_windows_plain(F, c, *wins)
-        cells, bad = [], []
-        for lanes, groups in kernels.COMBINE_KERNELS:
-            t = timed_ms(lambda: kernels._combine_launch(F, c, *wins, lanes, groups))
-            cells.append(f"L {lanes} G {groups}: {t:.4f}")
-            if not same(kernels._combine_launch(F, c, *wins, lanes, groups), want):
-                bad.append((lanes, groups))
-        ok &= not bad
-        print(f"K8 {shape} sweep, ms: " + "; ".join(cells), flush=True)
-        print(f"K8 {shape}: every geometry = plain: {not bad} {bad or ''}", flush=True)
     if args.shapes_only:
         return 0
     for W, b, c in chip_smoke.K8_EDGE_SHAPES:
         wins = chip_smoke.k8_windows(Vesta, dc, rng, W, b, c, dev)
-        want = kernels.combine_windows_plain(F, c, *wins)
-        bad = [g for g in kernels.COMBINE_KERNELS
-               if not same(kernels._combine_launch(F, c, *wins, *g), want)]
-        ok &= not bad
-        print(f"K8 edge rows {W}x{b} c={c}: every geometry = plain: {not bad} {bad or ''}",
-              flush=True)
+        equal = same(kernels.combine_windows(F, c, *wins),
+                     kernels.combine_windows_plain(F, c, *wins))
+        ok &= equal
+        print(f"K8 edge rows {W}x{b} c={c}: = plain: {equal}", flush=True)
     return 0 if ok else 1
 
 

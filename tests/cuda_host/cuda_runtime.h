@@ -1,9 +1,9 @@
 // Stand-in for the CUDA runtime header, so that a kernel header of
 // proof_systems_tpu_torch/csrc compiles with a host C++20 compiler: the
 // CUDA qualifiers are defined away, and one warp is emulated by 32 host
-// threads whose __shfl_sync and __ballot_sync meet at a std::barrier. The
-// code under test must reach every shuffle and ballot in all 32 lanes, as
-// the full mask requires on the card; a lane that skips one deadlocks here.
+// threads whose __shfl_sync calls meet at a std::barrier. The code under
+// test must reach every shuffle in all 32 lanes, as the full mask requires
+// on the card; a lane that skips one deadlocks here.
 #pragma once
 
 #include <barrier>
@@ -20,31 +20,17 @@
 
 struct HostWarp {
     std::barrier<> bar{32};
-    uint64_t slot[32];
+    uint32_t slot[32];
 };
 
 extern HostWarp *host_warp;
 extern thread_local int host_lane;
 
-inline uint64_t host_exchange(uint64_t v, int src) {
-    host_warp->slot[host_lane] = v;
-    host_warp->bar.arrive_and_wait();
-    const uint64_t r = host_warp->slot[src];
-    host_warp->bar.arrive_and_wait();
-    return r;
-}
-
 inline uint32_t __shfl_sync(unsigned mask, uint32_t v, int src, int width = 32) {
     if (mask != 0xffffffffu) std::abort();
-    return (uint32_t)host_exchange(v, (host_lane & ~(width - 1)) + (src & (width - 1)));
-}
-
-inline unsigned __ballot_sync(unsigned mask, bool pred) {
-    if (mask != 0xffffffffu) std::abort();
-    host_warp->slot[host_lane] = pred;
+    host_warp->slot[host_lane] = v;
     host_warp->bar.arrive_and_wait();
-    unsigned m = 0;
-    for (int i = 0; i < 32; ++i) m |= (host_warp->slot[i] ? 1u : 0u) << i;
+    const uint32_t r = host_warp->slot[(host_lane & ~(width - 1)) + (src & (width - 1))];
     host_warp->bar.arrive_and_wait();
-    return m;
+    return r;
 }

@@ -202,22 +202,19 @@ def test_combine_windows_main_path_shapes(dev, W, b, c):
 
 
 @pytest.mark.parametrize("W,b,c", chip_smoke.K8_EDGE_SHAPES)
-def test_combine_windows_edge_rows_every_geometry(dev, W, b, c):
-    """K8 through the wrapper and with every geometry (lanes an element,
-    lane groups) on chip_smoke.py's edge rows: an all-identity column, a
-    window equal to 2^c times the accumulator (the doubling fallback, at the
-    first add and mid-chain), one equal to its negation (the infinity
-    fallback), W = 1, c = 1, b = 33 and b = 130; limb for limb against the
-    plain version, and as points against host Horner."""
+def test_combine_windows_edge_rows(dev, W, b, c):
+    """K8 through the wrapper on chip_smoke.py's edge rows: an all-identity
+    column, a window equal to 2^c times the accumulator (the doubling
+    fallback, at the first add and mid-chain), one equal to its negation
+    (the infinity fallback), W = 1, c = 1, b = 33 and b = 130; limb for limb
+    against the plain version, and as points against host Horner."""
     rng = random.Random(611 + W * b * c)
     dc = device_curve(Vesta)
     wins = chip_smoke.k8_windows(Vesta, dc, rng, W, b, c, dev)
     want = kernels.combine_windows_plain(dc.F, c, *wins)
-    runs = [kernels.combine_windows(dc.F, c, *wins)]
-    runs += [kernels._combine_launch(dc.F, c, *wins, *g) for g in kernels.COMBINE_KERNELS]
-    for got in runs:
-        for x, y in zip(got, want):
-            assert torch.equal(x, y), (W, b, c)
+    got = kernels.combine_windows(dc.F, c, *wins)
+    for x, y in zip(got, want):
+        assert torch.equal(x, y), (W, b, c)
     host_wins = dc.unpack_jacobian(JPoint(*(t.reshape(8, W * b) for t in wins)))
     host = []
     for col in range(b):
@@ -227,7 +224,7 @@ def test_combine_windows_edge_rows_every_geometry(dev, W, b, c):
                 acc = Vesta.double(acc)
             acc = Vesta.add(acc, host_wins[w * b + col])
         host.append(acc)
-    assert dc.unpack_jacobian(JPoint(*runs[0])) == host
+    assert dc.unpack_jacobian(JPoint(*got)) == host
 
 
 def test_sponge_squeeze2_matches_plain_and_host(dev):

@@ -1,17 +1,7 @@
 """K8 (combine_windows) on the CPU: the CUDA kernel's design (csrc/k8_combine.cuh)
 modelled in int64 torch and held exactly against the plain versions, the
-host curve and the JAX package.
+host curve and the JAX package, on Vesta and Pallas.
 
-- The lane-split Montgomery product: an element over L lanes of K = 8 / L
-  32-bit limbs; three column-parallel multiplies (T = x*y, m = (T mod 2^256)
-  * (-p^-1) mod 2^256, T + m*p) whose column sums keep their carries
-  deferred, then each lane block's carry word moved one block up (twice for
-  K = 1) and the last 0/1 carries resolved by a lookahead over the blocks'
-  generate and propagate bits; then one conditional subtraction of p, its
-  borrow resolved the same way. The model asserts the bounds the kernel
-  relies on (carry words below 2^36, 0/1 carries before the lookahead, never
-  generate and propagate at once) and equals kernels' plain products, adds
-  and subtractions on random and edge operands (0, 1, p - 1, R mod p, ...).
 - The level schedule of the doubling (3 levels: 3, 3, 1 products) and the
   complete add (5 levels: 3, 4, 4, 3, 2), against ec_double16 and ec_add16.
 - The Horner chain as the kernel runs it (start from the top window, the
@@ -20,7 +10,8 @@ host curve and the JAX package.
   mid-chain too), against the plain combine_windows, host Horner and the JAX
   package's msm._combine_windows_body, all exact (the JAX XLA branch starts
   from another encoding of infinity than the Pallas kernel; see the test).
-The kernel itself: tests/test_torch_cuda.py."""
+The kernel itself: tests/test_torch_cuda.py, and its source on the host
+against an emulated warp: tests/test_torch_k8_host.py."""
 
 import random
 
@@ -30,200 +21,19 @@ import pytest
 import torch
 
 import chip_smoke
+from proof_systems_tpu.curves import Pallas as JPallas
 from proof_systems_tpu.curves import Vesta as JVesta
 from proof_systems_tpu.ops import msm as jmsm
 from proof_systems_tpu.ops.curve_ops import JPoint as JJPoint
 from proof_systems_tpu.ops.curve_ops import device_curve as jdevice_curve
 from proof_systems_tpu_torch import convert
-from proof_systems_tpu_torch.curves import Vesta
-from proof_systems_tpu_torch.fields import Fp, Fq
-from proof_systems_tpu_torch.ops import kernels, limb
+from proof_systems_tpu_torch.curves import Pallas, Vesta
+from proof_systems_tpu_torch.ops import kernels
 from proof_systems_tpu_torch.ops.curve_ops import JPoint, device_curve
 
 torch.set_num_threads(1)
 
-M32 = 0xFFFFFFFF
-NL = kernels.NL
-
-
-# ---------------------------------------------------------------------------
-# The lane-split product
-# ---------------------------------------------------------------------------
-
-
-def _limbs(xs) -> torch.Tensor:
-    """(8, N) int64 32-bit limbs of Python ints."""
-    return torch.tensor([[(x >> (32 * i)) & M32 for x in xs] for i in range(NL)], dtype=torch.int64)
-
-
-def _ints(t: torch.Tensor) -> list[int]:
-    return [sum(int(t[i, n]) << (32 * i) for i in range(t.shape[0])) for n in range(t.shape[1])]
-
-
-def _mul32(x, y):
-    """The exact 64-bit products of 32-bit limb tensors as (low, high) words,
-    through 16-bit halves (int64 holds no 64-bit unsigned product)."""
-    xl, xh, yl, yh = x & 0xFFFF, x >> 16, y & 0xFFFF, y >> 16
-    mid = xl * yh + xh * yl
-    lo = xl * yl + ((mid & 0xFFFF) << 16)
-    return lo & M32, xh * yh + (mid >> 16) + (lo >> 32)
-
-
-def _columns(x, y, ncols: int, init=None):
-    """Column sums with deferred carries: column k = sum over i + j = k of
-    x_i y_j (plus init_k), as (A, B) with value A + B * 2^32, A and B each
-    below 2^36."""
-    N = x.shape[1]
-    A = torch.zeros((ncols, N), dtype=torch.int64) if init is None else init.clone()
-    B = torch.zeros((ncols, N), dtype=torch.int64)
-    for i in range(NL):
-        for j in range(NL):
-            if i + j < ncols:
-                lo, hi = _mul32(x[i], y[j])
-                A[i + j] += lo
-                B[i + j] += hi
-    return A, B
-
-
-def _add_in(blk, c):
-    """blk (K, N) += c (per element, below 2^64); returns the carry out."""
-    for t in range(blk.shape[0]):
-        s = blk[t] + (c & M32)
-        blk[t] = s & M32
-        c = (c >> 32) + (s >> 32)
-    return c
-
-
-def _lookahead(gen, prop):
-    """Carry into each block (and out of the top) from (blocks, N) 0/1 bits,
-    as k8_lookahead: the chain of the integer sum (g | p) + g."""
-    w = torch.tensor([1 << k for k in range(gen.shape[0])], dtype=torch.int64)[:, None]
-    g, p = (gen * w).sum(0), (prop * w).sum(0)
-    x = g | p
-    c = (x + g) ^ x ^ g
-    return [(c >> k) & 1 for k in range(gen.shape[0] + 1)]
-
-
-def _resolve(A, B, L: int):
-    """k8_resolve2 (2L blocks) or k8_resolve1 (L blocks): ripple each lane
-    block's columns, move each block's carry word into the block above
-    (twice for one limb a block), then the lookahead. Returns the limbs
-    (mod 2^(32 * columns)) and the carry out of the top block."""
-    K = NL // L
-    blocks = A.shape[0] // K
-    lim = torch.zeros_like(A).reshape(blocks, K, -1)
-    A, B = A.reshape(blocks, K, -1), B.reshape(blocks, K, -1)
-    carry = torch.zeros_like(A[:, 0])
-    for t in range(K):
-        v = A[:, t] + carry
-        lim[:, t] = v & M32
-        carry = (v >> 32) + B[:, t]
-    assert bool((carry < 1 << 36).all())
-    for _ in range(2 if K == 1 else 1):
-        below = torch.cat([torch.zeros_like(carry[:1]), carry[:-1]])
-        carry = torch.stack([_add_in(lim[k], below[k]) for k in range(blocks)])
-    assert bool((carry <= 1).all())
-    prop = (lim == M32).all(dim=1).to(torch.int64)
-    assert not bool((prop & carry).any())
-    cin = _lookahead(carry, prop)
-    for k in range(blocks):
-        _add_in(lim[k], cin[k])
-    return lim.reshape(blocks * K, -1), cin[blocks]
-
-
-def _sub_raw(a, b, L: int):
-    """a - b over 256 bits with the lane blocks' borrows by lookahead:
-    (difference mod 2^256, borrow out)."""
-    K = NL // L
-    d = torch.zeros_like(a).reshape(L, K, -1)
-    a, b = a.reshape(L, K, -1), b.reshape(L, K, -1)
-    borrow = torch.zeros_like(a[:, 0])
-    for t in range(K):
-        v = a[:, t] - b[:, t] - borrow
-        d[:, t] = v & M32
-        borrow = (v < 0).to(torch.int64)
-    prop = (d == 0).all(dim=1).to(torch.int64)
-    assert not bool((prop & borrow).any())
-    bin_ = _lookahead(borrow, prop)
-    for k in range(L):
-        r = bin_[k]
-        for t in range(K):  # d -= the borrow in, rippling
-            v = d[k, t] - r
-            d[k, t] = v & M32
-            r = (v < 0).to(torch.int64)
-    return d.reshape(NL, -1), bin_[L]
-
-
-def _add_raw(a, b, L: int):
-    K = NL // L
-    s = torch.zeros_like(a).reshape(L, K, -1)
-    a, b = a.reshape(L, K, -1), b.reshape(L, K, -1)
-    carry = torch.zeros_like(a[:, 0])
-    for t in range(K):
-        v = a[:, t] + b[:, t] + carry
-        s[:, t] = v & M32
-        carry = v >> 32
-    prop = (s == M32).all(dim=1).to(torch.int64)
-    cin = _lookahead(carry, prop)
-    for k in range(L):
-        _add_in(s[k], cin[k])
-    return s.reshape(NL, -1), cin[L]
-
-
-def lane_split_mul(p: int, x, y, L: int):
-    """k8_mul for L > 1 lanes an element, on (8, N) canonical limbs."""
-    pl = _limbs([p])
-    pinv = _limbs([(-pow(p, -1, 1 << 256)) % (1 << 256)])
-    T, top = _resolve(*_columns(x, y, 16), L)
-    assert not bool(top.any())
-    m, _ = _resolve(*_columns(T[:NL], pinv.expand(NL, x.shape[1]), NL), L)
-    U, top = _resolve(*_columns(m, pl.expand(NL, x.shape[1]), 16, init=T), L)
-    assert not bool(top.any()) and not bool(U[:NL].any())  # T + m p = 0 mod 2^256
-    u = U[NL:]
-    d, borrow = _sub_raw(u, pl.expand(NL, x.shape[1]), L)
-    return torch.where(borrow[None] != 0, u, d)
-
-
-def lane_split_add(p: int, a, b, L: int):
-    pl = _limbs([p]).expand(NL, a.shape[1])
-    s, carry = _add_raw(a, b, L)
-    d, borrow = _sub_raw(s, pl, L)
-    return torch.where(((carry != 0) | (borrow == 0))[None], d, s)
-
-
-def lane_split_sub(p: int, a, b, L: int):
-    pl = _limbs([p]).expand(NL, a.shape[1])
-    d, borrow = _sub_raw(a, b, L)
-    return torch.where(borrow[None] != 0, _add_raw(d, pl, L)[0], d)
-
-
-def _operands(field, rng):
-    p, r = field.p, (1 << 256) % field.p
-    edge = [0, 1, p - 1, r, (1 << 254) - 1, (p - 1) // 2, (1 << 128) - 1, p - r]
-    return edge + [rng.randrange(p) for _ in range(12)]
-
-
-@pytest.mark.parametrize("L", [4, 8])
-@pytest.mark.parametrize("field", [Fq, Fp], ids=["Fq", "Fp"])
-def test_lane_split_field_ops_match_plain(field, L):
-    rng = random.Random(800 + L)
-    xs = _operands(field, rng)
-    a = [x for x in xs for _ in xs]
-    b = [y for _ in xs for y in xs]
-    ta, tb = _limbs(a), _limbs(b)
-    F = limb.device_field(field)
-    pa, pb = F.pack(a, device="cpu"), F.pack(b, device="cpu")
-    want_mul = F.unpack(kernels.mont_mul_plain(F, pa, pb))
-    assert _ints(lane_split_mul(field.p, ta, tb, L)) == want_mul
-    rinv = pow(1 << 256, -1, field.p)
-    assert want_mul == [x * y * rinv % field.p for x, y in zip(a, b)]
-    assert _ints(lane_split_add(field.p, ta, tb, L)) == F.unpack(limb.add(F, pa, pb))
-    assert _ints(lane_split_sub(field.p, ta, tb, L)) == F.unpack(limb.sub(F, pa, pb))
-
-
-# ---------------------------------------------------------------------------
-# The level schedule and the Horner chain
-# ---------------------------------------------------------------------------
+CURVES = {"Vesta": (Vesta, JVesta), "Pallas": (Pallas, JPallas)}
 
 
 class Levels:
@@ -299,25 +109,28 @@ def combine_by_levels(P, c: int, win):
     return acc, lv.widths
 
 
-def _points16(dc, rng, n, inf):
+def _points16(curve, dc, rng, n, inf):
     """Random general Jacobian points (z != R), at infinity at `inf`."""
-    pts = [Vesta.scalar_mul(rng.randrange(1, Vesta.scalar.p), Vesta.generator) for _ in range(n)]
+    pts = [curve.scalar_mul(rng.randrange(1, curve.scalar.p), curve.generator) for _ in range(n)]
     for i in inf:
         pts[i] = None
     J = dc.double(dc.to_jacobian(dc.pack_affine(pts, device="cpu")))
     return tuple(kernels.to16(t) for t in J)
 
 
-def test_level_schedule_matches_plain_formulas():
+@pytest.mark.parametrize("name", CURVES)
+def test_level_schedule_matches_plain_formulas(name):
     """Three levels of 3, 3 and 1 products a doubling, five of 3, 4, 4, 3 and
-    2 an add (26 levels a Horner step at c = 7), equal to ec_double16 and
+    2 an add (26 levels a Horner step at c = 7; no level wider than the
+    kernel's four lanes), equal to ec_double16 and
     ec_add16 limb for limb, on random points, infinities on either side and
     both, P + P (columns 20, 21) and P + (-P) (22, 23)."""
-    rng = random.Random(810)
-    dc = device_curve(Vesta)
+    curve = CURVES[name][0]
+    rng = random.Random(810 + list(CURVES).index(name))
+    dc = device_curve(curve)
     P = kernels.field16(dc.F, "cpu")
-    p = _points16(dc, rng, 24, inf=(1, 5))
-    q = _points16(dc, rng, 24, inf=(2, 5))
+    p = _points16(curve, dc, rng, 24, inf=(1, 5))
+    q = _points16(curve, dc, rng, 24, inf=(2, 5))
     neg_y = kernels.sub16(P, torch.zeros_like(p[1][:, 22:]), p[1][:, 22:])
     q = (torch.cat([q[0][:, :20], p[0][:, 20:]], dim=1),
          torch.cat([q[1][:, :20], p[1][:, 20:22], neg_y], dim=1),
@@ -338,13 +151,15 @@ def test_level_schedule_matches_plain_formulas():
 
 
 @pytest.mark.parametrize("W,b,c", chip_smoke.K8_EDGE_SHAPES)
-def test_combine_by_levels_on_edge_windows(W, b, c):
+@pytest.mark.parametrize("name", CURVES)
+def test_combine_by_levels_on_edge_windows(name, W, b, c):
     """The kernel's chain on chip_smoke.py's K8 edge rows equals the plain
     combine_windows limb for limb, and host Horner as points; at the
     fallback shape also the JAX package's _combine_windows_body."""
-    rng = random.Random(820 + W * b * c)
-    dc = device_curve(Vesta)
-    wins = chip_smoke.k8_windows(Vesta, dc, rng, W, b, c, "cpu")
+    curve, jcurve = CURVES[name]
+    rng = random.Random(820 + W * b * c + list(CURVES).index(name))
+    dc = device_curve(curve)
+    wins = chip_smoke.k8_windows(curve, dc, rng, W, b, c, "cpu")
     P = kernels.field16(dc.F, "cpu")
     got, widths = combine_by_levels(P, c, tuple(kernels.to16(t) for t in wins))
     got = tuple(kernels.from16(t.contiguous()) for t in got)
@@ -359,8 +174,8 @@ def test_combine_by_levels_on_edge_windows(W, b, c):
         acc = None
         for w in range(W - 1, -1, -1):
             for _ in range(c):
-                acc = Vesta.double(acc)
-            acc = Vesta.add(acc, host_wins[w * b + col])
+                acc = curve.double(acc)
+            acc = curve.add(acc, host_wins[w * b + col])
         host.append(acc)
     assert dc.unpack_jacobian(JPoint(*got)) == host
     if W >= 3:  # the fallback columns exist: the doubling at column 1 and 3
@@ -372,7 +187,7 @@ def test_combine_by_levels_on_edge_windows(W, b, c):
         # from (0, 0, 0) (pallas_field.py:605-607). The limbs differ only
         # in a column whose windows are all infinite (column 0), where both
         # are the point at infinity and K8 keeps the Pallas kernel's zeros.
-        jdc = jdevice_curve(JVesta)
+        jdc = jdevice_curve(jcurve)
         jwins = JJPoint(*(jnp.asarray(convert.limbs_to_numpy(t)) for t in wins))
         want = jmsm._combine_windows_body(jdc, c, jwins)
         for ours, theirs in zip(got, want):
@@ -380,13 +195,3 @@ def test_combine_by_levels_on_edge_windows(W, b, c):
             assert np.array_equal(ours[:, 1:], theirs[:, 1:])
             assert not ours[:, 0].any()
         assert not np.asarray(want[2])[:, 0].any()
-
-
-def test_combine_geometry():
-    """The wrapper's geometry is one the library builds, at every main-path
-    call shape and at the test shapes."""
-    for W, b, c in [(26, 2, 10), (29, 2, 9), (32, 2, 8), (37, 2, 7), (37, 1, 7), (24, 1, 11),
-                    (3, 130, 2), (1, 1, 1)]:
-        lanes, groups = kernels.combine_geometry(W, b, c)
-        assert (lanes, groups) in kernels.COMBINE_KERNELS
-        assert lanes * groups <= 32 and NL % lanes == 0
