@@ -7,17 +7,20 @@ verification path, and a whole Kimchi proof, on one GPU.
 Phases, each fatal on failure:
   1. build the CUDA kernels of proof_systems_tpu_torch/csrc (nvcc, sm_90a)
      and the native host library (MSM, Poseidon); print build times and
-     ptxas register/spill lines (the full ptxas log goes to
+     ptxas's register, stack and spill lines of every function (the full ptxas log goes to
      build/kernels/<hash>/ptxas.log);
   2. print the card;
-  3. warm-up run of the main path, recording every kernel's largest call;
-     then each kernel against its plain PyTorch version on those inputs and
-     on edge cases (field and transcript kernels and K8 exact, the other
-     curve kernels as group elements; K6 also on rows that split each lane
-     chunk over a team of threads; K8 also on its fallback and identity
-     windows), with the kernel's and the plain version's times, K6's team
-     size, tile width, registers and local memory, and K8's registers,
-     local memory and chain (products, levels, time a product);
+  3. warm-up run of the main path, recording every kernel's largest call
+     (K2's and the endo ladder's at every call shape); then each kernel
+     against its plain PyTorch version on those inputs and on edge cases
+     (field and transcript kernels, K2, K3, K8 and the ladder exact, K6 and
+     K7 as group elements; K6 also on rows that split each lane chunk over
+     a team of threads; K8 also on its fallback and identity windows; the
+     ladder on both curves with all-zero and all-one bits and a point at
+     infinity), with the kernel's and the plain version's times, K6's team
+     size, tile width, registers and local memory, K8's registers, local
+     memory and chain (products, levels, time a product), and the
+     registers and local memory of K2, K3 and the ladder;
   4. the main path at k = 16 on Vesta, with launch counts zeroed just
      before and read just after: SRS.create(2^16), the scaled basis of
      g ++ [h], iNTT of 15 random witness columns, their 15 hiding commits
@@ -32,8 +35,8 @@ Phases, each fatal on failure:
      steady-state stage times (the proof split by the tracer's checkpoints
      in a separate, synchronised proof); then each kernel's device time
      and launches over one more proof and one more verification (CUDA
-     events around every wrapper call), and K6's and K8's time at each
-     call shape;
+     events around every wrapper call), and the time of K6, K8, K2 and the
+     endo ladder at each call shape;
   5. every commitment against the native host MSM over g ++ [h], the iNTT
      against the CPU plain path, one b = 1 MSM at c = 10; the evaluations
      against host Horner; every round's L and R, sg, a0 and b0 against the
@@ -74,28 +77,37 @@ IMAD_RATE = 64 * 132 * 1.98e9
 # and 8 for the reduction factors. Products per curve operation:
 IMADS_PER_PRODUCT = 136
 PRODUCTS = {"add": 16, "madd": 11, "dbl": 7}
+# The endo ladder a point: phi(x), the first add and doubling, 64 steps of a
+# doubling and an add
+LADDER_PRODUCTS = 1 + PRODUCTS["add"] + PRODUCTS["dbl"] + 64 * (PRODUCTS["dbl"] + PRODUCTS["add"])
 
 FIELD_CU = "proof_systems_tpu_torch/csrc/field_kernels.cu"
 CURVE_CU = "proof_systems_tpu_torch/csrc/curve_kernels.cu"
 PALLAS = "proof_systems_tpu/ops/pallas_field.py"
-# kernel -> (CUDA source, line of the TPU function it replaces)
+# kernel -> (CUDA source, the TPU code it replaces)
 SOURCES = {
-    "mont_mul": (FIELD_CU, 398),
-    "jacobian_add": (CURVE_CU, 412),
-    "jacobian_double": (CURVE_CU, 439),
-    "mont_pow": (FIELD_CU, 481),
-    "mont_prefix_scan": (FIELD_CU, 1019),
-    "ec_prefix_scan_parts": (CURVE_CU, 1333),
-    "ec_prefix_scan_fused": (CURVE_CU, 1410),
-    "combine_windows": (CURVE_CU, 560),
-    "linear_scan": (FIELD_CU, 1069),
-    "sponge_squeeze2": (FIELD_CU, 646),
-    "endo_inv": (FIELD_CU, 742),
-    "mont_prefix_scan_parts": (FIELD_CU, 956),
+    "mont_mul": (FIELD_CU, f"{PALLAS}:398"),
+    "jacobian_add": (CURVE_CU, f"{PALLAS}:412"),
+    "jacobian_double": (CURVE_CU, f"{PALLAS}:439"),
+    "mont_pow": (FIELD_CU, f"{PALLAS}:481"),
+    "mont_prefix_scan": (FIELD_CU, f"{PALLAS}:1019"),
+    "ec_prefix_scan_parts": (CURVE_CU, f"{PALLAS}:1333"),
+    "ec_prefix_scan_fused": (CURVE_CU, f"{PALLAS}:1410"),
+    "combine_windows": (CURVE_CU, f"{PALLAS}:560"),
+    "linear_scan": (FIELD_CU, f"{PALLAS}:1069"),
+    "sponge_squeeze2": (FIELD_CU, f"{PALLAS}:646"),
+    "endo_inv": (FIELD_CU, f"{PALLAS}:742"),
+    "mont_prefix_scan_parts": (FIELD_CU, f"{PALLAS}:956"),
+    # the fori_loop of K2 (pallas_field.py:412) and K3 (:439)
+    "endo_ladder": ("proof_systems_tpu_torch/csrc/endo_ladder.cuh",
+                    "proof_systems_tpu/poly_commitment/ipa.py:566"),
 }
 # The call of a kernel reported in the JSON line where the main path makes
 # two kinds (the others are printed): K6's mixed bucket scan.
 JSON_KEY = {"ec_prefix_scan_parts": "ec_prefix_scan_parts[mixed]"}
+# Kernels recorded and checked at every call shape; the JSON line reports
+# the largest call.
+BY_SHAPE = ("jacobian_add", "endo_ladder")
 
 
 def log(msg: str) -> None:
@@ -138,10 +150,16 @@ def wall(fn, device):
 # ---------------------------------------------------------------------------
 
 
+def shape_of(t: torch.Tensor) -> str:
+    """A limb tensor's batch shape, as 24x15x4096."""
+    return "x".join(str(d) for d in t.shape[1:])
+
+
 class Recorder:
     """Wraps the kernel wrappers in ops.kernels and keeps, per kernel (and
-    per K6 variant, and each b = 1 window size of K8 apart), a copy of the
-    inputs of its largest call."""
+    per K6 variant, each b = 1 window size of K8, and each call shape of K2
+    and of the endo ladder apart), a copy of the inputs of its largest
+    call."""
 
     def __init__(self, kernels) -> None:
         self.kernels = kernels
@@ -163,6 +181,8 @@ class Recorder:
             key = name + ("[mixed]" if kw.get("mixed") else "")
             if name == "combine_windows" and args[2].shape[2] == 1:
                 key += f"[b=1,c={args[1]}]"  # single chains: sg, the verifier
+            if name in BY_SHAPE:
+                key += f"[{shape_of(next(a for a in args if torch.is_tensor(a)))}]"
             size = sum(a.numel() for a in args if torch.is_tensor(a))
             if size > self.calls.get(key, (0,))[0]:
                 copy = [a.clone() if torch.is_tensor(a) else a for a in args]
@@ -221,8 +241,17 @@ class Clock:
 
 def k6_label(F, x, y, z, mixed=False) -> str:
     """A K6 call's label: its variant and shape."""
-    shape = "x".join(str(d) for d in x.shape[1:])
-    return f"ec_prefix_scan_parts[{'mixed' if mixed else 'general'} {shape}]"
+    return f"ec_prefix_scan_parts[{'mixed' if mixed else 'general'} {shape_of(x)}]"
+
+
+def k2_label(F, px, *_) -> str:
+    """A K2 call's label: its shape."""
+    return f"jacobian_add[{shape_of(px)}]"
+
+
+def ladder_label(F, endo_q, x, *_) -> str:
+    """An endo ladder call's label: its points."""
+    return f"endo_ladder[{shape_of(x)}]"
 
 
 def k8_label(F, c, wx, wy, wz) -> str:
@@ -231,13 +260,14 @@ def k8_label(F, c, wx, wy, wz) -> str:
 
 
 # kernels whose time kernel_times also splits by call shape: short name, label
-SHAPE_LABELS = {"ec_prefix_scan_parts": ("K6", k6_label), "combine_windows": ("K8", k8_label)}
+SHAPE_LABELS = {"ec_prefix_scan_parts": ("K6", k6_label), "combine_windows": ("K8", k8_label),
+                "jacobian_add": ("K2", k2_label), "endo_ladder": ("ladder", ladder_label)}
 
 
 def kernel_times(result, device) -> None:
     """Each kernel's device time and launches over one proof and over one
-    verification of it, largest first, and K6's and K8's time at each call
-    shape."""
+    verification of it, largest first, and the time of K6, K8, K2 and the
+    endo ladder at each call shape."""
     from proof_systems_tpu_torch.ops import kernels
 
     targets = [(kernels, name, SHAPE_LABELS[name][1] if name in SHAPE_LABELS else name)
@@ -301,7 +331,8 @@ def outputs_err(name: str, F, got, want) -> int:
     if name == "mont_prefix_scan_parts":
         (gp, ge, gc), (wp, we, wc) = got, want
         return max(field_err(gp, wp), field_err(ge, we)) if gc == wc else 1 << 32
-    if name in ("combine_windows", "sponge_squeeze2", "endo_inv"):  # limb for limb
+    if name in ("combine_windows", "sponge_squeeze2", "endo_inv", "jacobian_add",
+                "jacobian_double", "endo_ladder"):  # limb for limb
         return max(field_err(a, b) for a, b in zip(got, want))
     if name == "ec_prefix_scan_parts":
         (gp, ge, gc), (wp, we, wc) = got, want
@@ -351,6 +382,8 @@ def bound_ms(name: str, args, kw) -> tuple[float, str]:
         nbytes, products = 9 * fe * elems, PRODUCTS["add"] * elems
     elif name == "jacobian_double":
         nbytes, products = 6 * fe * elems, PRODUCTS["dbl"] * elems
+    elif name == "endo_ladder":  # the points in and out, the 128 bits
+        nbytes, products = 6 * fe * elems + 4 * 128, LADDER_PRODUCTS * elems
     elif name == "ec_prefix_scan_parts":
         n = t[0].shape[-1]
         rows = elems // n
@@ -448,7 +481,8 @@ def edge_cases(device, curve_params):
     window partial for K8, and its edge rows (k8_windows: identity columns,
     the doubling and infinity fallbacks, W = 1, c = 1, b = 33 and 130); L
     at infinity, (0, 0), for K10; all-zero and all-one challenge bits for
-    K11."""
+    K11 and the endo ladder, which also meets a point at infinity, on both
+    curves."""
     from proof_systems_tpu_torch.fields import Fp, Fq
     from proof_systems_tpu_torch.ops import limb
     from proof_systems_tpu_torch.ops.curve_ops import device_curve
@@ -532,7 +566,26 @@ def edge_cases(device, curve_params):
         ("endo_inv", [Fs, endo_r, torch.tensor(bits, dtype=torch.int32, device=device)], {})
         for bits in ([0] * 128, [1] * 128, [rng.randrange(2) for _ in range(128)])
     ]
+    cases += ladder_edge_cases(rng, device)
     return cases, (dc, P, Q, want_add)
+
+
+def ladder_edge_cases(rng, device) -> list:
+    """The endo ladder on 40 points of Vesta and of Pallas, the first at
+    infinity, with all-zero, all-one and random challenge bits."""
+    from proof_systems_tpu_torch.curves import Pallas, Vesta
+    from proof_systems_tpu_torch.ops.curve_ops import device_curve
+
+    cases = []
+    for curve in (Vesta, Pallas):
+        dc = device_curve(curve)
+        pts = [None] + [curve.scalar_mul(rng.randrange(1, curve.scalar.p), curve.generator)
+                        for _ in range(39)]
+        P = dc.to_jacobian(dc.pack_affine(pts, device=device))
+        for bits in ([0] * 128, [1] * 128, [rng.randrange(2) for _ in range(128)]):
+            t = torch.tensor(bits, dtype=torch.int32, device=device)
+            cases.append(("endo_ladder", [dc.F, curve.endos[0], *P, t], {}))
+    return cases
 
 
 def prefix_dispatch_check(device) -> None:
@@ -602,6 +655,12 @@ def k6_note(kernels, args, device) -> str:
     return f"K6 here: team S = {team}, tile KT = {kt}; {attrs}"
 
 
+def group_law_note(kernels) -> str:
+    """The registers and local (stack) bytes of K2, K3 and the endo ladder."""
+    return "; ".join(f"{name}: {regs} registers, {local} B local"
+                     for name, (regs, local, *_) in kernels.group_law_attrs().items())
+
+
 def k8_note(kernels) -> str:
     """K8's lanes and the registers and local (stack) bytes of its kernel."""
     regs, local, *_ = kernels.combine_windows_attrs()
@@ -626,7 +685,8 @@ def check_kernels(kernels, recorded, device, curve_params) -> list[dict]:
     log("kernels: edge cases agree with the plain versions (and K2 with the host curve)")
     prefix_dispatch_check(device)
 
-    for key, (_size, args, kw) in sorted(recorded.items()):
+    sizes = {}
+    for key, (size, args, kw) in sorted(recorded.items()):
         name = key.split("[")[0]
         kern, ref = kernels.WRAPPERS[name], plain[name]
         got = kern(*args, **kw)
@@ -642,20 +702,22 @@ def check_kernels(kernels, recorded, device, curve_params) -> list[dict]:
         log(f"kernel {key:28s} shape {shape:22s} {ms:10.4f} ms  plain {plain_s * 1e3:10.1f} ms  "
             f"bound {b_ms:.3g} ms ({b_by})  max_abs_err {err}{chain_note(name, args, ms)}")
         row = {"name": name, "route": "cuda", "source": SOURCES[name][0],
-               "replaces": f"{PALLAS}:{SOURCES[name][1]}", "launches": 0, "max_abs_err": err,
+               "replaces": SOURCES[name][1], "launches": 0, "max_abs_err": err,
                "ms": ms, "plain_ms": plain_s * 1e3, "bound_ms": b_ms, "bound_by": b_by,
                "library_ms": None}
         if name == "ec_prefix_scan_parts":
             log("  " + k6_note(kernels, args, device))
         if name == "combine_windows":
             log("  " + k8_note(kernels))
-        if key == JSON_KEY.get(name, name):
-            rows[name] = row
+        if key == (key if name in BY_SHAPE else JSON_KEY.get(name, name)) \
+                and size > sizes.get(name, 0):
+            rows[name], sizes[name] = row, size
         if name == "mont_prefix_scan_parts":
             prefix_compare(kernels, args, device, reps)
     missing = set(kernels.WRAPPERS) - set(rows)
     if missing:
         raise AssertionError(f"the main path never called {sorted(missing)}")
+    log("group law kernels: " + group_law_note(kernels))
     return [rows[n] for n in kernels.WRAPPERS]
 
 
@@ -1279,7 +1341,8 @@ def main() -> int:
     lib = kernels.LIBRARY.load()
     log(f"build: CUDA kernels {lib.build_seconds:.1f} s (0 = already built)")
     for line in lib.ptxas_log.splitlines():
-        if "registers" in line or "spill" in line or line.startswith("=="):
+        if any(k in line for k in ("entry function", "Function properties", "registers",
+                                    "spill")) or line.startswith("=="):
             log("ptxas: " + line.strip())
     t0 = time.perf_counter()
     if native_curve(Vesta) is None:

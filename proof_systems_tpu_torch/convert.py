@@ -16,13 +16,14 @@ from .poly_commitment.srs import SRS
 from .runtime import resolve_device
 
 
-def limbs_from_numpy(arr, device="cpu") -> torch.Tensor:
-    """(16, ...) uint32 16-bit limbs -> the port's (8, ...) int32 tensor."""
+def limbs_from_numpy(arr, device=None) -> torch.Tensor:
+    """(16, ...) uint32 16-bit limbs -> the port's (8, ...) int32 tensor on
+    `device` (the card unless the caller asks for the CPU)."""
     a = np.asarray(arr, dtype=np.uint32)
     if a.shape[0] != 16 or (a > 0xFFFF).any():
         raise ValueError("expected (16, ...) canonical 16-bit limbs")
     words = a[0::2] | (a[1::2] << np.uint32(16))
-    return torch.from_numpy(np.ascontiguousarray(words).view(np.int32)).to(device)
+    return torch.from_numpy(np.ascontiguousarray(words).view(np.int32)).to(resolve_device(device))
 
 
 def limbs_to_numpy(t: torch.Tensor) -> np.ndarray:

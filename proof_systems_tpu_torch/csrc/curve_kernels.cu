@@ -77,17 +77,21 @@
 // an add: 26 levels a Horner step at c = 7 instead of 65 products); all
 // inlined, no stack; the chain starts from the top window.
 
+#include "endo_ladder.cuh"
 #include "k8_combine.cuh"
 
-__global__ void __launch_bounds__(128)
+template <int MINB>
+__global__ void __launch_bounds__(128, MINB)
     k_jacobian_add(FieldParams F, const uint32_t *px, const uint32_t *py, const uint32_t *pz,
                    const uint32_t *qx, const uint32_t *qy, const uint32_t *qz, uint32_t *ox,
                    uint32_t *oy, uint32_t *oz, int64_t n) {
     int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
     if (i >= n) return;
-    Jac r = ec_add(F, jac_load(px, py, pz, n, i), jac_load(qx, qy, qz, n, i));
+    Jac r = ec_add_inl(F, jac_load(px, py, pz, n, i), jac_load(qx, qy, qz, n, i));
     jac_store(ox, oy, oz, n, i, r);
 }
+
+#define K2_MINB 2
 
 __global__ void __launch_bounds__(128)
     k_jacobian_double(FieldParams F, const uint32_t *px, const uint32_t *py,
@@ -95,7 +99,24 @@ __global__ void __launch_bounds__(128)
                       int64_t n) {
     int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
     if (i >= n) return;
-    jac_store(ox, oy, oz, n, i, ec_double(F, jac_load(px, py, pz, n, i)));
+    jac_store(ox, oy, oz, n, i, ec_double_inl(F, jac_load(px, py, pz, n, i)));
+}
+
+// The endo ladder (endo_ladder.cuh): one thread a point of g_hi, the 128
+// challenge bits staged once a block in shared memory (every thread reads
+// the same word, so the selects do not diverge).
+#define LADDER_MAX_THREADS 64
+
+__global__ void __launch_bounds__(LADDER_MAX_THREADS)
+    k_endo_ladder(FieldParams F, Fe endo_q, const uint32_t *x, const uint32_t *y,
+                  const uint32_t *z, const int32_t *bits, uint32_t *ox, uint32_t *oy,
+                  uint32_t *oz, int64_t n) {
+    __shared__ uint32_t sbits[128];
+    for (int k = threadIdx.x; k < 128; k += blockDim.x) sbits[k] = (uint32_t)bits[k];
+    __syncthreads();
+    int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+    if (i >= n) return;
+    jac_store(ox, oy, oz, n, i, endo_ladder_point(F, jac_load(x, y, z, n, i), endo_q, sbits));
 }
 
 // One block per row of the (rows, n) input; limb stride rows * n.
@@ -371,16 +392,35 @@ __global__ void __launch_bounds__(32 * K8_WARPS, 1)
 
 extern "C" {
 
+typedef void (*JacAddFn)(FieldParams, const uint32_t *, const uint32_t *, const uint32_t *,
+                         const uint32_t *, const uint32_t *, const uint32_t *, uint32_t *,
+                         uint32_t *, uint32_t *, int64_t);
+
+static JacAddFn jacobian_add_fn(int minb) {
+    return minb == 2 ? k_jacobian_add<2> : minb == 3 ? k_jacobian_add<3>
+                                         : minb == 4 ? k_jacobian_add<4> : nullptr;
+}
+
+// K2 with __launch_bounds__(128, minb), minb in {2, 3, 4}.
+int pst_jacobian_add_sweep(int minb, const uint32_t *fp, const uint32_t *px, const uint32_t *py,
+                           const uint32_t *pz, const uint32_t *qx, const uint32_t *qy,
+                           const uint32_t *qz, uint32_t *ox, uint32_t *oy, uint32_t *oz,
+                           int64_t n, void *stream) {
+    JacAddFn fn = jacobian_add_fn(minb);
+    if (fn == nullptr) return (int)cudaErrorInvalidValue;
+    if (n > 0) {
+        int64_t blocks = (n + 127) / 128;
+        fn<<<(unsigned)blocks, 128, 0, (cudaStream_t)stream>>>(pst_field_params(fp), px, py, pz,
+                                                                qx, qy, qz, ox, oy, oz, n);
+    }
+    return (int)cudaGetLastError();
+}
+
 int pst_jacobian_add(const uint32_t *fp, const uint32_t *px, const uint32_t *py,
                      const uint32_t *pz, const uint32_t *qx, const uint32_t *qy,
                      const uint32_t *qz, uint32_t *ox, uint32_t *oy, uint32_t *oz, int64_t n,
                      void *stream) {
-    if (n > 0) {
-        int64_t blocks = (n + 127) / 128;
-        k_jacobian_add<<<(unsigned)blocks, 128, 0, (cudaStream_t)stream>>>(
-            pst_field_params(fp), px, py, pz, qx, qy, qz, ox, oy, oz, n);
-    }
-    return (int)cudaGetLastError();
+    return pst_jacobian_add_sweep(K2_MINB, fp, px, py, pz, qx, qy, qz, ox, oy, oz, n, stream);
 }
 
 int pst_jacobian_double(const uint32_t *fp, const uint32_t *px, const uint32_t *py,
@@ -390,6 +430,22 @@ int pst_jacobian_double(const uint32_t *fp, const uint32_t *px, const uint32_t *
         int64_t blocks = (n + 127) / 128;
         k_jacobian_double<<<(unsigned)blocks, 128, 0, (cudaStream_t)stream>>>(
             pst_field_params(fp), px, py, pz, ox, oy, oz, n);
+    }
+    return (int)cudaGetLastError();
+}
+
+// The endo ladder over n points of g_hi; endo_q: 8 host words (Montgomery);
+// threads a block: 32 or 64.
+int pst_endo_ladder(const uint32_t *fp, const uint32_t *endo_q, const uint32_t *x,
+                    const uint32_t *y, const uint32_t *z, const int32_t *bits, uint32_t *ox,
+                    uint32_t *oy, uint32_t *oz, int64_t n, int threads, void *stream) {
+    if (threads != 32 && threads != 64) return (int)cudaErrorInvalidValue;
+    if (n > 0) {
+        Fe e;
+        std::memcpy(e.v, endo_q, sizeof(e.v));
+        int64_t blocks = (n + threads - 1) / threads;
+        k_endo_ladder<<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
+            pst_field_params(fp), e, x, y, z, bits, ox, oy, oz, n);
     }
     return (int)cudaGetLastError();
 }
@@ -456,15 +512,29 @@ int pst_combine_windows(const uint32_t *fp, const uint32_t *wx, const uint32_t *
     return (int)cudaGetLastError();
 }
 
-// Registers, local (stack) bytes, static and dynamic shared memory of K8.
-int pst_combine_windows_attrs(int *out) {
+static int func_attrs(const void *fn, int *out) {
     cudaFuncAttributes a;
-    cudaError_t e = cudaFuncGetAttributes(&a, (const void *)k_combine_windows);
+    cudaError_t e = cudaFuncGetAttributes(&a, fn);
     out[0] = a.numRegs;
     out[1] = (int)a.localSizeBytes;
     out[2] = (int)a.sharedSizeBytes;
     out[3] = 0;
     return (int)e;
+}
+
+// Registers, local (stack) bytes, static and dynamic shared memory of K8.
+int pst_combine_windows_attrs(int *out) { return func_attrs((const void *)k_combine_windows, out); }
+
+// The same for k_jacobian_add (which 0, or a launch-bounds variant 2-4 as
+// 10 + minb), k_jacobian_double (1) or k_endo_ladder (2).
+int pst_group_law_attrs(int which, int *out) {
+    const void *fn = which == 0   ? (const void *)jacobian_add_fn(K2_MINB)
+                     : which == 1 ? (const void *)k_jacobian_double
+                     : which == 2 ? (const void *)k_endo_ladder
+                     : which > 10 ? (const void *)jacobian_add_fn(which - 10)
+                                  : nullptr;
+    if (fn == nullptr) return (int)cudaErrorInvalidValue;
+    return func_attrs(fn, out);
 }
 
 const char *pst_curve_error_string(int code) {

@@ -19,7 +19,9 @@
 // Bound: the curve kernels are integer-multiply bound (an 8x8-limb CIOS
 // product is 128 IMAD.WIDE and 8 IMUL); the elementwise field kernels are near the
 // memory bound at large N. An EC add with 8-limb coordinates needs well over
-// 100 live registers per thread; spills are expected and left as they are.
+// 100 live registers per thread. The doubling and the complete add come
+// inlined (ec_double_inl, ec_add_inl) and as __noinline__ wrappers (ec_double,
+// ec_add); the results are the same limbs either way.
 
 #pragma once
 
@@ -169,8 +171,10 @@ __device__ __forceinline__ Fe fe_mul(const FieldParams &F, const Fe &a, const Fe
 }
 
 // dbl-2009-l for a = 0, the formula of _kv_ec_double (no infinity case
-// needed: z = 0 gives z3 = 2*y*z = 0).
-__device__ __noinline__ Jac ec_double(const FieldParams &F, const Jac &p) {
+// needed: z = 0 gives z3 = 2*y*z = 0). Inlined where a kernel calls it
+// directly (K2, K3, the endo ladder): no call and no stack frame; ec_double
+// below is its out-of-line wrapper.
+__device__ __forceinline__ Jac ec_double_inl(const FieldParams &F, const Jac &p) {
     Fe a = fe_mul(F, p.x, p.x);
     Fe b = fe_mul(F, p.y, p.y);
     Fe c = fe_mul(F, b, b);
@@ -192,8 +196,9 @@ __device__ __noinline__ Jac ec_double(const FieldParams &F, const Jac &p) {
 
 // Complete Jacobian addition: add-2007-bl with the doubling, negation and
 // infinity fallbacks of _kv_ec_add, applied in the same order, so the
-// result matches the JAX package limb for limb.
-__device__ __noinline__ Jac ec_add(const FieldParams &F, const Jac &p, const Jac &q) {
+// result matches the JAX package limb for limb. Inlined, as ec_double_inl;
+// ec_add below is its out-of-line wrapper.
+__device__ __forceinline__ Jac ec_add_inl(const FieldParams &F, const Jac &p, const Jac &q) {
     bool p_inf = fe_is_zero(p.z);
     bool q_inf = fe_is_zero(q.z);
     Fe z1z1 = fe_mul(F, p.z, p.z);
@@ -217,11 +222,21 @@ __device__ __noinline__ Jac ec_add(const FieldParams &F, const Jac &p, const Jac
     out.y = fe_sub(F, fe_mul(F, r2, fe_sub(F, v, out.x)), fe_add(F, s1j, s1j));
     Fe zs = fe_add(F, p.z, q.z);
     out.z = fe_mul(F, fe_sub(F, fe_sub(F, fe_mul(F, zs, zs), z1z1), z2z2), h);
-    if (h_zero && r_zero) out = ec_double(F, p);
+    if (h_zero && r_zero) out = ec_double_inl(F, p);
     if (h_zero && !r_zero && !p_inf) out.z = fe_zero();
     if (p_inf) out = q;
     if (q_inf) out = p;
     return out;
+}
+
+// The out-of-line formulas of the scans (K6, K7) and of ec_madd's fallback:
+// one copy of each body a kernel, at the cost of a call and its stack frame.
+__device__ __noinline__ Jac ec_double(const FieldParams &F, const Jac &p) {
+    return ec_double_inl(F, p);
+}
+
+__device__ __noinline__ Jac ec_add(const FieldParams &F, const Jac &p, const Jac &q) {
+    return ec_add_inl(F, p, q);
 }
 
 // Mixed addition, q affine-encoded (z in {0, R}): madd-2007-bl with the

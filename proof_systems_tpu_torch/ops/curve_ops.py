@@ -1,8 +1,9 @@
 """Batched Pasta curve arithmetic on device (Jacobian and affine forms).
 
 Counterpart of proof_systems_tpu/ops/curve_ops.py. The group law runs in
-the hand-written kernels K2 (complete add) and K3 (doubling); to_affine
-goes through the field layer (K1, K4, K5).
+the hand-written kernels K2 (complete add) and K3 (doubling), and the IPA's
+endo ladder in one kernel of its own; to_affine goes through the field
+layer (K1, K4, K5).
 
 Formulas (a = 0 short Weierstrass, y^2 = x^3 + 5): dbl-2009-l and
 add-2007-bl with the doubling, negation and infinity fallbacks of the JAX
@@ -107,6 +108,12 @@ class DeviceCurve:
         p = map_points(torch.Tensor.contiguous, p)
         q = map_points(torch.Tensor.contiguous, q)
         return JPoint(*kernels.jacobian_add(self.F, *p, *q))
+
+    def endo_ladder(self, p: JPoint, bits: torch.Tensor) -> JPoint:
+        """[u] p for the scalar challenge u of the 128 bits `bits` (the IPA
+        fold step's 64-step endo ladder, one kernel); p has z in {0, R}."""
+        p = map_points(torch.Tensor.contiguous, p)
+        return JPoint(*kernels.endo_ladder(self.F, self.params.endos[0], *p, bits))
 
     def neg(self, p: JPoint) -> JPoint:
         return JPoint(p.x, limb.neg(self.F, p.y), p.z)

@@ -18,7 +18,10 @@ signature and the same results:
   K11 endo_inv                (pallas_field.py:742)   csrc/field_kernels.cu
   K12 mont_prefix_scan_parts  (pallas_field.py:956)   csrc/field_kernels.cu
 
-`bits128` (pallas_field.py:733) is a torch op.
+and one kernel for a loop of them: the IPA fold step's endo ladder
+(`endo_ladder`, csrc/endo_ladder.cuh), the reference's `fori_loop` of K2
+and K3 (proof_systems_tpu/poly_commitment/ipa.py:566). `bits128`
+(pallas_field.py:733) is a torch op.
 
 A wrapper takes its plain version only for a tensor on the CPU. For a CUDA
 tensor it launches the kernel on the current stream or raises; there is no
@@ -156,14 +159,17 @@ def _bind_field(lib: ctypes.CDLL) -> ctypes.CDLL:
 
 def _bind_curve(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.pst_jacobian_add.argtypes = [_P] * 10 + [_I64, _P]
+    lib.pst_jacobian_add_sweep.argtypes = [ctypes.c_int] + [_P] * 10 + [_I64, _P]
     lib.pst_jacobian_double.argtypes = [_P] * 7 + [_I64, _P]
+    lib.pst_endo_ladder.argtypes = [_P] * 9 + [_I64, ctypes.c_int, _P]
+    lib.pst_group_law_attrs.argtypes = [ctypes.c_int, _P]
     lib.pst_ec_scan_parts.argtypes = [_P] * 10 + [_I64, _I64, _I64] + [ctypes.c_int] * 3 + [_P]
     lib.pst_ec_scan_parts_attrs.argtypes = [ctypes.c_int] * 3 + [_P]
     lib.pst_ec_scan_fused.argtypes = [_P] * 7 + [_I64, _I64, _I64, _P]
     lib.pst_combine_windows.argtypes = [_P] * 7 + [_I64, _I64, ctypes.c_int, _P]
     lib.pst_combine_windows_attrs.argtypes = [_P]
-    for fn in (lib.pst_jacobian_add, lib.pst_jacobian_double,
-               lib.pst_ec_scan_parts, lib.pst_ec_scan_parts_attrs, lib.pst_ec_scan_fused,
+    for fn in (lib.pst_jacobian_add, lib.pst_jacobian_add_sweep, lib.pst_jacobian_double,
+               lib.pst_endo_ladder, lib.pst_group_law_attrs, lib.pst_ec_scan_parts, lib.pst_ec_scan_parts_attrs, lib.pst_ec_scan_fused,
                lib.pst_combine_windows, lib.pst_combine_windows_attrs):
         fn.restype = ctypes.c_int
     lib.pst_curve_error_string.argtypes = [ctypes.c_int]
@@ -510,6 +516,17 @@ def jacobian_add(F, px, py, pz, qx, qy, qz):
     return out
 
 
+def _jacobian_add_sweep(F, minb: int, px, py, pz, qx, qy, qz):
+    """K2 built with __launch_bounds__(128, minb), minb in {2, 3, 4}, on
+    CUDA tensors; counts nothing (scripts/torch_k2_bench.py)."""
+    dev = _check(px, py, pz, qx, qy, qz)
+    out = tuple(torch.empty_like(px) for _ in range(3))
+    lib = LIBRARY.load().curve
+    _launch(lib, "pst_jacobian_add_sweep", "pst_curve_error_string", dev, minb,
+            _field_words(F), *_ptrs((px, py, pz, qx, qy, qz)), *_ptrs(out), px[0].numel())
+    return out
+
+
 def jacobian_double_plain(F, px, py, pz):
     _check(px, py, pz)
     P = field16(F, px.device)
@@ -526,6 +543,79 @@ def jacobian_double(F, px, py, pz):
     _launch(lib, "pst_jacobian_double", "pst_curve_error_string", dev,
             _field_words(F), *_ptrs((px, py, pz)), *_ptrs(out), px[0].numel())
     LAUNCHES["jacobian_double"] += 1
+    return out
+
+
+# The kernels of the group law, for group_law_attrs: (which, name)
+GROUP_LAW_KERNELS = {0: "k_jacobian_add", 1: "k_jacobian_double", 2: "k_endo_ladder"}
+
+
+def group_law_attrs(extra=()) -> dict[str, tuple[int, ...]]:
+    """(registers, local bytes, static and dynamic shared bytes) of K2, K3
+    and the endo ladder, from cudaFuncGetAttributes; `extra` adds K2's
+    launch-bounds variants by their minimum blocks."""
+    lib = LIBRARY.load().curve
+    out = {}
+    items = list(GROUP_LAW_KERNELS.items()) + [(10 + m, f"k_jacobian_add<{m}>") for m in extra]
+    for which, name in items:
+        buf = (ctypes.c_int * 4)()
+        rc = lib.pst_group_law_attrs(which, buf)
+        if rc:
+            raise RuntimeError(f"pst_group_law_attrs: CUDA error {rc}")
+        out[name] = tuple(buf)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# The endo ladder: a loop of K2 and K3 as one kernel
+# ---------------------------------------------------------------------------
+
+LADDER_THREADS = 32  # threads a block of k_endo_ladder
+
+
+def _ladder_args(x, y, z, bits) -> torch.device:
+    dev = _check(x, y, z)
+    _endo_args(bits)
+    if x.dim() != 2:
+        raise ValueError(f"the ladder takes (8, n) points, got {tuple(x.shape)}")
+    if bits.device != dev:
+        raise ValueError(f"device mismatch {bits.device} vs {dev}")
+    return dev
+
+
+def endo_ladder_plain(F, endo_q: int, x, y, z, bits):
+    _ladder_args(x, y, z, bits)
+    P = field16(F, x.device)
+    endo = torch.tensor(limbs16(endo_q % F.p * F.r_mod_p % F.p), device=x.device)
+    phix = from16(mul16(P, to16(x), P.col(endo, 1)))
+    y16 = to16(y)
+    negy = from16(sub16(P, torch.zeros_like(y16), y16))
+    acc = jacobian_double_plain(F, *jacobian_add_plain(F, x, y, z, phix, y, z))
+    for j in range(63, -1, -1):
+        qx = torch.where(bits[2 * j + 1] == 1, phix, x)
+        qy = torch.where(bits[2 * j] == 1, y, negy)
+        acc = jacobian_add_plain(F, *jacobian_double_plain(F, *acc), qx, qy, z)
+    return acc
+
+
+def endo_ladder(F, endo_q: int, x, y, z, bits, threads: int = LADDER_THREADS):
+    """[u] P for the points P = (x, y, z), (8, n) with z in {0, R}, and the
+    scalar challenge u of the 128 bits `bits` ((128,) int32, least
+    significant first; kernels.bits128): the IPA fold step's 64-step ladder
+    acc = 2 acc + (+-phi(P) or +-P) with phi(x) = endo_q * x, from acc =
+    2 (P + phi(P)). Returns the Jacobian acc (x, y, z), the limbs of the
+    loop of K2 and K3 (endo_ladder_plain). endo_q: the curve's base-field
+    endomorphism constant, an int."""
+    dev = _ladder_args(x, y, z, bits)
+    if dev.type == "cpu":
+        return endo_ladder_plain(F, endo_q, x, y, z, bits)
+    endo = (ctypes.c_uint32 * NL)(*_words(endo_q % F.p * F.r_mod_p % F.p))
+    out = tuple(torch.empty_like(x) for _ in range(3))
+    lib = LIBRARY.load().curve
+    _launch(lib, "pst_endo_ladder", "pst_curve_error_string", dev,
+            _field_words(F), ctypes.addressof(endo), *_ptrs((x, y, z, bits)), *_ptrs(out),
+            x.shape[1], threads)
+    LAUNCHES["endo_ladder"] += 1
     return out
 
 
@@ -1099,6 +1189,7 @@ WRAPPERS = {
     "sponge_squeeze2": sponge_squeeze2,
     "endo_inv": endo_inv,
     "mont_prefix_scan_parts": mont_prefix_scan_parts,
+    "endo_ladder": endo_ladder,
 }
 
 # Kernel launches per wrapper: each wrapper adds one where it launches its

@@ -34,7 +34,7 @@ import torch
 
 from ..curves import AffinePoint, CurveParams
 from ..ops import kernels, limb, msm, ntt, poly
-from ..ops.curve_ops import APoint, DeviceCurve, JPoint, device_curve
+from ..ops.curve_ops import APoint, DeviceCurve, device_curve
 from ..poseidon.sponge import FqSponge
 from .commitment import PolyComm, b_poly, shift_scalar
 
@@ -200,7 +200,7 @@ def _squeeze_challenge(F, Fq, endo_r: int, nrounds: int, state, xs, ys, consts):
 
 
 def _ipa_fold_step(F, Fq, dc: DeviceCurve, c: int, endo_r: int, nrounds: int,
-                   a, b, g: APoint, hu: APoint, state, rand_pair, consts, endo_q_m):
+                   a, b, g: APoint, hu: APoint, state, rand_pair, consts):
     """One round that folds the basis of size m (ipa.rs:845):
 
         L = <a_hi, g_lo> + rand_l*H + <a_hi, b_lo>*U
@@ -211,10 +211,9 @@ def _ipa_fold_step(F, Fq, dc: DeviceCurve, c: int, endo_r: int, nrounds: int,
     L and R are one b = 2 unscaled MSM over m/2 + 2 points (K8 combines
     its windows). [u]P is the 64-step endo ladder over the challenge bits,
     acc = 2*acc + (+-phi(P) or +-P): ScalarChallenge.to_field's (a, b)
-    recurrence lifted to points (K2, K3).
+    recurrence lifted to points, one kernel launch (DeviceCurve.endo_ladder).
 
     Returns (a', b', g', state', L/R packed (17, 2))."""
-    Fb = dc.F
     half = a.shape[-1] // 2
     a_lo, a_hi = a[:, :half], a[:, half:]
     b_lo, b_hi = b[:, :half], b[:, half:]
@@ -231,17 +230,9 @@ def _ipa_fold_step(F, Fq, dc: DeviceCurve, c: int, endo_r: int, nrounds: int,
     a2 = limb.add(F, a_lo, limb.mont_mul(F, a_hi, u_inv))
     b2 = limb.add(F, b_lo, limb.mont_mul(F, b_hi, u))
 
-    # g' = g_lo + [u] g_hi through the endo ladder; the bits stay on the
-    # device, so each step's selects are torch.where on a 0-d condition
+    # g' = g_lo + [u] g_hi; the ladder reads the bits on the device
     lo, hi = (APoint(*(t[..., s] for t in g)) for s in (slice(0, half), slice(half, None)))
-    phix = limb.mont_mul(Fb, hi.x, endo_q_m)
-    negy = limb.neg(Fb, hi.y)
-    zhi = dc.to_jacobian(hi).z
-    acc = dc.double(dc.add(JPoint(hi.x, hi.y, zhi), JPoint(phix, hi.y, zhi)))
-    for j in range(63, -1, -1):
-        qx = limb.select(bits[2 * j + 1] == 1, phix, hi.x)
-        qy = limb.select(bits[2 * j] == 1, hi.y, negy)
-        acc = dc.add(dc.double(acc), JPoint(qx, qy, zhi))
+    acc = dc.endo_ladder(dc.to_jacobian(hi), bits)
     g2 = dc.to_affine(dc.add(acc, dc.to_jacobian(lo)))
     return a2, b2, g2, state, lr
 
@@ -310,14 +301,13 @@ def _open_rounds_device(srs, sponge: FqSponge, F, a, b, u_base, rng, rounds: int
     dev = srs.device
     params = sponge.sponge.params
     Fq = limb.device_field(params.field)
-    endo_q, endo_r = curve.endos
+    _, endo_r = curve.endos
     n = len(srs.g)
 
     blinders = [(rng.field(f.p), rng.field(f.p)) for _ in range(rounds)]
     rand_all = F.pack([v for pair in blinders for v in pair], shape=(rounds, 2, 1), device=dev)
     state = Fq.pack_mont(list(sponge.sponge.state), shape=(3,), device=dev)
     consts = kernels.sponge_consts(params, dev)
-    endo_q_m = dc.F.const_mont(endo_q, (1,), device=dev)
     hu = dc.pack_affine([srs.h, u_base], device=dev)
 
     # fold while the basis is larger than tail_target, then the masked tail
@@ -327,7 +317,7 @@ def _open_rounds_device(srs, sponge: FqSponge, F, a, b, u_base, rng, rounds: int
         c_k = msm.default_window_bits((n >> k) // 2 + 2)
         a, b, g, state, lr = _ipa_fold_step(
             F, Fq, dc, c_k, endo_r, params.rounds_full, a, b, g, hu, state, rand_all[:, k],
-            consts, endo_q_m,
+            consts,
         )
         packs.append(lr)
     c_t = msm.default_window_bits((n >> f_rounds) // 2 + 2)

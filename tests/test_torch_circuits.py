@@ -132,12 +132,12 @@ def test_prover_index_columns_match_jax(pair):
     cd, jcd = index.column_data, jindex.column_data
     for name in ("sigma_coeff", "sigma8", "coefficients_coeff", "coefficients8", "zkpl8",
                  "vanishes_zk_prev8", "x_d8"):
-        assert torch.equal(getattr(cd, name), convert.limbs_from_numpy(getattr(jcd, name))), name
+        assert torch.equal(getattr(cd, name), convert.limbs_from_numpy(getattr(jcd, name), device="cpu")), name
     for attr in ("selector_coeff", "selector8"):
         ours, theirs = getattr(cd, attr), getattr(jcd, attr)
         assert [int(g) for g in ours] == [int(g) for g in theirs]
         for g in ours:
-            assert torch.equal(ours[g], convert.limbs_from_numpy(np.asarray(theirs[g]))), (attr, g)
+            assert torch.equal(ours[g], convert.limbs_from_numpy(np.asarray(theirs[g]), device="cpu")), (attr, g)
 
 
 def test_unported_gates_are_refused():

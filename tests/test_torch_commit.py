@@ -59,7 +59,7 @@ def test_intt_and_hiding_commit_match_jax(srs_pair, b):
     want = jsrs.commit_coeffs_dev(jcoeffs, 1, blinders)
 
     plan = ntt.ntt_plan(Fp, LOG_N, device="cpu")
-    coeffs = plan.intt_t(convert.limbs_from_numpy(np.asarray(jw)), plan.inv_twiddles)
+    coeffs = plan.intt_t(convert.limbs_from_numpy(np.asarray(jw), device="cpu"), plan.inv_twiddles)
     assert np.array_equal(convert.limbs_to_numpy(coeffs), np.asarray(jcoeffs))
     got = srs.commit_coeffs_dev(coeffs, 1, blinders)
     assert [c.chunks for c in got] == [c.chunks for c in want]
@@ -78,10 +78,10 @@ def test_commit_host_chunks_and_non_hiding(srs_pair):
 def test_convert_round_trip_and_rejects():
     rng = np.random.default_rng(511)
     arr = rng.integers(0, 1 << 16, size=(16, 3, 5), dtype=np.uint32)
-    t = convert.limbs_from_numpy(arr)
+    t = convert.limbs_from_numpy(arr, device="cpu")
     assert t.dtype == torch.int32 and t.shape == (8, 3, 5)
     assert np.array_equal(convert.limbs_to_numpy(t), arr)
     with pytest.raises(ValueError):
-        convert.limbs_from_numpy(arr[:8])
+        convert.limbs_from_numpy(arr[:8], device="cpu")
     with pytest.raises(ValueError):
-        convert.limbs_from_numpy(arr + (1 << 16))
+        convert.limbs_from_numpy(arr + (1 << 16), device="cpu")

@@ -8,7 +8,7 @@ import pytest
 import torch
 
 import chip_smoke
-from proof_systems_tpu_torch.curves import Vesta
+from proof_systems_tpu_torch.curves import Pallas, Vesta
 from proof_systems_tpu_torch.fields import Fp, Fq
 from proof_systems_tpu_torch.ops import kernels, limb
 from proof_systems_tpu_torch.ops.curve_ops import JPoint, device_curve
@@ -78,6 +78,95 @@ def test_curve_kernels_match_plain(dev):
             assert torch.equal(x, y), name
     sums = dc.unpack_jacobian(type(P)(*kernels.jacobian_add(dc.F, *P, *Q)))
     assert sums == [Vesta.add(p, q) for p, q in zip(ps, qs)]
+
+
+def _pool_pairs(rng, dev, shape):
+    """Two (8, *shape) general Jacobian operands (z != R) gathered on the
+    card from 32 host points, their negations and the identity: random
+    pairs, with P + P at every 7th position (the doubling fallback), P + (-P)
+    at the next (the infinity fallback) and identities on either side."""
+    dc = device_curve(Vesta)
+    pool = [Vesta.scalar_mul(rng.randrange(1, Vesta.scalar.p), Vesta.generator)
+            for _ in range(32)]
+    table = [None] + pool + [Vesta.neg(p) for p in pool]  # k and k + 32 negate
+    n = 1
+    for d in shape:
+        n *= d
+    gen = torch.Generator().manual_seed(n)
+    ip = torch.randint(0, len(table), (n,), generator=gen)
+    iq = torch.randint(0, len(table), (n,), generator=gen)
+    pos = torch.arange(n)
+    iq = torch.where(pos % 7 == 0, ip, iq)
+    iq = torch.where((pos % 7 == 1) & (ip > 0), (ip - 1 + 32) % 64 + 1, iq)
+    J = dc.double(dc.to_jacobian(dc.pack_affine(table, device=dev)))
+    return dc, [[t[:, i.to(dev)].reshape(8, *shape).contiguous() for t in J] for i in (ip, iq)]
+
+
+# K2's call shapes on the main path: the witness commit's cum add and two of
+# the fold steps' adds with g_lo, and the widest tail shape
+K2_SHAPES = [(24, 15, 4096), (24, 7, 4096), (37, 2, 256), (16384,), (1024,)]
+
+
+@pytest.mark.parametrize("shape", K2_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_jacobian_add_main_path_shapes(dev, shape):
+    """K2 (the inlined complete add) as the wrapper launches it, one launch
+    a call, limb for limb against the plain version, with the doubling,
+    negation and identity lanes."""
+    rng = random.Random(612)
+    dc, (p, q) = _pool_pairs(rng, dev, shape)
+    before = kernels.launch_counts()["jacobian_add"]
+    got, want = _pair("jacobian_add", dc.F, *p, *q)
+    assert kernels.launch_counts()["jacobian_add"] == before + 1
+    for x, y in zip(got, want):
+        assert torch.equal(x, y), shape
+
+
+def _ladder_input(curve, rng, dev, n):
+    """(8, n) affine-encoded points of `curve` (z in {0, R}), the second at
+    infinity, gathered from 64 host points."""
+    dc = device_curve(curve)
+    pool = [None] + [curve.scalar_mul(rng.randrange(1, curve.scalar.p), curve.generator)
+                     for _ in range(63)]
+    idx = torch.randint(1, 64, (n,), generator=torch.Generator().manual_seed(n))
+    idx[1 % n] = 0
+    J = dc.to_jacobian(dc.pack_affine(pool, device=dev))
+    return dc, [t[:, idx.to(dev)].contiguous() for t in J]
+
+
+@pytest.mark.parametrize("pattern", ["random", "zeros", "ones"])
+@pytest.mark.parametrize("curve", [Vesta, Pallas], ids=["Vesta", "Pallas"])
+def test_endo_ladder_matches_plain_and_host(dev, curve, pattern):
+    """The ladder kernel, one launch, limb for limb against its plain
+    version (the loop of K2 and K3) on 40 points with one at infinity, and
+    against the host's [u]P as points."""
+    from proof_systems_tpu_torch.poseidon.sponge import ScalarChallenge
+
+    rng = random.Random(613)
+    bits = {"zeros": [0] * 128, "ones": [1] * 128,
+            "random": [rng.randrange(2) for _ in range(128)]}[pattern]
+    dc, P = _ladder_input(curve, rng, dev, 40)
+    t = torch.tensor(bits, dtype=torch.int32, device=dev)
+    before = kernels.launch_counts()["endo_ladder"]
+    got, want = _pair("endo_ladder", dc.F, curve.endos[0], *P, t)
+    assert kernels.launch_counts()["endo_ladder"] == before + 1
+    for x, y in zip(got, want):
+        assert torch.equal(x, y), pattern
+    u = ScalarChallenge(sum(b << i for i, b in enumerate(bits))).to_field(curve.endos[1],
+                                                                         curve.scalar)
+    host = [None if q is None else curve.scalar_mul(u, q) for q in dc.unpack_jacobian(JPoint(*P))]
+    assert dc.unpack_jacobian(JPoint(*got)) == host
+
+
+@pytest.mark.parametrize("n", [32768, 16384, 8192, 4096, 2048])
+def test_endo_ladder_fold_sizes(dev, n):
+    """The ladder at the five fold steps' sizes of a k = 16 opening, limb for
+    limb against its plain version."""
+    rng = random.Random(614)
+    dc, P = _ladder_input(Vesta, rng, dev, n)
+    t = torch.tensor([rng.randrange(2) for _ in range(128)], dtype=torch.int32, device=dev)
+    got, want = _pair("endo_ladder", dc.F, Vesta.endos[0], *P, t)
+    for x, y in zip(got, want):
+        assert torch.equal(x, y), n
 
 
 def _k6_rows(rng, dev, rows, n, mixed):

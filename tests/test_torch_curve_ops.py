@@ -38,7 +38,7 @@ def special_pairs(curve, rng, n=8):
 
 
 def to_port(jp: JJPoint) -> JPoint:
-    return JPoint(*(convert.limbs_from_numpy(np.asarray(t)) for t in jp))
+    return JPoint(*(convert.limbs_from_numpy(np.asarray(t), device="cpu") for t in jp))
 
 
 def same_limbs(port: JPoint, jax_pt: JJPoint) -> bool:

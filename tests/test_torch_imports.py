@@ -51,6 +51,9 @@ def test_importing_every_module_loads_no_jax():
 
 
 def _entry_points():
+    import numpy as np
+
+    from proof_systems_tpu_torch import convert
     from proof_systems_tpu_torch.curves import Vesta
     from proof_systems_tpu_torch.fields import Fp
     from proof_systems_tpu_torch.ops import limb, msm, ntt
@@ -61,10 +64,11 @@ def _entry_points():
         "SRS.create": lambda: SRS.create(Vesta, 4),
         "ntt_plan": lambda: ntt.ntt_plan(Fp, 3),
         "msm.msm": lambda: msm.msm(Vesta, scal),
+        "convert.limbs_from_numpy": lambda: convert.limbs_from_numpy(np.zeros((16, 2), np.uint32)),
     }
 
 
-@pytest.mark.parametrize("name", ["SRS.create", "ntt_plan", "msm.msm"])
+@pytest.mark.parametrize("name", ["SRS.create", "ntt_plan", "msm.msm", "convert.limbs_from_numpy"])
 def test_entry_points_default_to_cuda(name):
     """With no device given, an entry point asks for the card; without one
     it raises instead of running on the CPU."""

@@ -33,7 +33,7 @@ def rand_elems(p, n, rng):
 def both(jF, xs, mont=True, shape=None):
     """The same values in the JAX layout and in the port's."""
     j = jF.pack_mont(xs, shape=shape) if mont else jF.pack(xs, shape=shape)
-    return j, convert.limbs_from_numpy(np.asarray(j))
+    return j, convert.limbs_from_numpy(np.asarray(j), device="cpu")
 
 
 def same(port, jax_arr):

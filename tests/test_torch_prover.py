@@ -110,4 +110,4 @@ def test_quotient_matches_jax(proved):
     jq, jrem, _, jr1, jr2 = qfn(*(jnp.asarray(convert.limbs_to_numpy(t)) for t in (w, z, public)),
                                 jchal, None, jindex._qfn_consts)
     for ours, theirs in zip(got, (jq, jrem, jr1, jr2)):
-        assert torch.equal(ours, convert.limbs_from_numpy(np.asarray(theirs)))
+        assert torch.equal(ours, convert.limbs_from_numpy(np.asarray(theirs), device="cpu"))

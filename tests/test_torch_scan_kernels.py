@@ -42,7 +42,7 @@ def _to_jax(t: torch.Tensor):
 
 
 def _from_jax(a) -> torch.Tensor:
-    return convert.limbs_from_numpy(a)
+    return convert.limbs_from_numpy(a, device="cpu")
 
 
 C_CASES = {"zero": 0, "one": 1, "random": random.Random(91).randrange(Fp.p),
