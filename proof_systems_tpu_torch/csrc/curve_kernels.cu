@@ -1,7 +1,7 @@
 // Curve kernels K2 (jacobian_add), K3 (jacobian_double), K6
-// (ec_prefix_scan_parts), K7 (ec_prefix_scan_fused) and K8
-// (combine_windows), over Vesta's base field Fq (any field: the parameters
-// are a kernel argument).
+// (ec_prefix_scan_parts), K7 (ec_prefix_scan_fused), K8 (combine_windows)
+// and the IPA fold step's endo ladder, over Vesta's base field Fq (any
+// field: the parameters are a kernel argument).
 //
 // Replaces, in proof_systems_tpu/ops/pallas_field.py:
 //   K2 jacobian_add (l.412, _kv_ec_add l.299): complete elementwise add.
@@ -14,6 +14,8 @@
 //      as msm.py:338-342 requires) and phase 2 stays general adds.
 //   K7 ec_prefix_scan_fused (l.1410, _ec_scan_kernel l.834): phases 1-2
 //      plus the combine, giving the full inclusive prefix scan.
+//   The endo ladder (proof_systems_tpu/poly_commitment/ipa.py:566, a
+//      fori_loop of K2 and K3): [u] P for the IPA's 128-bit challenges.
 //   K8 combine_windows_fused (l.560): the Pippenger window recombination
 //      sum_w 2^(cw) win_w as a Horner chain from the top window (c doublings
 //      and one general add per window, the order of l.596-607), in
@@ -25,13 +27,34 @@
 // operands. The scans are also latency bound: each thread runs its chunk
 // sequentially.
 //
-// Simple design, left for later: one thread per element for K2/K3, one block
-// of PST_LANES threads per row for K7 with a contiguous chunk of
-// cp = ceil(n / PST_LANES) positions per thread (loads are strided by cp
-// across a warp, not coalesced), and a Hillis-Steele scan over the chunk
-// totals in 12 KB of shared memory. The curve formulas are __noinline__
-// functions to bound code size and build time; ptxas reports their
-// registers and stack frames.
+// Simple design, left for later: one block of PST_LANES threads per row for
+// K7 with a contiguous chunk of cp = ceil(n / PST_LANES) positions per
+// thread (loads are strided by cp across a warp, not coalesced), and a
+// Hillis-Steele scan over the chunk totals in 12 KB of shared memory. K6 and
+// K7 call the __noinline__ curve formulas, to bound code size and build
+// time; ptxas reports their registers and stack frames.
+//
+// K2 and K3, redesigned for this card: one thread an element, running
+// field.cuh's inlined formulas (ec_add_inl, ec_double_inl). The old kernels
+// called the __noinline__ ec_add and ec_double, which pass their operands
+// through a 264-byte stack frame; inlined, nothing goes to local memory.
+// What bounds K2: the integer multiplies of its 16 products an element, at
+// the large MSM shapes; __launch_bounds__(128, 2) keeps every register
+// ptxas wants (a cap of 128, four blocks an SM, spilled, PERF.md).
+//
+// The endo ladder (k_endo_ladder, endo_ladder.cuh), new on this card: the
+// IPA fold step's [u] g_hi, which the port ran as 64 host iterations of two
+// selects, one K3 and one K2, and the reference as one fori_loop of them
+// (proof_systems_tpu/poly_commitment/ipa.py:566). What bounds it: the
+// products, a dependent chain of 1,496 a point (phi(x), then 23 a step),
+// run by one thread; at the fold steps' sizes (2,048-32,768 points, 2-8
+// warps an SM at 32 threads a block) the chain's latency, not the card's
+// multiply rate. What the design does about the host round trips: one
+// launch a fold step instead of 130, the 128 challenge bits read from
+// device memory once a block into shared memory (the same for every
+// thread, so the selects do not diverge), the general add kept (madd would
+// give other Jacobian limbs), and 32 threads a block, so that 2,048 points
+// still spread over 64 SMs.
 //
 // K6, redesigned for this card (k_ec_parts + k_ec_lane_offsets below). The
 // old K6 was K7's kernel without the combine. What bounds K6 here: the
@@ -80,8 +103,7 @@
 #include "endo_ladder.cuh"
 #include "k8_combine.cuh"
 
-template <int MINB>
-__global__ void __launch_bounds__(128, MINB)
+__global__ void __launch_bounds__(128, 2)
     k_jacobian_add(FieldParams F, const uint32_t *px, const uint32_t *py, const uint32_t *pz,
                    const uint32_t *qx, const uint32_t *qy, const uint32_t *qz, uint32_t *ox,
                    uint32_t *oy, uint32_t *oz, int64_t n) {
@@ -90,8 +112,6 @@ __global__ void __launch_bounds__(128, MINB)
     Jac r = ec_add_inl(F, jac_load(px, py, pz, n, i), jac_load(qx, qy, qz, n, i));
     jac_store(ox, oy, oz, n, i, r);
 }
-
-#define K2_MINB 2
 
 __global__ void __launch_bounds__(128)
     k_jacobian_double(FieldParams F, const uint32_t *px, const uint32_t *py,
@@ -105,16 +125,16 @@ __global__ void __launch_bounds__(128)
 // The endo ladder (endo_ladder.cuh): one thread a point of g_hi, the 128
 // challenge bits staged once a block in shared memory (every thread reads
 // the same word, so the selects do not diverge).
-#define LADDER_MAX_THREADS 64
+#define LADDER_THREADS 32
 
-__global__ void __launch_bounds__(LADDER_MAX_THREADS)
+__global__ void __launch_bounds__(LADDER_THREADS)
     k_endo_ladder(FieldParams F, Fe endo_q, const uint32_t *x, const uint32_t *y,
                   const uint32_t *z, const int32_t *bits, uint32_t *ox, uint32_t *oy,
                   uint32_t *oz, int64_t n) {
     __shared__ uint32_t sbits[128];
-    for (int k = threadIdx.x; k < 128; k += blockDim.x) sbits[k] = (uint32_t)bits[k];
+    for (int k = threadIdx.x; k < 128; k += LADDER_THREADS) sbits[k] = (uint32_t)bits[k];
     __syncthreads();
-    int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+    int64_t i = (int64_t)blockIdx.x * LADDER_THREADS + threadIdx.x;
     if (i >= n) return;
     jac_store(ox, oy, oz, n, i, endo_ladder_point(F, jac_load(x, y, z, n, i), endo_q, sbits));
 }
@@ -392,35 +412,16 @@ __global__ void __launch_bounds__(32 * K8_WARPS, 1)
 
 extern "C" {
 
-typedef void (*JacAddFn)(FieldParams, const uint32_t *, const uint32_t *, const uint32_t *,
-                         const uint32_t *, const uint32_t *, const uint32_t *, uint32_t *,
-                         uint32_t *, uint32_t *, int64_t);
-
-static JacAddFn jacobian_add_fn(int minb) {
-    return minb == 2 ? k_jacobian_add<2> : minb == 3 ? k_jacobian_add<3>
-                                         : minb == 4 ? k_jacobian_add<4> : nullptr;
-}
-
-// K2 with __launch_bounds__(128, minb), minb in {2, 3, 4}.
-int pst_jacobian_add_sweep(int minb, const uint32_t *fp, const uint32_t *px, const uint32_t *py,
-                           const uint32_t *pz, const uint32_t *qx, const uint32_t *qy,
-                           const uint32_t *qz, uint32_t *ox, uint32_t *oy, uint32_t *oz,
-                           int64_t n, void *stream) {
-    JacAddFn fn = jacobian_add_fn(minb);
-    if (fn == nullptr) return (int)cudaErrorInvalidValue;
-    if (n > 0) {
-        int64_t blocks = (n + 127) / 128;
-        fn<<<(unsigned)blocks, 128, 0, (cudaStream_t)stream>>>(pst_field_params(fp), px, py, pz,
-                                                                qx, qy, qz, ox, oy, oz, n);
-    }
-    return (int)cudaGetLastError();
-}
-
 int pst_jacobian_add(const uint32_t *fp, const uint32_t *px, const uint32_t *py,
                      const uint32_t *pz, const uint32_t *qx, const uint32_t *qy,
                      const uint32_t *qz, uint32_t *ox, uint32_t *oy, uint32_t *oz, int64_t n,
                      void *stream) {
-    return pst_jacobian_add_sweep(K2_MINB, fp, px, py, pz, qx, qy, qz, ox, oy, oz, n, stream);
+    if (n > 0) {
+        int64_t blocks = (n + 127) / 128;
+        k_jacobian_add<<<(unsigned)blocks, 128, 0, (cudaStream_t)stream>>>(
+            pst_field_params(fp), px, py, pz, qx, qy, qz, ox, oy, oz, n);
+    }
+    return (int)cudaGetLastError();
 }
 
 int pst_jacobian_double(const uint32_t *fp, const uint32_t *px, const uint32_t *py,
@@ -434,17 +435,15 @@ int pst_jacobian_double(const uint32_t *fp, const uint32_t *px, const uint32_t *
     return (int)cudaGetLastError();
 }
 
-// The endo ladder over n points of g_hi; endo_q: 8 host words (Montgomery);
-// threads a block: 32 or 64.
+// The endo ladder over n points of g_hi; endo_q: 8 host words (Montgomery).
 int pst_endo_ladder(const uint32_t *fp, const uint32_t *endo_q, const uint32_t *x,
                     const uint32_t *y, const uint32_t *z, const int32_t *bits, uint32_t *ox,
-                    uint32_t *oy, uint32_t *oz, int64_t n, int threads, void *stream) {
-    if (threads != 32 && threads != 64) return (int)cudaErrorInvalidValue;
+                    uint32_t *oy, uint32_t *oz, int64_t n, void *stream) {
     if (n > 0) {
         Fe e;
         std::memcpy(e.v, endo_q, sizeof(e.v));
-        int64_t blocks = (n + threads - 1) / threads;
-        k_endo_ladder<<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
+        int64_t blocks = (n + LADDER_THREADS - 1) / LADDER_THREADS;
+        k_endo_ladder<<<(unsigned)blocks, LADDER_THREADS, 0, (cudaStream_t)stream>>>(
             pst_field_params(fp), e, x, y, z, bits, ox, oy, oz, n);
     }
     return (int)cudaGetLastError();
@@ -525,13 +524,12 @@ static int func_attrs(const void *fn, int *out) {
 // Registers, local (stack) bytes, static and dynamic shared memory of K8.
 int pst_combine_windows_attrs(int *out) { return func_attrs((const void *)k_combine_windows, out); }
 
-// The same for k_jacobian_add (which 0, or a launch-bounds variant 2-4 as
-// 10 + minb), k_jacobian_double (1) or k_endo_ladder (2).
+// The same for k_jacobian_add (which 0), k_jacobian_double (1) or
+// k_endo_ladder (2).
 int pst_group_law_attrs(int which, int *out) {
-    const void *fn = which == 0   ? (const void *)jacobian_add_fn(K2_MINB)
+    const void *fn = which == 0   ? (const void *)k_jacobian_add
                      : which == 1 ? (const void *)k_jacobian_double
                      : which == 2 ? (const void *)k_endo_ladder
-                     : which > 10 ? (const void *)jacobian_add_fn(which - 10)
                                   : nullptr;
     if (fn == nullptr) return (int)cudaErrorInvalidValue;
     return func_attrs(fn, out);

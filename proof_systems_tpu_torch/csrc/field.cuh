@@ -138,12 +138,24 @@ __device__ __forceinline__ Fe fe_mul(const FieldParams &F, const Fe &a, const Fe
     uint32_t t[PST_NL + 2];
 #pragma unroll
     for (int k = 0; k < PST_NL + 2; ++k) t[k] = 0;
+#ifdef PST_MUL_ROLLED
+    uint32_t bw[PST_NL];
+#pragma unroll
+    for (int k = 0; k < PST_NL; ++k) bw[k] = b.v[k];
+#pragma unroll 1
+    for (int i = 0; i < PST_NL; ++i) {
+        const uint32_t bi = bw[0];
+#pragma unroll
+        for (int k = 0; k + 1 < PST_NL; ++k) bw[k] = bw[k + 1];
+#else
 #pragma unroll
     for (int i = 0; i < PST_NL; ++i) {
+        const uint32_t bi = b.v[i];
+#endif
         uint64_t carry = 0;
 #pragma unroll
         for (int j = 0; j < PST_NL; ++j) {
-            uint64_t cur = (uint64_t)a.v[j] * b.v[i] + t[j] + carry;
+            uint64_t cur = (uint64_t)a.v[j] * bi + t[j] + carry;
             t[j] = (uint32_t)cur;
             carry = cur >> 32;
         }
@@ -173,7 +185,7 @@ __device__ __forceinline__ Fe fe_mul(const FieldParams &F, const Fe &a, const Fe
 // dbl-2009-l for a = 0, the formula of _kv_ec_double (no infinity case
 // needed: z = 0 gives z3 = 2*y*z = 0). Inlined where a kernel calls it
 // directly (K2, K3, the endo ladder): no call and no stack frame; ec_double
-// below is its out-of-line wrapper.
+// is its out-of-line wrapper (K6, K7 and ec_madd's fallback).
 __device__ __forceinline__ Jac ec_double_inl(const FieldParams &F, const Jac &p) {
     Fe a = fe_mul(F, p.x, p.x);
     Fe b = fe_mul(F, p.y, p.y);
@@ -194,11 +206,19 @@ __device__ __forceinline__ Jac ec_double_inl(const FieldParams &F, const Jac &p)
     return r;
 }
 
+__device__ __noinline__ Jac ec_double(const FieldParams &F, const Jac &p) {
+    return ec_double_inl(F, p);
+}
+
 // Complete Jacobian addition: add-2007-bl with the doubling, negation and
 // infinity fallbacks of _kv_ec_add, applied in the same order, so the
-// result matches the JAX package limb for limb. Inlined, as ec_double_inl;
-// ec_add below is its out-of-line wrapper.
-__device__ __forceinline__ Jac ec_add_inl(const FieldParams &F, const Jac &p, const Jac &q) {
+// result matches the JAX package limb for limb. The doubling fallback runs
+// inlined (ec_add_inl, for K2 and the endo ladder) or through the
+// out-of-line ec_double (ec_add, the out-of-line wrapper that K6 and K7
+// call, one copy of each formula a kernel at the cost of a call and its
+// stack frame).
+template <bool INLINE>
+__device__ __forceinline__ Jac ec_add_body(const FieldParams &F, const Jac &p, const Jac &q) {
     bool p_inf = fe_is_zero(p.z);
     bool q_inf = fe_is_zero(q.z);
     Fe z1z1 = fe_mul(F, p.z, p.z);
@@ -222,21 +242,22 @@ __device__ __forceinline__ Jac ec_add_inl(const FieldParams &F, const Jac &p, co
     out.y = fe_sub(F, fe_mul(F, r2, fe_sub(F, v, out.x)), fe_add(F, s1j, s1j));
     Fe zs = fe_add(F, p.z, q.z);
     out.z = fe_mul(F, fe_sub(F, fe_sub(F, fe_mul(F, zs, zs), z1z1), z2z2), h);
-    if (h_zero && r_zero) out = ec_double_inl(F, p);
+    if (h_zero && r_zero) {
+        if constexpr (INLINE) out = ec_double_inl(F, p);
+        else out = ec_double(F, p);
+    }
     if (h_zero && !r_zero && !p_inf) out.z = fe_zero();
     if (p_inf) out = q;
     if (q_inf) out = p;
     return out;
 }
 
-// The out-of-line formulas of the scans (K6, K7) and of ec_madd's fallback:
-// one copy of each body a kernel, at the cost of a call and its stack frame.
-__device__ __noinline__ Jac ec_double(const FieldParams &F, const Jac &p) {
-    return ec_double_inl(F, p);
+__device__ __forceinline__ Jac ec_add_inl(const FieldParams &F, const Jac &p, const Jac &q) {
+    return ec_add_body<true>(F, p, q);
 }
 
 __device__ __noinline__ Jac ec_add(const FieldParams &F, const Jac &p, const Jac &q) {
-    return ec_add_inl(F, p, q);
+    return ec_add_body<false>(F, p, q);
 }
 
 // Mixed addition, q affine-encoded (z in {0, R}): madd-2007-bl with the

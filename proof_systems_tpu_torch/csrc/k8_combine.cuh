@@ -3,10 +3,11 @@
 // (c doublings, then one complete add, per window: the order of
 // proof_systems_tpu/ops/pallas_field.py:596-607, combine_windows_fused l.560).
 //
-// This header is K8's own curve formulas, all of them inlined. It calls none
-// of field.cuh's __noinline__ formulas (ec_double, ec_add, ec_madd), which
-// K2, K3, K6 and K7 share; it uses field.cuh's forceinline fe_mul, fe_add
-// and fe_sub.
+// This header is K8's own curve formulas, all of them inlined and split into
+// levels. It calls none of field.cuh's curve formulas (ec_double_inl and
+// ec_add_inl, which K2, K3 and the endo ladder run, or their __noinline__
+// wrappers, which K6 and K7 call); it uses field.cuh's forceinline fe_mul,
+// fe_add and fe_sub.
 //
 // What bounds K8 on this card: not the integer rate (a call is W * (7c + 16)
 // products a column, microseconds of the card's multiply-add rate) but the

@@ -159,16 +159,15 @@ def _bind_field(lib: ctypes.CDLL) -> ctypes.CDLL:
 
 def _bind_curve(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.pst_jacobian_add.argtypes = [_P] * 10 + [_I64, _P]
-    lib.pst_jacobian_add_sweep.argtypes = [ctypes.c_int] + [_P] * 10 + [_I64, _P]
     lib.pst_jacobian_double.argtypes = [_P] * 7 + [_I64, _P]
-    lib.pst_endo_ladder.argtypes = [_P] * 9 + [_I64, ctypes.c_int, _P]
+    lib.pst_endo_ladder.argtypes = [_P] * 9 + [_I64, _P]
     lib.pst_group_law_attrs.argtypes = [ctypes.c_int, _P]
     lib.pst_ec_scan_parts.argtypes = [_P] * 10 + [_I64, _I64, _I64] + [ctypes.c_int] * 3 + [_P]
     lib.pst_ec_scan_parts_attrs.argtypes = [ctypes.c_int] * 3 + [_P]
     lib.pst_ec_scan_fused.argtypes = [_P] * 7 + [_I64, _I64, _I64, _P]
     lib.pst_combine_windows.argtypes = [_P] * 7 + [_I64, _I64, ctypes.c_int, _P]
     lib.pst_combine_windows_attrs.argtypes = [_P]
-    for fn in (lib.pst_jacobian_add, lib.pst_jacobian_add_sweep, lib.pst_jacobian_double,
+    for fn in (lib.pst_jacobian_add, lib.pst_jacobian_double,
                lib.pst_endo_ladder, lib.pst_group_law_attrs, lib.pst_ec_scan_parts, lib.pst_ec_scan_parts_attrs, lib.pst_ec_scan_fused,
                lib.pst_combine_windows, lib.pst_combine_windows_attrs):
         fn.restype = ctypes.c_int
@@ -516,17 +515,6 @@ def jacobian_add(F, px, py, pz, qx, qy, qz):
     return out
 
 
-def _jacobian_add_sweep(F, minb: int, px, py, pz, qx, qy, qz):
-    """K2 built with __launch_bounds__(128, minb), minb in {2, 3, 4}, on
-    CUDA tensors; counts nothing (scripts/torch_k2_bench.py)."""
-    dev = _check(px, py, pz, qx, qy, qz)
-    out = tuple(torch.empty_like(px) for _ in range(3))
-    lib = LIBRARY.load().curve
-    _launch(lib, "pst_jacobian_add_sweep", "pst_curve_error_string", dev, minb,
-            _field_words(F), *_ptrs((px, py, pz, qx, qy, qz)), *_ptrs(out), px[0].numel())
-    return out
-
-
 def jacobian_double_plain(F, px, py, pz):
     _check(px, py, pz)
     P = field16(F, px.device)
@@ -550,14 +538,12 @@ def jacobian_double(F, px, py, pz):
 GROUP_LAW_KERNELS = {0: "k_jacobian_add", 1: "k_jacobian_double", 2: "k_endo_ladder"}
 
 
-def group_law_attrs(extra=()) -> dict[str, tuple[int, ...]]:
+def group_law_attrs() -> dict[str, tuple[int, ...]]:
     """(registers, local bytes, static and dynamic shared bytes) of K2, K3
-    and the endo ladder, from cudaFuncGetAttributes; `extra` adds K2's
-    launch-bounds variants by their minimum blocks."""
+    and the endo ladder, from cudaFuncGetAttributes."""
     lib = LIBRARY.load().curve
     out = {}
-    items = list(GROUP_LAW_KERNELS.items()) + [(10 + m, f"k_jacobian_add<{m}>") for m in extra]
-    for which, name in items:
+    for which, name in GROUP_LAW_KERNELS.items():
         buf = (ctypes.c_int * 4)()
         rc = lib.pst_group_law_attrs(which, buf)
         if rc:
@@ -569,9 +555,6 @@ def group_law_attrs(extra=()) -> dict[str, tuple[int, ...]]:
 # ---------------------------------------------------------------------------
 # The endo ladder: a loop of K2 and K3 as one kernel
 # ---------------------------------------------------------------------------
-
-LADDER_THREADS = 32  # threads a block of k_endo_ladder
-
 
 def _ladder_args(x, y, z, bits) -> torch.device:
     dev = _check(x, y, z)
@@ -598,7 +581,7 @@ def endo_ladder_plain(F, endo_q: int, x, y, z, bits):
     return acc
 
 
-def endo_ladder(F, endo_q: int, x, y, z, bits, threads: int = LADDER_THREADS):
+def endo_ladder(F, endo_q: int, x, y, z, bits):
     """[u] P for the points P = (x, y, z), (8, n) with z in {0, R}, and the
     scalar challenge u of the 128 bits `bits` ((128,) int32, least
     significant first; kernels.bits128): the IPA fold step's 64-step ladder
@@ -614,7 +597,7 @@ def endo_ladder(F, endo_q: int, x, y, z, bits, threads: int = LADDER_THREADS):
     lib = LIBRARY.load().curve
     _launch(lib, "pst_endo_ladder", "pst_curve_error_string", dev,
             _field_words(F), ctypes.addressof(endo), *_ptrs((x, y, z, bits)), *_ptrs(out),
-            x.shape[1], threads)
+            x.shape[1])
     LAUNCHES["endo_ladder"] += 1
     return out
 

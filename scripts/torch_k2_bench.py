@@ -7,16 +7,19 @@ ladder on the card at the main path's call shapes.
 
 Builds the CUDA kernels and prints the card's name and power limit and the
 registers, local (stack) bytes and shared memory of K2, K3 and the ladder
-(cudaFuncGetAttributes). Then, on general Jacobian operands gathered on the
-card from host points (with the doubling, negation and identity lanes):
-K2 at the main path's call shapes, K3 at 65,537 points (the scaled basis's
-doubling chain), and the ladder at the five fold steps' sizes of a k = 16
-opening, each beside chip_smoke.py's bound and the time recorded in
-PERF.md where there is one, and each checked against its plain version
-limb for limb. The ladder is also timed on the host clock, synchronised,
-beside the loop it replaced (64 host iterations of two selects, one K3 and
-one K2, timed the same way) and checked against that loop. Last, the
-ladder on chip_smoke.py's edge rows.
+(cudaFuncGetAttributes), with their SASS instruction counts and K8's
+(cuobjdump). Then, on general Jacobian operands gathered on the card from
+host points (with the doubling, negation and identity lanes): K2 at the
+main path's call shapes and K3 at 65,537 points (the scaled basis's
+doubling chain), each timed as the main path calls it (CUDA events around
+back-to-back wrapper calls) and as device time alone (the calls captured
+in a CUDA graph), beside chip_smoke.py's bound and the time recorded in
+PERF.md where there is one; and the ladder at the five fold steps' sizes
+of a k = 16 opening, beside its bound and, on the host clock,
+synchronised, beside the loop it replaced (64 host iterations of two
+selects, one K3 and one K2, timed the same way). Each is checked against
+its plain version limb for limb, the ladder also against the host loop
+and on chip_smoke.py's edge rows.
 
 --shapes-only times the public wrappers at K2's and K3's shapes and the
 host loop at the fold sizes, and nothing else, so that another checkout
@@ -29,6 +32,8 @@ from __future__ import annotations
 import argparse
 import pathlib
 import random
+import re
+import subprocess
 import sys
 import time
 
@@ -70,6 +75,94 @@ def wall_ms(fn, reps: int = HOST_REPS) -> float:
         fn()
         torch.cuda.synchronize()
     return (time.perf_counter() - t0) * 1e3 / reps
+
+
+def graph_ms(fn, reps: int = REPS) -> float:
+    """Device time of one call: `reps` calls captured in a CUDA graph, the
+    graph replayed and timed with CUDA events (no host work between the
+    launches, so a short kernel's time is not the wrapper's host cost)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def sass_sizes(kernels, names, so=None) -> dict[str, int]:
+    """SASS instructions (16 bytes each) of each named kernel of the curve
+    library, from cuobjdump beside nvcc; empty where it cannot be read."""
+    so = so or kernels.BUILD_DIR / "kernels" / kernels._source_tag() / "curve_kernels.so"
+    tool = pathlib.Path(kernels._nvcc()).with_name("cuobjdump")
+    out = subprocess.run([str(tool), "-sass", str(so)], capture_output=True, text=True)
+    counts, current = {}, None
+    for line in out.stdout.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            current = m.group(1)
+            counts[current] = 0
+        elif current and re.match(r"\s*/\*[0-9a-f]{4,}\*/", line):
+            counts[current] += 1
+    return {name: sum(v for k, v in counts.items() if name in k) for name in names
+            if any(name in k for k in counts)}
+
+
+def rolled_library(kernels):
+    """curve_kernels.cu built with PST_MUL_ROLLED: the product's row loop
+    kept rolled (one row of code a product instead of eight)."""
+    import ctypes
+
+    out = kernels.BUILD_DIR / "kernels_rolled" / kernels._source_tag()
+    so = out / "curve_kernels.so"
+    out.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    run = subprocess.run([kernels._nvcc(), *kernels.NVCC_FLAGS, "-DPST_MUL_ROLLED", "-o", str(so),
+                          str(kernels.CSRC / "curve_kernels.cu")], capture_output=True, text=True)
+    print(f"rolled build: rc {run.returncode}, {time.perf_counter() - t0:.1f} s", flush=True)
+    if run.returncode:
+        print(run.stdout[-3000:] + run.stderr[-3000:], flush=True)
+        return None, so
+    return kernels._bind_curve(ctypes.CDLL(str(so))), so
+
+
+def rolled_calls(kernels, lib):
+    """K2, K3 and the ladder launched from the rolled library."""
+    import ctypes
+
+    def add(F, px, py, pz, qx, qy, qz):
+        out = tuple(torch.empty_like(px) for _ in range(3))
+        kernels._launch(lib, "pst_jacobian_add", "pst_curve_error_string", px.device,
+                        kernels._field_words(F), *kernels._ptrs((px, py, pz, qx, qy, qz)),
+                        *kernels._ptrs(out), px[0].numel())
+        return out
+
+    def dbl(F, px, py, pz):
+        out = tuple(torch.empty_like(px) for _ in range(3))
+        kernels._launch(lib, "pst_jacobian_double", "pst_curve_error_string", px.device,
+                        kernels._field_words(F), *kernels._ptrs((px, py, pz)),
+                        *kernels._ptrs(out), px[0].numel())
+        return out
+
+    def ladder(F, endo_q, x, y, z, bits):
+        endo = (ctypes.c_uint32 * 8)(*kernels._words(endo_q % F.p * F.r_mod_p % F.p))
+        out = tuple(torch.empty_like(x) for _ in range(3))
+        kernels._launch(lib, "pst_endo_ladder", "pst_curve_error_string", x.device,
+                        kernels._field_words(F), ctypes.addressof(endo),
+                        *kernels._ptrs((x, y, z, bits)), *kernels._ptrs(out), x.shape[1])
+        return out
+
+    return add, dbl, ladder
 
 
 def same(got, want) -> bool:
@@ -146,9 +239,12 @@ def main() -> int:
     lib = kernels.LIBRARY.load()
     print(f"build: CUDA kernels {lib.build_seconds:.1f} s", flush=True)
     if full:
-        for name, (regs, local, static, dyn) in kernels.group_law_attrs(extra=(2, 3, 4)).items():
+        sizes = sass_sizes(kernels, [*kernels.GROUP_LAW_KERNELS.values(), "k_combine_windows"])
+        for name, (regs, local, static, dyn) in kernels.group_law_attrs().items():
             print(f"{name}: {regs} registers, {local} B local, {static} B static and {dyn} B "
-                  "dynamic shared memory", flush=True)
+                  f"dynamic shared memory; {sizes.get(name)} SASS instructions", flush=True)
+        print(f"k_combine_windows (K8): {sizes.get('k_combine_windows')} SASS instructions",
+              flush=True)
     dev = torch.device("cuda")
     dc = device_curve(Vesta)
     F = dc.F
@@ -159,35 +255,27 @@ def main() -> int:
     for shape, where, old_ms in K2_SHAPES:
         p, q = k2_operands(dc, table, shape, dev)
         ms = timed_ms(lambda: kernels.jacobian_add(F, *p, *q))
+        dev_ms = graph_ms(lambda: kernels.jacobian_add(F, *p, *q))
         label = "x".join(map(str, shape))
         old = f"PERF.md {old_ms:.4f} ms" if old_ms else "PERF.md none"
-        if not full:
-            print(f"K2 {label:12s} ({where}): {ms:.4f} ms ({old})", flush=True)
-            continue
-        b_ms, b_by = chip_smoke.bound_ms("jacobian_add", [F, *p, *q], {})
-        got = kernels.jacobian_add(F, *p, *q)
-        equal = same(got, kernels.jacobian_add_plain(F, *p, *q))
-        ok &= equal
-        print(f"K2 {label:12s} ({where}): {ms:.4f} ms ({old}); bound {b_ms:.4f} ms ({b_by}), "
-              f"{b_ms / ms:.1%} of it; = plain: {equal}", flush=True)
-        if shape == K2_SHAPES[0][0]:
-            for minb in (2, 3, 4):
-                t = timed_ms(lambda: kernels._jacobian_add_sweep(F, minb, *p, *q))
-                eq = same(kernels._jacobian_add_sweep(F, minb, *p, *q), got)
-                ok &= eq
-                print(f"  K2 __launch_bounds__(128, {minb}): {t:.4f} ms; = wrapper: {eq}",
-                      flush=True)
+        line = f"K2 {label:12s} ({where}): {ms:.4f} ms, graph {dev_ms:.4f} ms ({old})"
+        if full:
+            b_ms, b_by = chip_smoke.bound_ms("jacobian_add", [F, *p, *q], {})
+            equal = same(kernels.jacobian_add(F, *p, *q), kernels.jacobian_add_plain(F, *p, *q))
+            ok &= equal
+            line += f"; bound {b_ms:.4f} ms ({b_by}), {b_ms / dev_ms:.1%} of it; = plain: {equal}"
+        print(line, flush=True)
 
     x = ladder_input(table, K3_SHAPE[0], dev)
     ms = timed_ms(lambda: kernels.jacobian_double(F, *x))
+    dev_ms = graph_ms(lambda: kernels.jacobian_double(F, *x))
+    line = f"K3 {K3_SHAPE[0]} (scaled basis): {ms:.4f} ms, graph {dev_ms:.4f} ms (PERF.md 0.0321 ms)"
     if full:
         b_ms, b_by = chip_smoke.bound_ms("jacobian_double", [F, *x], {})
         equal = same(kernels.jacobian_double(F, *x), kernels.jacobian_double_plain(F, *x))
         ok &= equal
-        print(f"K3 {K3_SHAPE[0]} (scaled basis): {ms:.4f} ms (PERF.md 0.0321 ms); bound "
-              f"{b_ms:.5f} ms ({b_by}); = plain: {equal}", flush=True)
-    else:
-        print(f"K3 {K3_SHAPE[0]} (scaled basis): {ms:.4f} ms (PERF.md 0.0321 ms)", flush=True)
+        line += f"; bound {b_ms:.5f} ms ({b_by}); = plain: {equal}"
+    print(line, flush=True)
 
     endo_q = Vesta.endos[0]
     endo_q_m = F.const_mont(endo_q, (1,), device=dev)
@@ -201,9 +289,7 @@ def main() -> int:
             print(f"ladder n = {n:5d}: host loop (K3 + K2 a step) {loop_ms:.4f} ms on the "
                   "host clock", flush=True)
             continue
-        times = {t: timed_ms(lambda: kernels.endo_ladder(F, endo_q, *p, bits, threads=t))
-                 for t in (32, 64)}
-        ms = times[kernels.LADDER_THREADS]
+        ms = timed_ms(lambda: kernels.endo_ladder(F, endo_q, *p, bits))
         wall = wall_ms(lambda: kernels.endo_ladder(F, endo_q, *p, bits))
         ladder_total += wall
         b_ms, b_by = chip_smoke.bound_ms("endo_ladder", [F, endo_q, *p, bits], {})
@@ -212,14 +298,47 @@ def main() -> int:
         loop_equal = same(got, host_loop(dc, limb, JPoint, endo_q_m, p, bits))
         ok &= equal and loop_equal
         products = n * chip_smoke.LADDER_PRODUCTS
-        print(f"ladder n = {n:5d}: {ms:.4f} ms ({products / ms / 1e6:.2f} G products/s; "
-              f"32 threads a block {times[32]:.4f}, 64 {times[64]:.4f}); host clock "
-              f"{wall:.4f} ms against the host loop's {loop_ms:.4f}; bound {b_ms:.4f} ms "
-              f"({b_by}); = plain: {equal}; = host loop: {loop_equal}", flush=True)
+        print(f"ladder n = {n:5d}: {ms:.4f} ms ({products / ms / 1e6:.2f} G products/s, "
+              f"{ms * 1e3 / chip_smoke.LADDER_PRODUCTS:.3f} us a product of a thread's "
+              f"chain); host clock {wall:.4f} ms against the host loop's {loop_ms:.4f}; bound "
+              f"{b_ms:.4f} ms ({b_by}); = plain: {equal}; = host loop: {loop_equal}", flush=True)
     print(f"ladder over the five fold sizes, host clock: host loop {loop_total:.4f} ms"
           + (f", ladder kernel {ladder_total:.4f} ms" if full else ""), flush=True)
     if not full:
         return 0
+    lib_r, so_r = rolled_library(kernels)
+    if lib_r is not None:
+        add_r, dbl_r, ladder_r = rolled_calls(kernels, lib_r)
+        sizes_r = sass_sizes(kernels, list(kernels.GROUP_LAW_KERNELS.values()), so_r)
+        for which, name in kernels.GROUP_LAW_KERNELS.items():
+            import ctypes
+            buf = (ctypes.c_int * 4)()
+            lib_r.pst_group_law_attrs(which, buf)
+            print(f"rolled {name}: {buf[0]} registers, {buf[1]} B local; {sizes_r.get(name)} "
+                  "SASS instructions", flush=True)
+        for shape, _, _ in K2_SHAPES[:2]:
+            p, q = k2_operands(dc, table, shape, dev)
+            t_d = graph_ms(lambda: kernels.jacobian_add(F, *p, *q))
+            t_r = graph_ms(lambda: add_r(F, *p, *q))
+            eq = same(add_r(F, *p, *q), kernels.jacobian_add(F, *p, *q))
+            ok &= eq
+            print(f"rolled K2 {'x'.join(map(str, shape))}: {t_r:.4f} ms against {t_d:.4f}; "
+                  f"= unrolled: {eq}", flush=True)
+        x = ladder_input(table, K3_SHAPE[0], dev)
+        t_d = graph_ms(lambda: kernels.jacobian_double(F, *x))
+        t_r = graph_ms(lambda: dbl_r(F, *x))
+        eq = same(dbl_r(F, *x), kernels.jacobian_double(F, *x))
+        ok &= eq
+        print(f"rolled K3 {K3_SHAPE[0]}: {t_r:.4f} ms against {t_d:.4f}; = unrolled: {eq}",
+              flush=True)
+        for n in FOLD_SIZES:
+            p = ladder_input(table, n, dev)
+            t_d = timed_ms(lambda: kernels.endo_ladder(F, endo_q, *p, bits), reps=5)
+            t_r = timed_ms(lambda: ladder_r(F, endo_q, *p, bits), reps=5)
+            eq = same(ladder_r(F, endo_q, *p, bits), kernels.endo_ladder(F, endo_q, *p, bits))
+            ok &= eq
+            print(f"rolled ladder n = {n}: {t_r:.4f} ms against {t_d:.4f}; = unrolled: {eq}",
+                  flush=True)
     edge_ok = all(same(kernels.endo_ladder(*a), kernels.endo_ladder_plain(*a))
                   for _, a, _ in chip_smoke.ladder_edge_cases(rng, dev))
     ok &= edge_ok
