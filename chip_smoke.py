@@ -7,8 +7,8 @@ verification path, and a whole Kimchi proof, on one GPU.
 Phases, each fatal on failure:
   1. build the CUDA kernels of proof_systems_tpu_torch/csrc (nvcc, sm_90a)
      and the native host library (MSM, Poseidon); print build times and
-     ptxas's register, stack and spill lines of every function (the full ptxas log goes to
-     build/kernels/<hash>/ptxas.log);
+     ptxas's register, stack and spill lines of every function (the full
+     ptxas log goes to build/kernels/<hash>/ptxas.log);
   2. print the card;
   3. warm-up run of the main path, recording every kernel's largest call
      (K2's and the endo ladder's at every call shape); then each kernel
@@ -709,8 +709,8 @@ def check_kernels(kernels, recorded, device, curve_params) -> list[dict]:
             log("  " + k6_note(kernels, args, device))
         if name == "combine_windows":
             log("  " + k8_note(kernels))
-        if key == (key if name in BY_SHAPE else JSON_KEY.get(name, name)) \
-                and size > sizes.get(name, 0):
+        reported = name in BY_SHAPE or key == JSON_KEY.get(name, name)
+        if reported and size > sizes.get(name, 0):
             rows[name], sizes[name] = row, size
         if name == "mont_prefix_scan_parts":
             prefix_compare(kernels, args, device, reps)

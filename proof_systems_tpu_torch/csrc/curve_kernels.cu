@@ -39,8 +39,9 @@
 // called the __noinline__ ec_add and ec_double, which pass their operands
 // through a 264-byte stack frame; inlined, nothing goes to local memory.
 // What bounds K2: the integer multiplies of its 16 products an element, at
-// the large MSM shapes; __launch_bounds__(128, 2) keeps every register
-// ptxas wants (a cap of 128, four blocks an SM, spilled, PERF.md).
+// the large MSM shapes. __launch_bounds__(128, 2) leaves ptxas the
+// registers it wants (160); a cap of 128 (four blocks an SM) spills
+// (PERF.md).
 //
 // The endo ladder (k_endo_ladder, endo_ladder.cuh), new on this card: the
 // IPA fold step's [u] g_hi, which the port ran as 64 host iterations of two
@@ -49,12 +50,17 @@
 // products, a dependent chain of 1,496 a point (phi(x), then 23 a step),
 // run by one thread; at the fold steps' sizes (2,048-32,768 points, 2-8
 // warps an SM at 32 threads a block) the chain's latency, not the card's
-// multiply rate. What the design does about the host round trips: one
-// launch a fold step instead of 130, the 128 challenge bits read from
-// device memory once a block into shared memory (the same for every
-// thread, so the selects do not diverge), the general add kept (madd would
-// give other Jacobian limbs), and 32 threads a block, so that 2,048 points
-// still spread over 64 SMs.
+// multiply rate: the time is the same at every fold size, about 1.7 us a
+// product. The kernel's code (36,000 instructions) is part of that: with
+// the product's row loop rolled (13,600) it ran 1.5 times faster, and K2
+// 10 % slower (PERF.md). A point at infinity runs the add's doubling
+// fallback at every step and holds its warp back by 7 products a step.
+// What the design does about the host round trips: one launch a fold step
+// instead of 130, the 128 challenge bits read from device memory once a
+// block into shared memory (the same for every thread, so the selects do
+// not diverge), the general add kept (madd would give other Jacobian
+// limbs), and 32 threads a block, so that 2,048 points still spread over
+// 64 SMs.
 //
 // K6, redesigned for this card (k_ec_parts + k_ec_lane_offsets below). The
 // old K6 was K7's kernel without the combine. What bounds K6 here: the

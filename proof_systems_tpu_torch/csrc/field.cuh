@@ -138,24 +138,12 @@ __device__ __forceinline__ Fe fe_mul(const FieldParams &F, const Fe &a, const Fe
     uint32_t t[PST_NL + 2];
 #pragma unroll
     for (int k = 0; k < PST_NL + 2; ++k) t[k] = 0;
-#ifdef PST_MUL_ROLLED
-    uint32_t bw[PST_NL];
-#pragma unroll
-    for (int k = 0; k < PST_NL; ++k) bw[k] = b.v[k];
-#pragma unroll 1
-    for (int i = 0; i < PST_NL; ++i) {
-        const uint32_t bi = bw[0];
-#pragma unroll
-        for (int k = 0; k + 1 < PST_NL; ++k) bw[k] = bw[k + 1];
-#else
 #pragma unroll
     for (int i = 0; i < PST_NL; ++i) {
-        const uint32_t bi = b.v[i];
-#endif
         uint64_t carry = 0;
 #pragma unroll
         for (int j = 0; j < PST_NL; ++j) {
-            uint64_t cur = (uint64_t)a.v[j] * bi + t[j] + carry;
+            uint64_t cur = (uint64_t)a.v[j] * b.v[i] + t[j] + carry;
             t[j] = (uint32_t)cur;
             carry = cur >> 32;
         }

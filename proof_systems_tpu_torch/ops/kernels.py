@@ -167,9 +167,9 @@ def _bind_curve(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.pst_ec_scan_fused.argtypes = [_P] * 7 + [_I64, _I64, _I64, _P]
     lib.pst_combine_windows.argtypes = [_P] * 7 + [_I64, _I64, ctypes.c_int, _P]
     lib.pst_combine_windows_attrs.argtypes = [_P]
-    for fn in (lib.pst_jacobian_add, lib.pst_jacobian_double,
-               lib.pst_endo_ladder, lib.pst_group_law_attrs, lib.pst_ec_scan_parts, lib.pst_ec_scan_parts_attrs, lib.pst_ec_scan_fused,
-               lib.pst_combine_windows, lib.pst_combine_windows_attrs):
+    for fn in (lib.pst_jacobian_add, lib.pst_jacobian_double, lib.pst_endo_ladder,
+               lib.pst_group_law_attrs, lib.pst_ec_scan_parts, lib.pst_ec_scan_parts_attrs,
+               lib.pst_ec_scan_fused, lib.pst_combine_windows, lib.pst_combine_windows_attrs):
         fn.restype = ctypes.c_int
     lib.pst_curve_error_string.argtypes = [ctypes.c_int]
     lib.pst_curve_error_string.restype = ctypes.c_char_p
@@ -555,6 +555,7 @@ def group_law_attrs() -> dict[str, tuple[int, ...]]:
 # ---------------------------------------------------------------------------
 # The endo ladder: a loop of K2 and K3 as one kernel
 # ---------------------------------------------------------------------------
+
 
 def _ladder_args(x, y, z, bits) -> torch.device:
     dev = _check(x, y, z)

@@ -100,10 +100,10 @@ def graph_ms(fn, reps: int = REPS) -> float:
     return start.elapsed_time(end) / reps
 
 
-def sass_sizes(kernels, names, so=None) -> dict[str, int]:
+def sass_sizes(kernels, names) -> dict[str, int]:
     """SASS instructions (16 bytes each) of each named kernel of the curve
     library, from cuobjdump beside nvcc; empty where it cannot be read."""
-    so = so or kernels.BUILD_DIR / "kernels" / kernels._source_tag() / "curve_kernels.so"
+    so = kernels.BUILD_DIR / "kernels" / kernels._source_tag() / "curve_kernels.so"
     tool = pathlib.Path(kernels._nvcc()).with_name("cuobjdump")
     out = subprocess.run([str(tool), "-sass", str(so)], capture_output=True, text=True)
     counts, current = {}, None
@@ -116,53 +116,6 @@ def sass_sizes(kernels, names, so=None) -> dict[str, int]:
             counts[current] += 1
     return {name: sum(v for k, v in counts.items() if name in k) for name in names
             if any(name in k for k in counts)}
-
-
-def rolled_library(kernels):
-    """curve_kernels.cu built with PST_MUL_ROLLED: the product's row loop
-    kept rolled (one row of code a product instead of eight)."""
-    import ctypes
-
-    out = kernels.BUILD_DIR / "kernels_rolled" / kernels._source_tag()
-    so = out / "curve_kernels.so"
-    out.mkdir(parents=True, exist_ok=True)
-    t0 = time.perf_counter()
-    run = subprocess.run([kernels._nvcc(), *kernels.NVCC_FLAGS, "-DPST_MUL_ROLLED", "-o", str(so),
-                          str(kernels.CSRC / "curve_kernels.cu")], capture_output=True, text=True)
-    print(f"rolled build: rc {run.returncode}, {time.perf_counter() - t0:.1f} s", flush=True)
-    if run.returncode:
-        print(run.stdout[-3000:] + run.stderr[-3000:], flush=True)
-        return None, so
-    return kernels._bind_curve(ctypes.CDLL(str(so))), so
-
-
-def rolled_calls(kernels, lib):
-    """K2, K3 and the ladder launched from the rolled library."""
-    import ctypes
-
-    def add(F, px, py, pz, qx, qy, qz):
-        out = tuple(torch.empty_like(px) for _ in range(3))
-        kernels._launch(lib, "pst_jacobian_add", "pst_curve_error_string", px.device,
-                        kernels._field_words(F), *kernels._ptrs((px, py, pz, qx, qy, qz)),
-                        *kernels._ptrs(out), px[0].numel())
-        return out
-
-    def dbl(F, px, py, pz):
-        out = tuple(torch.empty_like(px) for _ in range(3))
-        kernels._launch(lib, "pst_jacobian_double", "pst_curve_error_string", px.device,
-                        kernels._field_words(F), *kernels._ptrs((px, py, pz)),
-                        *kernels._ptrs(out), px[0].numel())
-        return out
-
-    def ladder(F, endo_q, x, y, z, bits):
-        endo = (ctypes.c_uint32 * 8)(*kernels._words(endo_q % F.p * F.r_mod_p % F.p))
-        out = tuple(torch.empty_like(x) for _ in range(3))
-        kernels._launch(lib, "pst_endo_ladder", "pst_curve_error_string", x.device,
-                        kernels._field_words(F), ctypes.addressof(endo),
-                        *kernels._ptrs((x, y, z, bits)), *kernels._ptrs(out), x.shape[1])
-        return out
-
-    return add, dbl, ladder
 
 
 def same(got, want) -> bool:
@@ -195,11 +148,12 @@ def k2_operands(dc, table, shape, dev):
 
 
 def ladder_input(table, n, dev):
-    """(8, n) affine-encoded points (z in {0, R}) from the pool, one at
-    infinity."""
+    """(8, n) affine-encoded points (z = R) from the pool, none at infinity,
+    as the fold steps' bases are: a point at infinity runs the add's
+    doubling fallback at every step and holds its warp back (the edge rows
+    check that case)."""
     gen = torch.Generator(device=dev).manual_seed(n)
     idx = torch.randint(1, table.x.shape[1], (n,), device=dev, generator=gen)
-    idx[1] = 0
     return [t[:, idx].contiguous() for t in table]
 
 
@@ -263,13 +217,15 @@ def main() -> int:
             b_ms, b_by = chip_smoke.bound_ms("jacobian_add", [F, *p, *q], {})
             equal = same(kernels.jacobian_add(F, *p, *q), kernels.jacobian_add_plain(F, *p, *q))
             ok &= equal
-            line += f"; bound {b_ms:.4f} ms ({b_by}), {b_ms / dev_ms:.1%} of it; = plain: {equal}"
+            line += (f"; bound {b_ms:.4f} ms ({b_by}), the kernel at {b_ms / dev_ms:.1%} of "
+                     f"its rate; = plain: {equal}")
         print(line, flush=True)
 
     x = ladder_input(table, K3_SHAPE[0], dev)
     ms = timed_ms(lambda: kernels.jacobian_double(F, *x))
     dev_ms = graph_ms(lambda: kernels.jacobian_double(F, *x))
-    line = f"K3 {K3_SHAPE[0]} (scaled basis): {ms:.4f} ms, graph {dev_ms:.4f} ms (PERF.md 0.0321 ms)"
+    line = (f"K3 {K3_SHAPE[0]} (scaled basis): {ms:.4f} ms, graph {dev_ms:.4f} ms "
+            "(PERF.md 0.0321 ms)")
     if full:
         b_ms, b_by = chip_smoke.bound_ms("jacobian_double", [F, *x], {})
         equal = same(kernels.jacobian_double(F, *x), kernels.jacobian_double_plain(F, *x))
@@ -306,39 +262,6 @@ def main() -> int:
           + (f", ladder kernel {ladder_total:.4f} ms" if full else ""), flush=True)
     if not full:
         return 0
-    lib_r, so_r = rolled_library(kernels)
-    if lib_r is not None:
-        add_r, dbl_r, ladder_r = rolled_calls(kernels, lib_r)
-        sizes_r = sass_sizes(kernels, list(kernels.GROUP_LAW_KERNELS.values()), so_r)
-        for which, name in kernels.GROUP_LAW_KERNELS.items():
-            import ctypes
-            buf = (ctypes.c_int * 4)()
-            lib_r.pst_group_law_attrs(which, buf)
-            print(f"rolled {name}: {buf[0]} registers, {buf[1]} B local; {sizes_r.get(name)} "
-                  "SASS instructions", flush=True)
-        for shape, _, _ in K2_SHAPES[:2]:
-            p, q = k2_operands(dc, table, shape, dev)
-            t_d = graph_ms(lambda: kernels.jacobian_add(F, *p, *q))
-            t_r = graph_ms(lambda: add_r(F, *p, *q))
-            eq = same(add_r(F, *p, *q), kernels.jacobian_add(F, *p, *q))
-            ok &= eq
-            print(f"rolled K2 {'x'.join(map(str, shape))}: {t_r:.4f} ms against {t_d:.4f}; "
-                  f"= unrolled: {eq}", flush=True)
-        x = ladder_input(table, K3_SHAPE[0], dev)
-        t_d = graph_ms(lambda: kernels.jacobian_double(F, *x))
-        t_r = graph_ms(lambda: dbl_r(F, *x))
-        eq = same(dbl_r(F, *x), kernels.jacobian_double(F, *x))
-        ok &= eq
-        print(f"rolled K3 {K3_SHAPE[0]}: {t_r:.4f} ms against {t_d:.4f}; = unrolled: {eq}",
-              flush=True)
-        for n in FOLD_SIZES:
-            p = ladder_input(table, n, dev)
-            t_d = timed_ms(lambda: kernels.endo_ladder(F, endo_q, *p, bits), reps=5)
-            t_r = timed_ms(lambda: ladder_r(F, endo_q, *p, bits), reps=5)
-            eq = same(ladder_r(F, endo_q, *p, bits), kernels.endo_ladder(F, endo_q, *p, bits))
-            ok &= eq
-            print(f"rolled ladder n = {n}: {t_r:.4f} ms against {t_d:.4f}; = unrolled: {eq}",
-                  flush=True)
     edge_ok = all(same(kernels.endo_ladder(*a), kernels.endo_ladder_plain(*a))
                   for _, a, _ in chip_smoke.ladder_edge_cases(rng, dev))
     ok &= edge_ok

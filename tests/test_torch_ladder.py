@@ -130,6 +130,7 @@ def test_ladder_and_k2_device_code_on_the_host(tmp_path, name):
 
     got = np.fromfile(out, dtype=np.uint32).reshape(len(patterns), 3, 8, N)
     for k, bits in enumerate(patterns):
-        want = kernels.endo_ladder_plain(F, curve.endos[0], *P, torch.tensor(bits, dtype=torch.int32))
+        t = torch.tensor(bits, dtype=torch.int32)
+        want = kernels.endo_ladder_plain(F, curve.endos[0], *P, t)
         for c in range(3):
             assert np.array_equal(got[k, c], _words(want[c]).reshape(8, N)), (k, c)
