@@ -11,16 +11,18 @@ Phases, each fatal on failure:
      ptxas log goes to build/kernels/<hash>/ptxas.log);
   2. print the card;
   3. warm-up run of the main path, recording every kernel's largest call
-     (K2's and the endo ladder's at every call shape); then each kernel
-     against its plain PyTorch version on those inputs and on edge cases
-     (field and transcript kernels, K2, K3, K8 and the ladder exact, K6 and
-     K7 as group elements; K6 also on rows that split each lane chunk over
-     a team of threads; K8 also on its fallback and identity windows; the
-     ladder on both curves with all-zero and all-one bits and a point at
-     infinity), with the kernel's and the plain version's times, K6's team
-     size, tile width, registers and local memory, K8's registers, local
-     memory and chain (products, levels, time a product), and the
-     registers and local memory of K2, K3 and the ladder;
+     (K2's, K7's and the endo ladder's at every call shape); then each
+     kernel against its plain PyTorch version on those inputs and on edge
+     cases (field and transcript kernels, K2, K3, K8 and the ladder exact,
+     K6 as group elements, K7 as group elements and exact where one thread
+     scans a lane chunk; K6 and K7 also on rows that split each lane chunk
+     over a team of threads; K8 also on its fallback and identity windows;
+     the ladder on both curves with all-zero and all-one bits and a point
+     at infinity), with the kernel's and the plain version's times, K6's
+     and K7's team size and tile width, the registers and local memory of
+     K6's kernels and K7's combine, K8's registers, local memory and chain
+     (products, levels, time a product), and the registers and local
+     memory of K2, K3 and the ladder;
   4. the main path at k = 16 on Vesta, with launch counts zeroed just
      before and read just after: SRS.create(2^16), the scaled basis of
      g ++ [h], iNTT of 15 random witness columns, their 15 hiding commits
@@ -35,8 +37,8 @@ Phases, each fatal on failure:
      steady-state stage times (the proof split by the tracer's checkpoints
      in a separate, synchronised proof); then each kernel's device time
      and launches over one more proof and one more verification (CUDA
-     events around every wrapper call), and the time of K6, K8, K2 and the
-     endo ladder at each call shape;
+     events around every wrapper call), and the time of K6, K7, K8, K2 and
+     the endo ladder at each call shape;
   5. every commitment against the native host MSM over g ++ [h], the iNTT
      against the CPU plain path, one b = 1 MSM at c = 10; the evaluations
      against host Horner; every round's L and R, sg, a0 and b0 against the
@@ -107,7 +109,7 @@ SOURCES = {
 JSON_KEY = {"ec_prefix_scan_parts": "ec_prefix_scan_parts[mixed]"}
 # Kernels recorded and checked at every call shape; the JSON line reports
 # the largest call.
-BY_SHAPE = ("jacobian_add", "endo_ladder")
+BY_SHAPE = ("jacobian_add", "ec_prefix_scan_fused", "endo_ladder")
 
 
 def log(msg: str) -> None:
@@ -157,8 +159,8 @@ def shape_of(t: torch.Tensor) -> str:
 
 class Recorder:
     """Wraps the kernel wrappers in ops.kernels and keeps, per kernel (and
-    per K6 variant, each b = 1 window size of K8, and each call shape of K2
-    and of the endo ladder apart), a copy of the inputs of its largest
+    per K6 variant, each b = 1 window size of K8, and each call shape of
+    K2, K7 and the endo ladder apart), a copy of the inputs of its largest
     call."""
 
     def __init__(self, kernels) -> None:
@@ -249,6 +251,11 @@ def k2_label(F, px, *_) -> str:
     return f"jacobian_add[{shape_of(px)}]"
 
 
+def k7_label(F, x, *_) -> str:
+    """A K7 call's label: its shape."""
+    return f"ec_prefix_scan_fused[{shape_of(x)}]"
+
+
 def ladder_label(F, endo_q, x, *_) -> str:
     """An endo ladder call's label: its points."""
     return f"endo_ladder[{shape_of(x)}]"
@@ -261,13 +268,14 @@ def k8_label(F, c, wx, wy, wz) -> str:
 
 # kernels whose time kernel_times also splits by call shape: short name, label
 SHAPE_LABELS = {"ec_prefix_scan_parts": ("K6", k6_label), "combine_windows": ("K8", k8_label),
-                "jacobian_add": ("K2", k2_label), "endo_ladder": ("ladder", ladder_label)}
+                "jacobian_add": ("K2", k2_label), "endo_ladder": ("ladder", ladder_label),
+                "ec_prefix_scan_fused": ("K7", k7_label)}
 
 
 def kernel_times(result, device) -> None:
     """Each kernel's device time and launches over one proof and over one
-    verification of it, largest first, and the time of K6, K8, K2 and the
-    endo ladder at each call shape."""
+    verification of it, largest first, and the time of K6, K7, K8, K2 and
+    the endo ladder at each call shape."""
     from proof_systems_tpu_torch.ops import kernels
 
     targets = [(kernels, name, SHAPE_LABELS[name][1] if name in SHAPE_LABELS else name)
@@ -339,7 +347,11 @@ def outputs_err(name: str, F, got, want) -> int:
         if gc != wc:
             return 1 << 32
         return max(point_err(F, gp, wp), point_err(F, ge, we))
-    return point_err(F, got, want)
+    # ec_prefix_scan_fused: limb for limb where one thread scans a lane chunk
+    err = point_err(F, got, want)
+    if scan_team(got[0])[0] == 1:
+        err = max(err, *(field_err(a, b) for a, b in zip(got, want)))
+    return err
 
 
 def bound_ms(name: str, args, kw) -> tuple[float, str]:
@@ -477,12 +489,12 @@ def edge_cases(device, curve_params):
     random and omega^(n - 3), and n = 1; two rows of 8,321 (C = 66,
     Cp = 70) with a zero element for K12; P+P, P+(-P), infinity on either
     side for the curve kernels; identities inside a scan row of length 300;
-    K6's team geometry on the rows of k6_rows, both variants; an infinity
-    window partial for K8, and its edge rows (k8_windows: identity columns,
-    the doubling and infinity fallbacks, W = 1, c = 1, b = 33 and 130); L
-    at infinity, (0, 0), for K10; all-zero and all-one challenge bits for
-    K11 and the endo ladder, which also meets a point at infinity, on both
-    curves."""
+    K6's team geometry on the rows of k6_rows, both variants, and K7 on
+    the general ones; an infinity window partial for K8, and its edge rows
+    (k8_windows: identity columns, the doubling and infinity fallbacks, W =
+    1, c = 1, b = 33 and 130); L at infinity, (0, 0), for K10; all-zero and
+    all-one challenge bits for K11 and the endo ladder, which also meets a
+    point at infinity, on both curves."""
     from proof_systems_tpu_torch.fields import Fp, Fq
     from proof_systems_tpu_torch.ops import limb
     from proof_systems_tpu_torch.ops.curve_ops import device_curve
@@ -541,6 +553,8 @@ def edge_cases(device, curve_params):
     cases += [("ec_prefix_scan_parts", [dc.F, *k6_rows(dc, pts, rows, n, mixed, device)],
                {"mixed": mixed})
               for rows, n in K6_EDGE_SHAPES for mixed in (True, False)]
+    cases += [("ec_prefix_scan_fused", [dc.F, *k6_rows(dc, pts, rows, n, False, device)], {})
+              for rows, n in K6_EDGE_SHAPES]
     want_add = [curve_params.add(p, q) for p, q in zip(pts, qs)]
 
     from proof_systems_tpu_torch.poseidon import fq_kimchi
@@ -627,14 +641,19 @@ def k8_chain(W: int, c: int) -> tuple[int, int]:
 
 
 def chain_note(name: str, args, ms: float) -> str:
-    """The dependent products one thread of a row scan runs; for K8 one
-    column's chain, its levels and the time a product and a level."""
+    """The dependent products one thread of a row scan runs (K7: adds); for
+    K8 one column's chain, its levels and the time a product and a level."""
     from proof_systems_tpu_torch.ops.kernels import scan_chunk, scan_geometry
 
     if name == "combine_windows":
         products, levels = k8_chain(args[2].shape[1], args[1])
         return (f"; chain {products} dependent products in {levels} levels a column, "
                 f"{ms * 1e3 / products:.4f} us a product, {ms * 1e3 / levels:.4f} us a level")
+    if name == "ec_prefix_scan_fused":  # a team reduces, scans its totals, rescans
+        team, cp = scan_team(args[1])[0], scan_chunk(args[1].shape[-1])
+        sc = -(-cp // team)
+        chain = cp if team == 1 else 2 * sc + team.bit_length() - 1
+        return f"; chain {chain} + 7 + 1 dependent adds a position"
     if name not in ("linear_scan", "mont_prefix_scan", "mont_prefix_scan_parts"):
         return ""
     n = args[1].shape[-1]
@@ -643,16 +662,32 @@ def chain_note(name: str, args, ms: float) -> str:
     return f"; chain {scan_chunk(n)} + 7 + 1 products, then {scan_chunk(n)} offsets"
 
 
-def k6_note(kernels, args, device) -> str:
+def scan_team(x: torch.Tensor) -> tuple[int, int]:
+    """(S, KT) that K6's and K7's wrappers derive for the rows of x, on the
+    card of x (132 SMs on the CPU, where the plain versions run)."""
+    from proof_systems_tpu_torch.ops import kernels
+
+    n = x.shape[-1]
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count if x.is_cuda else 132
+    return kernels.parts_geometry(x[0].numel() // n, kernels.scan_chunk(n), sms)
+
+
+def k6_note(kernels, args) -> str:
     """K6's team size and tile width at this call, and the registers and
     local (stack) bytes of its kernels."""
-    x = args[1]
-    rows, n = x[0].numel() // x.shape[-1], x.shape[-1]
-    team, kt = kernels.parts_geometry(rows, kernels.scan_chunk(n),
-                                      torch.cuda.get_device_properties(device).multi_processor_count)
+    team, kt = scan_team(args[1])
     attrs = ", ".join(f"{name}: {regs} registers, {local} B local"
                       for name, (regs, local, *_) in kernels.ec_prefix_scan_parts_attrs().items())
     return f"K6 here: team S = {team}, tile KT = {kt}; {attrs}"
+
+
+def k7_note(kernels, args) -> str:
+    """K7's team size and tile width at this call (its scan kernels are
+    K6's), and the registers and local (stack) bytes of its combine."""
+    team, kt = scan_team(args[1])
+    regs, local, *_ = kernels.ec_prefix_scan_fused_attrs()
+    return (f"K7 here: K6's kernels with team S = {team}, tile KT = {kt}, then the combine, "
+            f"one thread a position: {regs} registers, {local} B local")
 
 
 def group_law_note(kernels) -> str:
@@ -706,7 +741,9 @@ def check_kernels(kernels, recorded, device, curve_params) -> list[dict]:
                "ms": ms, "plain_ms": plain_s * 1e3, "bound_ms": b_ms, "bound_by": b_by,
                "library_ms": None}
         if name == "ec_prefix_scan_parts":
-            log("  " + k6_note(kernels, args, device))
+            log("  " + k6_note(kernels, args))
+        if name == "ec_prefix_scan_fused":
+            log("  " + k7_note(kernels, args))
         if name == "combine_windows":
             log("  " + k8_note(kernels))
         reported = name in BY_SHAPE or key == JSON_KEY.get(name, name)

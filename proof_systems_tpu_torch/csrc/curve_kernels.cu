@@ -27,12 +27,33 @@
 // operands. The scans are also latency bound: each thread runs its chunk
 // sequentially.
 //
-// Simple design, left for later: one block of PST_LANES threads per row for
-// K7 with a contiguous chunk of cp = ceil(n / PST_LANES) positions per
-// thread (loads are strided by cp across a warp, not coalesced), and a
-// Hillis-Steele scan over the chunk totals in 12 KB of shared memory. K6 and
-// K7 call the __noinline__ curve formulas, to bound code size and build
-// time; ptxas reports their registers and stack frames.
+// K6's kernels call the __noinline__ curve formulas, to bound code size and
+// build time; ptxas reports their registers and stack frames. The other
+// kernels inline theirs.
+//
+// K7, redesigned for this card: K6's kernels, then k_ec_combine below. It
+// replaces pallas_field.py:1410 (ec_prefix_scan_fused, _ec_scan_kernel
+// l.834), which ran the whole scan in one kernel. What bounds K7: the
+// integer multiplies of two general adds a position (the chunk scan's and
+// the combine's) and the lane scan's 7 adds a lane; at the opening's short
+// rows (127-255 positions, cp = 1 or 2) the latency of one thread's chain
+// of cp + 7 + 1 dependent adds. The old kernel, one block a row, ran the
+// combine as a second sequential chain of cp adds a thread, loaded with a
+// stride of cp across a warp, synchronised the block 7 times a row, passed
+// every add through the __noinline__ formulas' 264-byte stack frame, and
+// with 24 rows used 24 of 132 SMs. The design:
+//   - phases 1-2 are K6's kernels, unchanged (general adds: staged
+//     coalesced tiles, a team of threads a chunk where the rows fill less
+//     than a quarter of the card, the lane scan as its own kernel), which
+//     write the partial sums and lane offsets to scratch that the wrapper
+//     allocates;
+//   - k_ec_combine adds each position's lane offset to its partial sum, one
+//     thread a position over rows * n threads, with the inlined complete
+//     add (no stack, K2's launch bounds): neighbouring threads read and
+//     write neighbouring positions and share their offset.
+// Where S = 1 the association order is the plain version's (chunk scan,
+// lane scan, then offset + partial), so the limbs agree; with a team (S >
+// 1) the group elements do.
 //
 // K2 and K3, redesigned for this card: one thread an element, running
 // field.cuh's inlined formulas (ec_add_inl, ec_double_inl). The old kernels
@@ -63,14 +84,15 @@
 // 64 SMs.
 //
 // K6, redesigned for this card (k_ec_parts + k_ec_lane_offsets below). The
-// old K6 was K7's kernel without the combine. What bounds K6 here: the
-// madds themselves, a chain of dependent 8x8-limb products a thread, which
-// need about 160 registers (the __noinline__ formulas pass their operands
-// through a 264-byte stack frame), so an SM holds 12 warps at most; and
-// the memory pattern: with one position a thread a step, each warp load
-// and store touched 32 sectors for 4 bytes each, and the stores to the
-// card-wide set of open output lines did not merge in L2. What the design
-// does about it:
+// old K6 ran one block of 128 threads a row, each thread scanning one
+// contiguous chunk, and a block-wide scan of the chunk totals. What bounds
+// K6 here: the madds themselves, a chain of dependent 8x8-limb products a
+// thread, which need about 160 registers (the __noinline__ formulas pass
+// their operands through a 264-byte stack frame), so an SM holds 12 warps
+// at most; and the memory pattern: with one position a thread a step, each
+// warp load and store touched 32 sectors for 4 bytes each, and the stores
+// to the card-wide set of open output lines did not merge in L2. What the
+// design does about it:
 //   - loads and stores go through shared memory: a warp copies KT columns
 //     of its 32 sub-chunks at a time, so each store instruction writes
 //     KT-word runs (KT = 16: 64-byte runs), and each thread reads and
@@ -143,67 +165,6 @@ __global__ void __launch_bounds__(LADDER_THREADS)
     int64_t i = (int64_t)blockIdx.x * LADDER_THREADS + threadIdx.x;
     if (i >= n) return;
     jac_store(ox, oy, oz, n, i, endo_ladder_point(F, jac_load(x, y, z, n, i), endo_q, sbits));
-}
-
-// One block per row of the (rows, n) input; limb stride rows * n.
-// Thread t owns positions [t * cp, t * cp + cp).
-//   fused = 0 (K6): out is (rows, PST_LANES * cp), written at every
-//           position (past n the input is the identity), and the exclusive
-//           offsets go to (ex, ey, ez), (rows, PST_LANES).
-//   fused = 1 (K7): out is (rows, n), the inclusive prefix.
-template <bool MIXED, bool FUSED>
-__global__ void __launch_bounds__(PST_LANES)
-    k_ec_scan(FieldParams F, const uint32_t *x, const uint32_t *y, const uint32_t *z,
-              uint32_t *ox, uint32_t *oy, uint32_t *oz, uint32_t *ex, uint32_t *ey,
-              uint32_t *ez, int64_t rows, int64_t n, int64_t cp) {
-    __shared__ Jac sh[PST_LANES];
-    const int t = threadIdx.x;
-    const int64_t row = blockIdx.x;
-    const int64_t in_stride = rows * n;
-    const int64_t in_base = row * n;
-    const int64_t olen = FUSED ? n : PST_LANES * cp;
-    const int64_t out_stride = rows * olen;
-    const int64_t out_base = row * olen;
-    const int64_t lo = (int64_t)t * cp;
-    const int64_t hi = lo + cp < n ? lo + cp : n;
-
-    // 1. sequential inclusive scan of this thread's chunk; the first
-    //    element seeds the carry, as in _ec_parts_kernel
-    Jac carry = lo < n ? jac_load(x, y, z, in_stride, in_base + lo) : jac_identity();
-    if (lo < olen) jac_store(ox, oy, oz, out_stride, out_base + lo, carry);
-    for (int64_t j = lo + 1; j < lo + cp; ++j) {
-        if (j < hi) {
-            Jac v = jac_load(x, y, z, in_stride, in_base + j);
-            carry = MIXED ? ec_madd(F, carry, v) : ec_add(F, carry, v);
-        }
-        if (j < olen) jac_store(ox, oy, oz, out_stride, out_base + j, carry);
-    }
-
-    // 2. exclusive Hillis-Steele over the chunk totals, general adds, the
-    //    identity shifted in (_hs_scan_ec)
-    sh[t] = carry;
-    __syncthreads();
-    Jac excl = t > 0 ? sh[t - 1] : jac_identity();
-    __syncthreads();
-    sh[t] = excl;
-    __syncthreads();
-    for (int s = 1; s < PST_LANES; s <<= 1) {
-        Jac other = t >= s ? sh[t - s] : jac_identity();
-        __syncthreads();
-        excl = ec_add(F, excl, other);
-        sh[t] = excl;
-        __syncthreads();
-    }
-
-    if (!FUSED) {
-        jac_store(ex, ey, ez, rows * PST_LANES, row * PST_LANES + t, excl);
-        return;
-    }
-    // 3. combine: prefix = excl + partial at every position of the chunk
-    for (int64_t j = lo; j < hi; ++j) {
-        Jac v = jac_load(ox, oy, oz, out_stride, out_base + j);
-        jac_store(ox, oy, oz, out_stride, out_base + j, ec_add(F, excl, v));
-    }
 }
 
 // K6 phase 1. Rows of length n (limb stride rows * n); lane L of a row owns
@@ -390,6 +351,22 @@ __global__ void __launch_bounds__(PST_LANES)
     jac_store(ex, ey, ez, stride, i, excl);
 }
 
+// K7 phase 3: out[row, j] = excl[row, j / cp] + partial[row, j] for j < n,
+// one thread a position over the (rows, n) output, the inlined complete add
+// (K2's formula and launch bounds). partial is K6's (rows, PST_LANES * cp),
+// excl its (rows, PST_LANES); the padding past n is not read.
+__global__ void __launch_bounds__(128, 2)
+    k_ec_combine(FieldParams F, const uint32_t *px, const uint32_t *py, const uint32_t *pz,
+                 const uint32_t *ex, const uint32_t *ey, const uint32_t *ez, uint32_t *ox,
+                 uint32_t *oy, uint32_t *oz, int64_t rows, int64_t n, int64_t cp) {
+    const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+    if (i >= rows * n) return;
+    const int64_t row = i / n, j = i - row * n, plen = PST_LANES * cp;
+    Jac off = jac_load(ex, ey, ez, rows * PST_LANES, row * PST_LANES + j / cp);
+    Jac part = jac_load(px, py, pz, rows * plen, row * plen + j);
+    jac_store(ox, oy, oz, rows * n, i, ec_add_inl(F, off, part));
+}
+
 typedef void (*EcPartsFn)(FieldParams, const uint32_t *, const uint32_t *, const uint32_t *,
                           uint32_t *, uint32_t *, uint32_t *, uint32_t *, uint32_t *,
                           uint32_t *, int64_t, int64_t, int64_t, int);
@@ -406,6 +383,33 @@ static EcPartsFn ec_parts_fn(int team_log2, int kt, int mixed) {
 }
 
 static int ec_parts_smem(int kt) { return PARTS_WARPS * 24 * 32 * (kt + 1) * 4; }
+
+// Whether k_ec_parts is built for (team_log2, kt, mixed).
+static bool ec_parts_valid(int team_log2, int kt, int mixed) {
+    return team_log2 >= 0 && team_log2 <= 4 && ec_parts_fn(team_log2, kt, mixed) != nullptr;
+}
+
+// K6's two launches (phases 1-2) on rows of n, for a valid geometry: the
+// partial sums into (px, py, pz), the lane offsets into (ex, ey, ez).
+// Returns the first error.
+static cudaError_t ec_parts_run(FieldParams F, const uint32_t *x, const uint32_t *y,
+                                const uint32_t *z, uint32_t *px, uint32_t *py, uint32_t *pz,
+                                uint32_t *ex, uint32_t *ey, uint32_t *ez, int64_t rows,
+                                int64_t n, int64_t cp, int mixed, int team_log2, int kt,
+                                cudaStream_t s) {
+    EcPartsFn fn = ec_parts_fn(team_log2, kt, mixed);
+    int smem = ec_parts_smem(kt);
+    cudaError_t e =
+        cudaFuncSetAttribute((const void *)fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return e;
+    // rows * PST_LANES lanes, 32 * PARTS_WARPS >> team_log2 lanes a block
+    fn<<<(unsigned)(rows << team_log2), 32 * PARTS_WARPS, smem, s>>>(
+        F, x, y, z, px, py, pz, ex, ey, ez, rows, n, cp, team_log2);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return e;
+    k_ec_lane_offsets<<<(unsigned)rows, PST_LANES, 0, s>>>(F, ex, ey, ez, rows);
+    return cudaGetLastError();
+}
 
 // K8: one warp a column (k8_combine.cuh), K8_WARPS columns a block.
 __global__ void __launch_bounds__(32 * K8_WARPS, 1)
@@ -461,21 +465,11 @@ int pst_ec_scan_parts(const uint32_t *fp, const uint32_t *x, const uint32_t *y,
                       const uint32_t *z, uint32_t *px, uint32_t *py, uint32_t *pz,
                       uint32_t *ex, uint32_t *ey, uint32_t *ez, int64_t rows, int64_t n,
                       int64_t cp, int mixed, int team_log2, int kt, void *stream) {
-    EcPartsFn fn = ec_parts_fn(team_log2, kt, mixed);
-    if (fn == nullptr || team_log2 < 0 || team_log2 > 4) return (int)cudaErrorInvalidValue;
+    if (!ec_parts_valid(team_log2, kt, mixed)) return (int)cudaErrorInvalidValue;
     if (rows > 0 && n > 0) {
-        FieldParams F = pst_field_params(fp);
-        cudaStream_t s = (cudaStream_t)stream;
-        int smem = ec_parts_smem(kt);
-        cudaError_t e = cudaFuncSetAttribute((const void *)fn,
-                                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        cudaError_t e = ec_parts_run(pst_field_params(fp), x, y, z, px, py, pz, ex, ey, ez,
+                                     rows, n, cp, mixed, team_log2, kt, (cudaStream_t)stream);
         if (e != cudaSuccess) return (int)e;
-        // rows * PST_LANES lanes, 32 * PARTS_WARPS >> team_log2 lanes a block
-        fn<<<(unsigned)(rows << team_log2), 32 * PARTS_WARPS, smem, s>>>(
-            F, x, y, z, px, py, pz, ex, ey, ez, rows, n, cp, team_log2);
-        e = cudaGetLastError();
-        if (e != cudaSuccess) return (int)e;
-        k_ec_lane_offsets<<<(unsigned)rows, PST_LANES, 0, s>>>(F, ex, ey, ez, rows);
     }
     return (int)cudaGetLastError();
 }
@@ -496,13 +490,26 @@ int pst_ec_scan_parts_attrs(int team_log2, int kt, int mixed, int *out) {
     return (int)e;
 }
 
+// K7: K6's kernels, general adds, with team_log2 and kt as for
+// pst_ec_scan_parts, write the partial sums (px, py, pz), (rows, PST_LANES *
+// cp), and the lane offsets (ex, ey, ez), (rows, PST_LANES), scratch of the
+// caller's; then k_ec_combine writes the (rows, n) inclusive prefix.
 int pst_ec_scan_fused(const uint32_t *fp, const uint32_t *x, const uint32_t *y,
-                      const uint32_t *z, uint32_t *ox, uint32_t *oy, uint32_t *oz,
-                      int64_t rows, int64_t n, int64_t cp, void *stream) {
-    if (rows > 0 && n > 0)
-        k_ec_scan<false, true><<<(unsigned)rows, PST_LANES, 0, (cudaStream_t)stream>>>(
-            pst_field_params(fp), x, y, z, ox, oy, oz, nullptr, nullptr, nullptr, rows, n,
-            cp);
+                      const uint32_t *z, uint32_t *px, uint32_t *py, uint32_t *pz,
+                      uint32_t *ex, uint32_t *ey, uint32_t *ez, uint32_t *ox, uint32_t *oy,
+                      uint32_t *oz, int64_t rows, int64_t n, int64_t cp, int team_log2, int kt,
+                      void *stream) {
+    if (!ec_parts_valid(team_log2, kt, 0)) return (int)cudaErrorInvalidValue;
+    if (rows > 0 && n > 0) {
+        FieldParams F = pst_field_params(fp);
+        cudaStream_t s = (cudaStream_t)stream;
+        cudaError_t e =
+            ec_parts_run(F, x, y, z, px, py, pz, ex, ey, ez, rows, n, cp, 0, team_log2, kt, s);
+        if (e != cudaSuccess) return (int)e;
+        int64_t blocks = (rows * n + 127) / 128;
+        k_ec_combine<<<(unsigned)blocks, 128, 0, s>>>(F, px, py, pz, ex, ey, ez, ox, oy, oz,
+                                                      rows, n, cp);
+    }
     return (int)cudaGetLastError();
 }
 
@@ -526,6 +533,10 @@ static int func_attrs(const void *fn, int *out) {
     out[3] = 0;
     return (int)e;
 }
+
+// Registers, local (stack) bytes, static and dynamic shared memory of
+// K7's combine kernel (its scan kernels are K6's).
+int pst_ec_scan_fused_attrs(int *out) { return func_attrs((const void *)k_ec_combine, out); }
 
 // Registers, local (stack) bytes, static and dynamic shared memory of K8.
 int pst_combine_windows_attrs(int *out) { return func_attrs((const void *)k_combine_windows, out); }

@@ -172,8 +172,8 @@ __device__ __forceinline__ Fe fe_mul(const FieldParams &F, const Fe &a, const Fe
 
 // dbl-2009-l for a = 0, the formula of _kv_ec_double (no infinity case
 // needed: z = 0 gives z3 = 2*y*z = 0). Inlined where a kernel calls it
-// directly (K2, K3, the endo ladder): no call and no stack frame; ec_double
-// is its out-of-line wrapper (K6, K7 and ec_madd's fallback).
+// directly (K2, K3, the endo ladder, K7's combine): no call and no stack
+// frame; ec_double is its out-of-line wrapper (K6 and ec_madd's fallback).
 __device__ __forceinline__ Jac ec_double_inl(const FieldParams &F, const Jac &p) {
     Fe a = fe_mul(F, p.x, p.x);
     Fe b = fe_mul(F, p.y, p.y);
@@ -201,10 +201,10 @@ __device__ __noinline__ Jac ec_double(const FieldParams &F, const Jac &p) {
 // Complete Jacobian addition: add-2007-bl with the doubling, negation and
 // infinity fallbacks of _kv_ec_add, applied in the same order, so the
 // result matches the JAX package limb for limb. The doubling fallback runs
-// inlined (ec_add_inl, for K2 and the endo ladder) or through the
-// out-of-line ec_double (ec_add, the out-of-line wrapper that K6 and K7
-// call, one copy of each formula a kernel at the cost of a call and its
-// stack frame).
+// inlined (ec_add_inl, for K2, the endo ladder and K7's combine) or through
+// the out-of-line ec_double (ec_add, the out-of-line wrapper that K6 calls,
+// one copy of each formula a kernel at the cost of a call and its stack
+// frame).
 template <bool INLINE>
 __device__ __forceinline__ Jac ec_add_body(const FieldParams &F, const Jac &p, const Jac &q) {
     bool p_inf = fe_is_zero(p.z);
@@ -301,7 +301,9 @@ __device__ __forceinline__ Jac jac_identity() {
     return r;
 }
 
-// Threads per block of the row-scan kernels: each thread scans one
-// contiguous chunk of ceil(n / PST_LANES) positions, then the block runs a
-// Hillis-Steele scan over the PST_LANES chunk totals in shared memory.
+// Lanes of a row scan: a row of n positions is cut into PST_LANES lane
+// chunks of cp = ceil(n / PST_LANES) contiguous positions; the exclusive
+// scan of the PST_LANES lane totals runs in one block of PST_LANES threads
+// (the field scans' kernels, and K6's k_ec_lane_offsets, which K7 also
+// runs).
 #define PST_LANES 128

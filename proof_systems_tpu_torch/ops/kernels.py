@@ -31,8 +31,8 @@ Layout: a field element is (8, ...) int32, the 32-bit limbs of its
 Montgomery integer (limb-major, little-endian). The plain versions compute
 in int64 on 16-bit limbs (a 32x32-bit product overflows int64, and the CPU
 build of torch has no uint32 arithmetic). They follow the kernels' formulas
-and association order, so the two agree limb for limb; K6 where a team of
-threads shares a lane chunk agrees as group elements.
+and association order, so the two agree limb for limb; K6 and K7 where a
+team of threads shares a lane chunk agree as group elements.
 
 The library is built with nvcc (one process per source, all started
 together) into the gitignored build directory at first use, keyed by a
@@ -44,6 +44,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import hashlib
+import math
 import os
 import shutil
 import subprocess
@@ -103,7 +104,8 @@ class KernelLibrary:
             t0 = time.perf_counter()
             logs = self._build(out)
             self.build_seconds = time.perf_counter() - t0 if logs else 0.0
-            self.ptxas_log = "\n".join(logs)
+            cached = out / "ptxas.log"  # the build's, when this process did not build
+            self.ptxas_log = "\n".join(logs) or (cached.read_text() if cached.exists() else "")
             self.field = _bind_field(ctypes.CDLL(str(out / "field_kernels.so")))
             self.curve = _bind_curve(ctypes.CDLL(str(out / "curve_kernels.so")))
         return self
@@ -164,12 +166,14 @@ def _bind_curve(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.pst_group_law_attrs.argtypes = [ctypes.c_int, _P]
     lib.pst_ec_scan_parts.argtypes = [_P] * 10 + [_I64, _I64, _I64] + [ctypes.c_int] * 3 + [_P]
     lib.pst_ec_scan_parts_attrs.argtypes = [ctypes.c_int] * 3 + [_P]
-    lib.pst_ec_scan_fused.argtypes = [_P] * 7 + [_I64, _I64, _I64, _P]
+    lib.pst_ec_scan_fused.argtypes = [_P] * 13 + [_I64] * 3 + [ctypes.c_int] * 2 + [_P]
+    lib.pst_ec_scan_fused_attrs.argtypes = [_P]
     lib.pst_combine_windows.argtypes = [_P] * 7 + [_I64, _I64, ctypes.c_int, _P]
     lib.pst_combine_windows_attrs.argtypes = [_P]
     for fn in (lib.pst_jacobian_add, lib.pst_jacobian_double, lib.pst_endo_ladder,
                lib.pst_group_law_attrs, lib.pst_ec_scan_parts, lib.pst_ec_scan_parts_attrs,
-               lib.pst_ec_scan_fused, lib.pst_combine_windows, lib.pst_combine_windows_attrs):
+               lib.pst_ec_scan_fused, lib.pst_ec_scan_fused_attrs, lib.pst_combine_windows,
+               lib.pst_combine_windows_attrs):
         fn.restype = ctypes.c_int
     lib.pst_curve_error_string.argtypes = [ctypes.c_int]
     lib.pst_curve_error_string.restype = ctypes.c_char_p
@@ -815,7 +819,8 @@ def linear_scan(F, x: torch.Tensor, c: int) -> torch.Tensor:
 
 
 def _ec_scan_plain(F, x, y, z, mixed: bool, fused: bool):
-    """Phases 1-2 (and 3 when fused) of the row scan, as k_ec_scan."""
+    """Phases 1-2 (and 3 when fused) of the row scan with one thread a lane
+    chunk, as k_ec_parts with S = 1, k_ec_lane_offsets and k_ec_combine."""
     rows, n = _rows_n(x)
     P = field16(F, x.device)
     cp = scan_chunk(n)
@@ -827,17 +832,21 @@ def _ec_scan_plain(F, x, y, z, mixed: bool, fused: bool):
     parts = [torch.empty((NL, rows, LANES, cp), dtype=torch.int32, device=x.device)
              for _ in range(3)]
     step = ec_madd16 if mixed else ec_add16
-    # Lanes above the last one that holds data stay the identity, and a
-    # complete add with the identity returns its other operand exactly, so
-    # the plain version adds only where both operands may hold a point:
-    # the kernel's values, with less work when a row is short.
+    # A lane's carry starts from the identity (0, 0, 0) and adds each of its
+    # positions, as k_ec_parts does. The complete add of two points at
+    # infinity returns its first operand, so where a lane starts with points
+    # at infinity its partial sums hold (0, 0, 0), not the input's limbs of
+    # the identity (the MSM's are (R, R, 0)). Lanes above the last one that
+    # holds data stay the identity, and an add of the identity returns the
+    # other operand exactly, so the plain version adds only where both
+    # operands may hold a point: the kernel's values, with less work when a
+    # row is short.
     live = -(-n // cp)
-    carry = tuple(to16(t[..., 0]) for t in ins)
+    carry = (torch.zeros((16, rows, LANES), dtype=torch.int64, device=x.device),) * 3
     for c in range(cp):
-        if c:
-            head = step(P, tuple(t[..., :live] for t in carry),
-                        tuple(to16(t[..., :live, c]) for t in ins))
-            carry = tuple(torch.cat([h, t[..., live:]], -1) for h, t in zip(head, carry))
+        head = step(P, tuple(t[..., :live] for t in carry),
+                    tuple(to16(t[..., :live, c]) for t in ins))
+        carry = tuple(torch.cat([h, t[..., live:]], -1) for h, t in zip(head, carry))
         for dst, v in zip(parts, carry):
             dst[..., c] = from16(v)
     zero = torch.zeros((16, 1, 1), dtype=torch.int64, device=x.device)
@@ -958,17 +967,60 @@ def ec_prefix_scan_fused_plain(F, x, y, z):
     return _ec_scan_plain(F, x, y, z, mixed=False, fused=True)
 
 
+def ec_scan_scratch(rows: int, n: int) -> tuple[int, tuple[int, ...], tuple[int, ...]]:
+    """(cp, partial shape, excl shape) of K7's scratch for `rows` rows of n
+    positions: K6's partial sums at every position of the LANES lane chunks
+    of cp, and the LANES lane offsets, a row each."""
+    cp = scan_chunk(n)
+    return cp, (NL, rows, LANES * cp), (NL, rows, LANES)
+
+
+def ec_prefix_scan_fused_attrs() -> tuple[int, ...]:
+    """(registers, local bytes, static and dynamic shared bytes) of K7's
+    combine kernel, from cudaFuncGetAttributes (its scan kernels are K6's:
+    ec_prefix_scan_parts_attrs)."""
+    buf = (ctypes.c_int * 4)()
+    rc = LIBRARY.load().curve.pst_ec_scan_fused_attrs(buf)
+    if rc:
+        raise RuntimeError(f"pst_ec_scan_fused_attrs: CUDA error {rc}")
+    return tuple(buf)
+
+
+def _ec_fused_launch(F, x, y, z, team: int, kt: int):
+    """K7's three kernels on (8, ..., n) CUDA rows: K6's (general adds,
+    `team` threads a lane chunk, tile width kt) into scratch, then the
+    combine; counts nothing."""
+    dev = x.device
+    rows, n = _rows_n(x)
+    cp, pshape, eshape = ec_scan_scratch(rows, n)
+    # one allocation for the scratch and one for the output: the opening's
+    # tail rounds wait for the host, and each allocation is host time
+    pn, en = math.prod(pshape), math.prod(eshape)
+    scratch = torch.empty(3 * (pn + en), dtype=torch.int32, device=dev)
+    partial = [scratch[i * pn:(i + 1) * pn] for i in range(3)]
+    excl = [scratch[3 * pn + i * en:3 * pn + (i + 1) * en] for i in range(3)]
+    out = torch.empty((3, *x.shape), dtype=torch.int32, device=dev)
+    lib = LIBRARY.load().curve
+    _launch(lib, "pst_ec_scan_fused", "pst_curve_error_string", dev,
+            _field_words(F), *_ptrs((x, y, z)), *_ptrs(partial), *_ptrs(excl),
+            *_ptrs(out), rows, n, cp, team.bit_length() - 1, kt)
+    return tuple(out)
+
+
 def ec_prefix_scan_fused(F, x, y, z):
-    """Inclusive Jacobian prefix scan along the last axis; (x, y, z)."""
+    """Inclusive Jacobian prefix scan along the last axis; (x, y, z).
+
+    On the card: K6's kernels (general adds, the team size and tile width of
+    parts_geometry) write the lane chunks' partial sums and the lane
+    offsets to scratch, and a combine kernel adds them, one thread a
+    position. The values are the plain version's as group elements, and its
+    limbs where one thread scans a chunk (S = 1)."""
     dev = _check(x, y, z)
     if dev.type == "cpu":
         return ec_prefix_scan_fused_plain(F, x, y, z)
     rows, n = _rows_n(x)
-    out = tuple(torch.empty_like(x) for _ in range(3))
-    lib = LIBRARY.load().curve
-    _launch(lib, "pst_ec_scan_fused", "pst_curve_error_string", dev,
-            _field_words(F), *_ptrs((x, y, z)), *_ptrs(out), rows, n,
-            scan_chunk(n))
+    team, kt = parts_geometry(rows, scan_chunk(n), _sm_count(dev))
+    out = _ec_fused_launch(F, x, y, z, team, kt)
     LAUNCHES["ec_prefix_scan_fused"] += 1
     return out
 

@@ -244,6 +244,76 @@ def test_ec_parts_team_sizes_match_plain(dev, rows, n, mixed):
             assert torch.equal(x, y)
 
 
+# K7's call shapes on the main path at k = 16: the witness, t and z commits
+# (the verifier's MSM has the z commit's), the five fold steps, the tail
+# rounds and the sg MSM
+K7_SHAPES = [(24, 15, 2047), (24, 7, 2047), (24, 1, 2047), (26, 2, 1023), (29, 2, 511),
+             (32, 2, 255), (37, 2, 127), (37, 1, 127)]
+
+
+def _msm_identities(dc, pts, lead: int):
+    """pts with the first `lead` positions of the first row made the
+    identity (as an MSM's top window starts), and every identity written as
+    the MSM writes it, (R, R, 0)."""
+    x, y, z = (t.clone() for t in pts)
+    z.view(8, -1, z.shape[-1])[:, 0, :lead] = 0
+    inf = limb.is_zero(dc.F, z)
+    one = dc.F.one_mont(inf.shape, device=z.device)
+    return [torch.where(inf, one, x), torch.where(inf, one, y), z]
+
+
+def _assert_scan_fused(dc, got, want, exact: bool):
+    assert _same_points(dc, got, want)
+    if exact:
+        for x, y in zip(got, want):
+            assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("shape", K7_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_ec_scan_fused_main_path_shapes(dev, shape):
+    """K7 as the wrapper launches it (K6's kernels with general adds, then
+    the combine), one launch counted a call, against its plain version on
+    general Jacobian rows with doubling, negation and identity neighbours:
+    as group elements, and limb for limb where one thread scans a lane
+    chunk (every shape but the 24 rows of the z commit, where a team of two
+    does); through the launcher with one thread a chunk, limb for limb. The
+    first row starts with three lanes of identities, and every identity is
+    (R, R, 0)."""
+    rng = random.Random(615)
+    dc, (p, _) = _pool_pairs(rng, dev, shape)
+    p = _msm_identities(dc, p, 3 * kernels.scan_chunk(shape[-1]))
+    rows, n = p[0][0].numel() // shape[-1], shape[-1]
+    team, kt = kernels.parts_geometry(rows, kernels.scan_chunk(n), kernels._sm_count(dev))
+    assert team == (2 if rows == 24 else 1)
+    before = kernels.launch_counts()["ec_prefix_scan_fused"]
+    got, want = _pair("ec_prefix_scan_fused", dc.F, *p)
+    assert kernels.launch_counts()["ec_prefix_scan_fused"] == before + 1
+    _assert_scan_fused(dc, got, want, team == 1)
+    _assert_scan_fused(dc, kernels._ec_fused_launch(dc.F, *p, 1, 4), want, True)
+
+
+@pytest.mark.parametrize("rows,n", chip_smoke.K6_EDGE_SHAPES)
+def test_ec_scan_fused_edge_rows(dev, rows, n):
+    """K7 on K6's edge rows, general input (n = 1, n < 128, one past a
+    multiple of 128, 24 rows of 65,537), the identities (R, R, 0): the
+    wrapper and every team size and tile width through the launcher, as
+    group elements, limb for limb with one thread a chunk."""
+    rng = random.Random(616)
+    dc, pts = _k6_rows(rng, dev, rows, n, False)
+    pts = _msm_identities(dc, pts, 0)
+    got, want = _pair("ec_prefix_scan_fused", dc.F, *pts)
+    team, _ = kernels.parts_geometry(rows, kernels.scan_chunk(n), kernels._sm_count(dev))
+    _assert_scan_fused(dc, got, want, team == 1)
+    for team, kt in K6_GEOMETRIES:
+        _assert_scan_fused(dc, kernels._ec_fused_launch(dc.F, *pts, team, kt), want, team == 1)
+
+
+def test_ec_scan_fused_combine_has_no_local_memory(dev):
+    """K7's combine inlines the complete add: no stack frame, no spill."""
+    regs, local, _, _ = kernels.ec_prefix_scan_fused_attrs()
+    assert local == 0 and 0 < regs <= 255
+
+
 def test_wrappers_reject_mixed_devices(dev):
     F = limb.device_field(Fp)
     a = F.pack([1, 2], device=dev)
