@@ -361,7 +361,11 @@ def bound_ms(name: str, args, kw) -> tuple[float, str]:
     t = [a for a in args if torch.is_tensor(a)]
     elems = t[0][0].numel()
     fe = 32  # bytes per field element
-    hs = PRODUCTS["add"] * 128 * 7  # Hillis-Steele adds of one row
+    # the work of the function, not of a design: a full scan (the parallel
+    # one: reduce, then offsets) 2 operations a position; phases 1-2 one a
+    # position, and an exclusive scan of a row's 128 lane totals, 126 at
+    # least (no Hillis-Steele levels)
+    lane_scan = 128 - 2
     if name == "combine_windows":  # W windows x b columns in, b out; W - 1 Horner steps
         c, (W, b) = args[1], t[0].shape[1:]
         nbytes = 3 * fe * (W * b + b)
@@ -385,11 +389,10 @@ def bound_ms(name: str, args, kw) -> tuple[float, str]:
         n = t[0].shape[-1]
         rows = elems // n
         nbytes = fe * (elems + rows * 128 * scan_geometry(n)[2] + rows * 128)
-        products = elems + 7 * 128 * rows
-    elif name == "linear_scan":  # chunk chain, lane scan, offsets
-        rows = elems // t[0].shape[-1]
+        products = elems + lane_scan * rows
+    elif name == "linear_scan":  # a full scan of s_j = x_j + c * s_(j-1)
         nbytes = 2 * fe * elems
-        products = 2 * elems + 7 * 128 * rows
+        products = 2 * elems
     elif name == "jacobian_add":
         nbytes, products = 9 * fe * elems, PRODUCTS["add"] * elems
     elif name == "jacobian_double":
@@ -402,11 +405,10 @@ def bound_ms(name: str, args, kw) -> tuple[float, str]:
         npad = 128 * (-(-n // 128))
         step = PRODUCTS["madd"] if kw.get("mixed") else PRODUCTS["add"]
         nbytes = 3 * fe * (elems + rows * npad + rows * 128)
-        products = step * elems + hs * rows
-    else:  # ec_prefix_scan_fused
-        rows = elems // t[0].shape[-1]
+        products = step * elems + PRODUCTS["add"] * lane_scan * rows
+    else:  # ec_prefix_scan_fused: a full scan
         nbytes = 6 * fe * elems
-        products = 2 * PRODUCTS["add"] * elems + hs * rows
+        products = 2 * PRODUCTS["add"] * elems
     t_bytes = nbytes / BW
     t_ops = products * IMADS_PER_PRODUCT / IMAD_RATE
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")

@@ -128,6 +128,8 @@
 // an add: 26 levels a Horner step at c = 7 instead of 65 products); all
 // inlined, no stack; the chain starts from the top window.
 
+#include <atomic>
+
 #include "endo_ladder.cuh"
 #include "k8_combine.cuh"
 
@@ -389,6 +391,23 @@ static bool ec_parts_valid(int team_log2, int kt, int mixed) {
     return team_log2 >= 0 && team_log2 <= 4 && ec_parts_fn(team_log2, kt, mixed) != nullptr;
 }
 
+// Raises k_ec_parts' dynamic shared memory limit to what it uses, once per
+// instantiation and device (the call costs host time, and a loop that waits
+// for the host pays it on every launch otherwise).
+static cudaError_t ec_parts_prepare(int team_log2, int kt, int mixed) {
+    static std::atomic<uint64_t> ready[6];  // a bit per device
+    int dev = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e != cudaSuccess) return e;
+    std::atomic<uint64_t> &done = ready[(team_log2 > 0 ? 4 : kt == 16 ? 2 : 0) + mixed];
+    const uint64_t bit = dev < 64 ? 1ull << dev : 0;
+    if (bit & done.load(std::memory_order_relaxed)) return cudaSuccess;
+    e = cudaFuncSetAttribute((const void *)ec_parts_fn(team_log2, kt, mixed),
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, ec_parts_smem(kt));
+    if (e == cudaSuccess) done.fetch_or(bit, std::memory_order_relaxed);
+    return e;
+}
+
 // K6's two launches (phases 1-2) on rows of n, for a valid geometry: the
 // partial sums into (px, py, pz), the lane offsets into (ex, ey, ez).
 // Returns the first error.
@@ -399,8 +418,7 @@ static cudaError_t ec_parts_run(FieldParams F, const uint32_t *x, const uint32_t
                                 cudaStream_t s) {
     EcPartsFn fn = ec_parts_fn(team_log2, kt, mixed);
     int smem = ec_parts_smem(kt);
-    cudaError_t e =
-        cudaFuncSetAttribute((const void *)fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    cudaError_t e = ec_parts_prepare(team_log2, kt, mixed);
     if (e != cudaSuccess) return e;
     // rows * PST_LANES lanes, 32 * PARTS_WARPS >> team_log2 lanes a block
     fn<<<(unsigned)(rows << team_log2), 32 * PARTS_WARPS, smem, s>>>(
@@ -491,24 +509,29 @@ int pst_ec_scan_parts_attrs(int team_log2, int kt, int mixed, int *out) {
 }
 
 // K7: K6's kernels, general adds, with team_log2 and kt as for
-// pst_ec_scan_parts, write the partial sums (px, py, pz), (rows, PST_LANES *
-// cp), and the lane offsets (ex, ey, ez), (rows, PST_LANES), scratch of the
-// caller's; then k_ec_combine writes the (rows, n) inclusive prefix.
+// pst_ec_scan_parts, write the partial sums, (rows, PST_LANES * cp) a limb,
+// and the lane offsets, (rows, PST_LANES) a limb, into the caller's scratch
+// (x, y, z partial sums, then x, y, z offsets: 3 * PST_NL * rows *
+// PST_LANES * (cp + 1) words, kernels.ec_scan_scratch); then k_ec_combine
+// writes the (rows, n) inclusive prefix to out (x, y, z, PST_NL * rows * n
+// words each).
 int pst_ec_scan_fused(const uint32_t *fp, const uint32_t *x, const uint32_t *y,
-                      const uint32_t *z, uint32_t *px, uint32_t *py, uint32_t *pz,
-                      uint32_t *ex, uint32_t *ey, uint32_t *ez, uint32_t *ox, uint32_t *oy,
-                      uint32_t *oz, int64_t rows, int64_t n, int64_t cp, int team_log2, int kt,
-                      void *stream) {
+                      const uint32_t *z, uint32_t *scratch, uint32_t *out, int64_t rows,
+                      int64_t n, int64_t cp, int team_log2, int kt, void *stream) {
     if (!ec_parts_valid(team_log2, kt, 0)) return (int)cudaErrorInvalidValue;
     if (rows > 0 && n > 0) {
         FieldParams F = pst_field_params(fp);
         cudaStream_t s = (cudaStream_t)stream;
+        const int64_t pn = PST_NL * rows * PST_LANES * cp, en = PST_NL * rows * PST_LANES,
+                      on = PST_NL * rows * n;
+        uint32_t *px = scratch, *py = px + pn, *pz = py + pn;
+        uint32_t *ex = pz + pn, *ey = ex + en, *ez = ey + en;
         cudaError_t e =
             ec_parts_run(F, x, y, z, px, py, pz, ex, ey, ez, rows, n, cp, 0, team_log2, kt, s);
         if (e != cudaSuccess) return (int)e;
         int64_t blocks = (rows * n + 127) / 128;
-        k_ec_combine<<<(unsigned)blocks, 128, 0, s>>>(F, px, py, pz, ex, ey, ez, ox, oy, oz,
-                                                      rows, n, cp);
+        k_ec_combine<<<(unsigned)blocks, 128, 0, s>>>(F, px, py, pz, ex, ey, ez, out, out + on,
+                                                      out + 2 * on, rows, n, cp);
     }
     return (int)cudaGetLastError();
 }

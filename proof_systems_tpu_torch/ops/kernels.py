@@ -44,7 +44,6 @@ from __future__ import annotations
 import ctypes
 import functools
 import hashlib
-import math
 import os
 import shutil
 import subprocess
@@ -166,7 +165,7 @@ def _bind_curve(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.pst_group_law_attrs.argtypes = [ctypes.c_int, _P]
     lib.pst_ec_scan_parts.argtypes = [_P] * 10 + [_I64, _I64, _I64] + [ctypes.c_int] * 3 + [_P]
     lib.pst_ec_scan_parts_attrs.argtypes = [ctypes.c_int] * 3 + [_P]
-    lib.pst_ec_scan_fused.argtypes = [_P] * 13 + [_I64] * 3 + [ctypes.c_int] * 2 + [_P]
+    lib.pst_ec_scan_fused.argtypes = [_P] * 6 + [_I64] * 3 + [ctypes.c_int] * 2 + [_P]
     lib.pst_ec_scan_fused_attrs.argtypes = [_P]
     lib.pst_combine_windows.argtypes = [_P] * 7 + [_I64, _I64, ctypes.c_int, _P]
     lib.pst_combine_windows_attrs.argtypes = [_P]
@@ -836,7 +835,9 @@ def _ec_scan_plain(F, x, y, z, mixed: bool, fused: bool):
     # positions, as k_ec_parts does. The complete add of two points at
     # infinity returns its first operand, so where a lane starts with points
     # at infinity its partial sums hold (0, 0, 0), not the input's limbs of
-    # the identity (the MSM's are (R, R, 0)). Lanes above the last one that
+    # the identity (the MSM's are (R, R, 0)); the TPU kernel seeds each lane
+    # from its first element and keeps those limbs, so there the limbs differ
+    # from its own and the group elements agree. Lanes above the last one that
     # holds data stay the identity, and an add of the identity returns the
     # other operand exactly, so the plain version adds only where both
     # operands may hold a point: the kernel's values, with less work when a
@@ -881,6 +882,7 @@ PARTS_SM_THREADS = 3 * 128
 PARTS_TEAM_MAX = 16
 
 
+@functools.lru_cache(maxsize=None)
 def parts_geometry(rows: int, cp: int, sms: int) -> tuple[int, int]:
     """(S, KT) of K6 for `rows` rows of lane chunks of cp positions on a card
     of `sms` SMs: S threads share each lane chunk and KT columns are staged
@@ -967,12 +969,14 @@ def ec_prefix_scan_fused_plain(F, x, y, z):
     return _ec_scan_plain(F, x, y, z, mixed=False, fused=True)
 
 
-def ec_scan_scratch(rows: int, n: int) -> tuple[int, tuple[int, ...], tuple[int, ...]]:
-    """(cp, partial shape, excl shape) of K7's scratch for `rows` rows of n
-    positions: K6's partial sums at every position of the LANES lane chunks
-    of cp, and the LANES lane offsets, a row each."""
+@functools.lru_cache(maxsize=None)
+def ec_scan_scratch(rows: int, n: int) -> tuple[int, int]:
+    """(cp, words) of K7's scratch for `rows` rows of n positions, in the
+    launcher's order: K6's partial sums of x, y and z at every position of
+    the LANES lane chunks of cp (NL * rows * LANES * cp words each), then
+    their LANES lane offsets (NL * rows * LANES words each)."""
     cp = scan_chunk(n)
-    return cp, (NL, rows, LANES * cp), (NL, rows, LANES)
+    return cp, 3 * NL * rows * LANES * (cp + 1)
 
 
 def ec_prefix_scan_fused_attrs() -> tuple[int, ...]:
@@ -992,19 +996,16 @@ def _ec_fused_launch(F, x, y, z, team: int, kt: int):
     combine; counts nothing."""
     dev = x.device
     rows, n = _rows_n(x)
-    cp, pshape, eshape = ec_scan_scratch(rows, n)
-    # one allocation for the scratch and one for the output: the opening's
-    # tail rounds wait for the host, and each allocation is host time
-    pn, en = math.prod(pshape), math.prod(eshape)
-    scratch = torch.empty(3 * (pn + en), dtype=torch.int32, device=dev)
-    partial = [scratch[i * pn:(i + 1) * pn] for i in range(3)]
-    excl = [scratch[3 * pn + i * en:3 * pn + (i + 1) * en] for i in range(3)]
+    cp, words = ec_scan_scratch(rows, n)
+    # one allocation for the scratch and one for the output, their parts
+    # addressed by the launcher: the opening's tail rounds wait for the
+    # host, and every allocation, view and argument is host time
+    scratch = torch.empty(words, dtype=torch.int32, device=dev)
     out = torch.empty((3, *x.shape), dtype=torch.int32, device=dev)
-    lib = LIBRARY.load().curve
-    _launch(lib, "pst_ec_scan_fused", "pst_curve_error_string", dev,
-            _field_words(F), *_ptrs((x, y, z)), *_ptrs(partial), *_ptrs(excl),
-            *_ptrs(out), rows, n, cp, team.bit_length() - 1, kt)
-    return tuple(out)
+    _launch(LIBRARY.load().curve, "pst_ec_scan_fused", "pst_curve_error_string", dev,
+            _field_words(F), x.data_ptr(), y.data_ptr(), z.data_ptr(), scratch.data_ptr(),
+            out.data_ptr(), rows, n, cp, team.bit_length() - 1, kt)
+    return out.unbind(0)
 
 
 def ec_prefix_scan_fused(F, x, y, z):

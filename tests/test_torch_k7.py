@@ -99,14 +99,21 @@ def general_input(pts, rows: int, n: int):
 
 
 def as_points(dc, out, rows: int, n: int):
-    return dc.unpack_jacobian(JPoint(*(t.reshape(NL, rows * n) for t in out)))
+    """Host affine points of (8, rows, n) Jacobian limbs, through to_affine's
+    batch inversion (the points padded to a power of two with z = R)."""
+    m = rows * n
+    one = dc.F.one_mont(((1 << (m - 1).bit_length()) - m,), device="cpu")
+    J = JPoint(*(torch.cat([t.reshape(NL, m), one], -1) for t in out))
+    return dc.unpack_jacobian(J)[:m]
 
 
-@pytest.mark.parametrize("S", TEAMS)
-@pytest.mark.parametrize("n", [1, 100, 127, 129, 2047])
+@pytest.mark.parametrize("n,S", [(n, S) for n in (1, 100, 127, 129) for S in TEAMS]
+                         + [(511, 2), (511, 4), (511, 8), (2047, 1), (2047, 16)])
 def test_k7_model_gives_running_sums(n, S):
-    """n = 1, n < 128 (cp = 1), 127 (the tail rounds), 129 (one past 128,
-    cp = 2) and 2,047 (the commits' rows, cp = 16)."""
+    """Every team size at n = 1, n < 128 (cp = 1), 127 (the tail rounds) and
+    129 (one past 128, cp = 2); teams of 2-8 at 511 (cp = 4: a position or
+    more a member, none for half of a team of 8); one thread and a team of
+    16 at 2,047 (the commits' rows, cp = 16)."""
     rows = 3
     dc, J, pts = general_input(k7_rows(800 + n, rows, n), rows, n)
     out = k7_model(dc.F, *J, S)
@@ -149,10 +156,10 @@ def test_k7_scratch_and_geometry_at_main_path_shapes(batch, n):
     c = (n + 1).bit_length() - 1
     assert n == (1 << c) - 1 and batch[0] == msm.num_windows(c)
     rows = batch[0] * batch[1]
-    cp, pshape, eshape = kernels.ec_scan_scratch(rows, n)
+    cp, words = kernels.ec_scan_scratch(rows, n)
     assert cp == kernels.scan_chunk(n) and LANES * (cp - 1) < n <= LANES * cp
-    assert pshape == (NL, rows, LANES * cp) and eshape == (NL, rows, LANES)
-    if (batch, n) == ((24, 15), 2047):  # the largest: 70.8 MB of partial sums
-        assert 3 * 4 * int(np.prod(pshape)) == 70_778_880
+    assert words == 3 * NL * rows * LANES * cp + 3 * NL * rows * LANES
+    if (batch, n) == ((24, 15), 2047):  # the largest: 70.8 MB of partial sums, 4.4 of offsets
+        assert 4 * words == 70_778_880 + 4_423_680
     S, kt = kernels.parts_geometry(rows, cp, 132)
     assert (S, kt) == ((2, 4) if rows == 24 else (1, 4))
