@@ -50,7 +50,7 @@
 // dependent products each. K11 is one thread: 64 steps of adds and
 // subtracts, one product, then 64 x 5 + 14 products of the inverse.
 
-#include "field.cuh"
+#include "chain_field.cuh"
 
 __global__ void __launch_bounds__(256)
     k_mont_mul(FieldParams F, const uint32_t *__restrict__ a, const uint32_t *__restrict__ b,
@@ -60,33 +60,12 @@ __global__ void __launch_bounds__(256)
     fe_store(o, n, i, fe_mul(F, fe_load(a, n, i), fe_load(b, n, i)));
 }
 
-// Exponent as 4-bit digits, most significant first (at most 256 bits).
-struct PowDigits {
-    uint8_t d[64];
-    int32_t nd;
-};
-
-// a^e with 4-bit windows, most significant first, over a 15-entry table
-// (pallas_field.py:497-520).
-__device__ Fe fe_pow(const FieldParams &F, const Fe &a, const PowDigits &e) {
-    Fe tab[16];
-    tab[0] = fe_one(F);
-    tab[1] = a;
-    for (int k = 2; k < 16; ++k) tab[k] = fe_mul(F, tab[k - 1], tab[1]);
-    Fe acc = tab[0];
-    for (int k = 0; k < e.nd; ++k) {
-        for (int s = 0; s < 4; ++s) acc = fe_mul(F, acc, acc);
-        acc = fe_mul(F, acc, tab[e.d[k]]);
-    }
-    return acc;
-}
-
 __global__ void __launch_bounds__(128)
     k_mont_pow(FieldParams F, PowDigits e, const uint32_t *__restrict__ a,
                uint32_t *__restrict__ o, int64_t n) {
     int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
     if (i >= n) return;
-    fe_store(o, n, i, fe_pow(F, fe_load(a, n, i), e));
+    fe_store(o, n, i, fe_pow_lat(F, fe_load(a, n, i), e));
 }
 
 // Exclusive Hillis-Steele product over the block's lane values `v` (neutral:
@@ -200,41 +179,14 @@ __global__ void __launch_bounds__(PST_LANES)
                  fe_add(F, fe_load(o, stride, base + j), fe_mul(F, fe_load(tab, tstride, j - lo), e)));
 }
 
-// One block of three threads; thread t owns state element t. state (8, 3),
-// xs and ys (8, 2) Montgomery; consts (8, 3 * nrounds + 9): rc[r][j] in
-// column 3r + j, then mds[i][j] in column 3 * nrounds + 3i + j.
+// One warp; lanes 0-2 own the state elements (sponge_lane, chain_field.cuh).
+// state (8, 3), xs and ys (8, 2) Montgomery; consts (8, 3 * nrounds + 9).
 __global__ void __launch_bounds__(32)
     k_sponge_squeeze2(FieldParams F, const uint32_t *__restrict__ state,
                       const uint32_t *__restrict__ xs, const uint32_t *__restrict__ ys,
                       const uint32_t *__restrict__ consts, int nrounds,
                       uint32_t *__restrict__ ost, uint32_t *__restrict__ ochal) {
-    __shared__ Fe sboxed[3];
-    const int t = threadIdx.x;
-    const int64_t cstride = 3 * (int64_t)nrounds + 9;
-    Fe mds[3];
-    for (int j = 0; j < 3; ++j) mds[j] = fe_load(consts, cstride, 3 * nrounds + 3 * t + j);
-    Fe s = fe_load(state, 3, t);
-    for (int k = 0; k < 2; ++k) {
-        // absorb: state[0] += x, state[1] += y (the rate-2 sponge)
-        if (t == 0) s = fe_add(F, s, fe_load(xs, 2, k));
-        if (t == 1) s = fe_add(F, s, fe_load(ys, 2, k));
-        for (int r = 0; r < nrounds; ++r) {
-            Fe x2 = fe_mul(F, s, s);
-            Fe x3 = fe_mul(F, x2, s);
-            sboxed[t] = fe_mul(F, fe_mul(F, x3, x3), s);  // x^7
-            __syncthreads();
-            Fe acc = fe_add(F, fe_mul(F, mds[0], sboxed[0]), fe_mul(F, mds[1], sboxed[1]));
-            acc = fe_add(F, acc, fe_mul(F, mds[2], sboxed[2]));
-            s = fe_add(F, acc, fe_load(consts, cstride, 3 * r + t));
-            __syncthreads();
-        }
-    }
-    fe_store(ost, 3, t, s);
-    if (t == 0) {
-        Fe one = fe_zero();
-        one.v[0] = 1;  // the product with plain 1 is REDC
-        fe_store(ochal, 1, 0, fe_mul(F, s, one));
-    }
+    sponge_lane<PST_LAT>(F, threadIdx.x, state, xs, ys, consts, nrounds, ost, ochal);
 }
 
 // One thread. bits: 128 int32 challenge bits, least significant first;
@@ -257,7 +209,32 @@ __global__ void __launch_bounds__(32)
     }
     const Fe u = fe_add(F, fe_mul(F, a, endo), b);
     fe_store(ou, 1, 0, u);
-    fe_store(oinv, 1, 0, fe_pow(F, u, e));
+    fe_store(oinv, 1, 0, fe_pow_lat(F, u, e));
+}
+
+// One thread's chain of `steps` dependent products of one kind, to time a
+// product's latency (chip_smoke.py): kind 0 field.cuh's CIOS fe_mul, 1
+// fe_mul_lat, 2 fe_sqr_lat, 3 fe_dot3_lat. x (8, 4): the start a and the
+// operands x1-x3; a = a * x1, a^2 or dot3(a, x1, a, x2, a, x3).
+__global__ void __launch_bounds__(32)
+    k_product_chain(FieldParams F, int kind, const uint32_t *__restrict__ x, int steps,
+                    uint32_t *__restrict__ o) {
+    Fe a = fe_load(x, 4, 0);
+    const Fe x1 = fe_load(x, 4, 1), x2 = fe_load(x, 4, 2), x3 = fe_load(x, 4, 3);
+    if (kind == 0) {
+#pragma unroll 1
+        for (int s = 0; s < steps; ++s) a = fe_mul(F, a, x1);
+    } else if (kind == 1) {
+#pragma unroll 1
+        for (int s = 0; s < steps; ++s) a = fe_mul_lat(F, a, x1);
+    } else if (kind == 2) {
+#pragma unroll 1
+        for (int s = 0; s < steps; ++s) a = fe_sqr_lat(F, a);
+    } else {
+#pragma unroll 1
+        for (int s = 0; s < steps; ++s) a = fe_dot3_lat(F, a, x1, a, x2, a, x3);
+    }
+    fe_store(o, 1, 0, a);
 }
 
 static int pow_digits(PowDigits &e, const uint8_t *digits, int nd) {
@@ -284,10 +261,11 @@ int pst_mont_pow(const uint32_t *fp, const uint8_t *digits, int nd, const uint32
                  uint32_t *o, int64_t n, void *stream) {
     PowDigits e;
     if (int rc = pow_digits(e, digits, nd)) return rc;
+    const FieldParams F = pst_field_params(fp);
+    if (!pst_pasta_shape(F)) return (int)cudaErrorInvalidValue;
     if (n > 0) {
         int64_t blocks = (n + 127) / 128;
-        k_mont_pow<<<(unsigned)blocks, 128, 0, (cudaStream_t)stream>>>(
-            pst_field_params(fp), e, a, o, n);
+        k_mont_pow<<<(unsigned)blocks, 128, 0, (cudaStream_t)stream>>>(F, e, a, o, n);
     }
     return (int)cudaGetLastError();
 }
@@ -319,8 +297,10 @@ int pst_linear_scan(const uint32_t *fp, const uint32_t *x, const uint32_t *tab, 
 int pst_sponge_squeeze2(const uint32_t *fp, const uint32_t *state, const uint32_t *xs,
                         const uint32_t *ys, const uint32_t *consts, int nrounds,
                         uint32_t *ost, uint32_t *ochal, void *stream) {
-    k_sponge_squeeze2<<<1, 3, 0, (cudaStream_t)stream>>>(pst_field_params(fp), state, xs, ys,
-                                                           consts, nrounds, ost, ochal);
+    const FieldParams F = pst_field_params(fp);
+    if (!pst_pasta_shape(F)) return (int)cudaErrorInvalidValue;
+    k_sponge_squeeze2<<<1, 32, 0, (cudaStream_t)stream>>>(F, state, xs, ys, consts, nrounds,
+                                                            ost, ochal);
     return (int)cudaGetLastError();
 }
 
@@ -328,11 +308,37 @@ int pst_endo_inv(const uint32_t *fp, const uint32_t *endo_words, const uint8_t *
                  int nd, const int32_t *bits, uint32_t *ou, uint32_t *oinv, void *stream) {
     PowDigits e;
     if (int rc = pow_digits(e, digits, nd)) return rc;
+    const FieldParams F = pst_field_params(fp);
+    if (!pst_pasta_shape(F)) return (int)cudaErrorInvalidValue;
     Fe endo;
     std::memcpy(endo.v, endo_words, sizeof(endo.v));
-    k_endo_inv<<<1, 1, 0, (cudaStream_t)stream>>>(pst_field_params(fp), endo, e, bits, ou,
-                                                    oinv);
+    k_endo_inv<<<1, 1, 0, (cudaStream_t)stream>>>(F, endo, e, bits, ou, oinv);
     return (int)cudaGetLastError();
+}
+
+int pst_product_chain(const uint32_t *fp, int kind, const uint32_t *x, int steps, uint32_t *o,
+                      void *stream) {
+    const FieldParams F = pst_field_params(fp);
+    if (!pst_pasta_shape(F) || kind < 0 || kind > 3) return (int)cudaErrorInvalidValue;
+    k_product_chain<<<1, 1, 0, (cudaStream_t)stream>>>(F, kind, x, steps, o);
+    return (int)cudaGetLastError();
+}
+
+// Registers, local (stack) bytes, static and dynamic shared memory of
+// k_sponge_squeeze2 (which 0), k_mont_pow (1) or k_endo_inv (2).
+int pst_chain_attrs(int which, int *out) {
+    const void *fn = which == 0   ? (const void *)k_sponge_squeeze2
+                     : which == 1 ? (const void *)k_mont_pow
+                     : which == 2 ? (const void *)k_endo_inv
+                                  : nullptr;
+    if (fn == nullptr) return (int)cudaErrorInvalidValue;
+    cudaFuncAttributes a;
+    const cudaError_t e = cudaFuncGetAttributes(&a, fn);
+    out[0] = a.numRegs;
+    out[1] = (int)a.localSizeBytes;
+    out[2] = (int)a.sharedSizeBytes;
+    out[3] = 0;
+    return (int)e;
 }
 
 const char *pst_field_error_string(int code) {

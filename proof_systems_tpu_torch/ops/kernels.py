@@ -8,14 +8,14 @@ signature and the same results:
   K1 mont_mul                 (pallas_field.py:398)   csrc/field_kernels.cu
   K2 jacobian_add             (pallas_field.py:412)   csrc/curve_kernels.cu
   K3 jacobian_double          (pallas_field.py:439)   csrc/curve_kernels.cu
-  K4 mont_pow                 (pallas_field.py:481)   csrc/field_kernels.cu
+  K4 mont_pow                 (pallas_field.py:481)   csrc/field_kernels.cu, chain_field.cuh
   K5 mont_prefix_scan         (pallas_field.py:1019)  csrc/field_kernels.cu
   K6 ec_prefix_scan_parts     (pallas_field.py:1333)  csrc/curve_kernels.cu
   K7 ec_prefix_scan_fused     (pallas_field.py:1410)  csrc/curve_kernels.cu
   K8 combine_windows          (pallas_field.py:560)   csrc/curve_kernels.cu, k8_combine.cuh
   K9 linear_scan              (pallas_field.py:1069)  csrc/field_kernels.cu
-  K10 sponge_squeeze2         (pallas_field.py:646)   csrc/field_kernels.cu
-  K11 endo_inv                (pallas_field.py:742)   csrc/field_kernels.cu
+  K10 sponge_squeeze2         (pallas_field.py:646)   csrc/field_kernels.cu, chain_field.cuh
+  K11 endo_inv                (pallas_field.py:742)   csrc/field_kernels.cu, chain_field.cuh
   K12 mont_prefix_scan_parts  (pallas_field.py:956)   csrc/field_kernels.cu
 
 and one kernel for a loop of them: the IPA fold step's endo ladder
@@ -149,9 +149,12 @@ def _bind_field(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.pst_linear_scan.argtypes = [_P, _P, _P, _P, _I64, _I64, _I64, _P]
     lib.pst_sponge_squeeze2.argtypes = [_P, _P, _P, _P, _P, ctypes.c_int, _P, _P, _P]
     lib.pst_endo_inv.argtypes = [_P, _P, ctypes.c_char_p, ctypes.c_int, _P, _P, _P, _P]
+    lib.pst_chain_attrs.argtypes = [ctypes.c_int, _P]
+    lib.pst_product_chain.argtypes = [_P, ctypes.c_int, _P, ctypes.c_int, _P, _P]
     for fn in (lib.pst_mont_mul, lib.pst_mont_pow, lib.pst_mont_prefix,
                lib.pst_mont_prefix_parts, lib.pst_linear_scan,
-               lib.pst_sponge_squeeze2, lib.pst_endo_inv):
+               lib.pst_sponge_squeeze2, lib.pst_endo_inv, lib.pst_chain_attrs,
+               lib.pst_product_chain):
         fn.restype = ctypes.c_int
     lib.pst_field_error_string.argtypes = [ctypes.c_int]
     lib.pst_field_error_string.restype = ctypes.c_char_p
@@ -219,6 +222,16 @@ def _check(*ts: torch.Tensor, same_shape: bool = True) -> torch.device:
 def _field_words(F) -> int:
     """Host address of F's 17 parameter words (kept alive by F)."""
     return F.kernel_params.ctypes.data
+
+
+# The Pasta shape that csrc/chain_field.cuh's product relies on (K4, K10,
+# K11): p's word 0 is 1, words 4-6 are 0, word 7 is 0x40000000, so
+# -p^-1 mod 2^32 is 0xFFFFFFFF.
+def _require_pasta(F, name: str) -> None:
+    w = [int(v) for v in F.kernel_params[:NL + 1]]
+    if w[0] != 1 or w[4:7] != [0, 0, 0] or w[7] != 0x40000000 or w[8] != 0xFFFFFFFF:
+        raise ValueError(f"{name} runs the Pasta moduli's product; p = {F.p:#x} has "
+                         "another shape")
 
 
 # ---------------------------------------------------------------------------
@@ -639,8 +652,10 @@ def mont_pow_plain(F, a: torch.Tensor, e: int) -> torch.Tensor:
 
 
 def mont_pow(F, a: torch.Tensor, e: int) -> torch.Tensor:
-    """a^e elementwise for a static exponent e (a in Montgomery form)."""
+    """a^e elementwise for a static exponent e (a in Montgomery form), over
+    a Pasta field."""
     dev = _check(a)
+    _require_pasta(F, "mont_pow")
     if dev.type == "cpu":
         return mont_pow_plain(F, a, e)
     digits = bytes(pow_digits(e))
@@ -1142,8 +1157,9 @@ def sponge_squeeze2(F, nrounds: int, state, xs, ys, consts):
     """Two sponge steps of the IPA round and the challenge read, over the
     base field F: absorb (x_L, y_L), permute, absorb (x_R, y_R), permute;
     returns (state' (8, 3) Montgomery, chal (8, 1) = REDC(state'[0]),
-    canonical). Points at infinity arrive as (0, 0)."""
+    canonical). Points at infinity arrive as (0, 0). F is a Pasta field."""
     dev = _sponge_args(nrounds, state, xs, ys, consts)
+    _require_pasta(F, "sponge_squeeze2")
     if dev.type == "cpu":
         return sponge_squeeze2_plain(F, nrounds, state, xs, ys, consts)
     st = torch.empty_like(state)
@@ -1154,6 +1170,40 @@ def sponge_squeeze2(F, nrounds: int, state, xs, ys, consts):
             chal.data_ptr())
     LAUNCHES["sponge_squeeze2"] += 1
     return st, chal
+
+
+def chain_attrs() -> dict[str, tuple[int, ...]]:
+    """Registers, local (stack) bytes, static and dynamic shared memory of
+    the kernels on chain_field.cuh's product: K10, K4 and K11."""
+    lib = LIBRARY.load().field
+    out = {}
+    for which, name in enumerate(("k_sponge_squeeze2", "k_mont_pow", "k_endo_inv")):
+        vals = (ctypes.c_int * 4)()
+        rc = lib.pst_chain_attrs(which, vals)
+        if rc != 0:
+            raise RuntimeError(f"pst_chain_attrs: CUDA error {rc}")
+        out[name] = tuple(vals)
+    return out
+
+
+# Kinds of pst_product_chain: a measurement of one product's latency, not a
+# kernel of the path.
+PRODUCT_CHAINS = {"fe_mul (CIOS, any field)": 0, "fe_mul_lat": 1, "fe_sqr_lat": 2,
+                  "fe_dot3_lat": 3}
+
+
+def product_chain(F, kind: int, x: torch.Tensor, steps: int) -> torch.Tensor:
+    """One thread's chain of `steps` dependent products of one kind (on the
+    card): a = a * x1, a^2 or dot3(a, x1, a, x2, a, x3) from a = x0, x (8,
+    4) Montgomery. Returns a (8, 1)."""
+    dev = _check(x)
+    if dev.type != "cuda" or x.shape != (NL, 4):
+        raise ValueError("product_chain takes (8, 4) operands on the card")
+    _require_pasta(F, "product_chain")
+    out = torch.empty((NL, 1), dtype=torch.int32, device=dev)
+    _launch(LIBRARY.load().field, "pst_product_chain", "pst_field_error_string", dev,
+            _field_words(F), kind, x.data_ptr(), steps, out.data_ptr())
+    return out
 
 
 def bits128(chal: torch.Tensor) -> torch.Tensor:
@@ -1193,8 +1243,10 @@ def endo_inv_plain(F, endo: int, bits):
 def endo_inv(F, endo: int, bits):
     """ScalarChallenge.to_field of the 128 challenge bits (least significant
     first) and the Fermat inverse of the result: (u, u^-1), (8, 1) each,
-    Montgomery, over the scalar field F. endo: the curve's endo_r."""
+    Montgomery, over the scalar field F (a Pasta field). endo: the curve's
+    endo_r."""
     dev = _endo_args(bits)
+    _require_pasta(F, "endo_inv")
     if dev.type == "cpu":
         return endo_inv_plain(F, endo, bits)
     digits = bytes(pow_digits(F.p - 2))
