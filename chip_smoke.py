@@ -9,9 +9,13 @@ Phases, each fatal on failure:
      and the native host library (MSM, Poseidon); print build times and
      ptxas's register, stack and spill lines of every function (the full
      ptxas log goes to build/kernels/<hash>/ptxas.log);
-  2. print the card;
+  2. print the card; one thread's chain of dependent products on the card
+     for field.cuh's CIOS fe_mul and for chain_field.cuh's product, square
+     and dot3 (us a step), and the registers and local memory of K10, K4
+     and K11 (K10 and K4 must have no stack);
   3. warm-up run of the main path, recording every kernel's largest call
-     (K2's, K7's and the endo ladder's at every call shape); then each
+     (K2's, K7's and the endo ladder's at every call shape, K4's at every
+     shape and exponent length); then each
      kernel against its plain PyTorch version on those inputs and on edge
      cases (field and transcript kernels, K2, K3, K8 and the ladder exact,
      K6 as group elements, K7 as group elements and exact where one thread
@@ -22,7 +26,8 @@ Phases, each fatal on failure:
      and K7's team size and tile width, the registers and local memory of
      K6's kernels and K7's combine, K8's registers, local memory and chain
      (products, levels, time a product), and the registers and local
-     memory of K2, K3 and the ladder;
+     memory of K2, K3 and the ladder, and for K10, K4 and K11 the us a
+     dependent level of their chains;
   4. the main path at k = 16 on Vesta, with launch counts zeroed just
      before and read just after: SRS.create(2^16), the scaled basis of
      g ++ [h], iNTT of 15 random witness columns, their 15 hiding commits
@@ -37,8 +42,8 @@ Phases, each fatal on failure:
      steady-state stage times (the proof split by the tracer's checkpoints
      in a separate, synchronised proof); then each kernel's device time
      and launches over one more proof and one more verification (CUDA
-     events around every wrapper call), and the time of K6, K7, K8, K2 and
-     the endo ladder at each call shape;
+     events around every wrapper call), and the time of K6, K7, K8, K2, K4
+     and the endo ladder at each call shape;
   5. every commitment against the native host MSM over g ++ [h], the iNTT
      against the CPU plain path, one b = 1 MSM at c = 10; the evaluations
      against host Horner; every round's L and R, sg, a0 and b0 against the
@@ -79,6 +84,10 @@ IMAD_RATE = 64 * 132 * 1.98e9
 # and 8 for the reduction factors. Products per curve operation:
 IMADS_PER_PRODUCT = 136
 PRODUCTS = {"add": 16, "madd": 11, "dbl": 7}
+# chain_field.cuh's product for the Pasta moduli (K4, K10, K11): 32-bit
+# multiply-adds of the partial products and of the 8 reduction steps (3
+# each: m times words 1-3 of p)
+LAT_IMADS = {"mul": 64 + 24, "sqr": 36 + 24, "dot3": 3 * 64 + 24}
 # The endo ladder a point: phi(x), the first add and doubling, 64 steps of a
 # doubling and an add
 LADDER_PRODUCTS = 1 + PRODUCTS["add"] + PRODUCTS["dbl"] + 64 * (PRODUCTS["dbl"] + PRODUCTS["add"])
@@ -107,9 +116,9 @@ SOURCES = {
 # The call of a kernel reported in the JSON line where the main path makes
 # two kinds (the others are printed): K6's mixed bucket scan.
 JSON_KEY = {"ec_prefix_scan_parts": "ec_prefix_scan_parts[mixed]"}
-# Kernels recorded and checked at every call shape; the JSON line reports
-# the largest call.
-BY_SHAPE = ("jacobian_add", "ec_prefix_scan_fused", "endo_ladder")
+# Kernels recorded and checked at every call shape (K4 at every shape and
+# exponent length); the JSON line reports the largest call.
+BY_SHAPE = ("jacobian_add", "ec_prefix_scan_fused", "endo_ladder", "mont_pow")
 
 
 def log(msg: str) -> None:
@@ -185,6 +194,8 @@ class Recorder:
                 key += f"[b=1,c={args[1]}]"  # single chains: sg, the verifier
             if name in BY_SHAPE:
                 key += f"[{shape_of(next(a for a in args if torch.is_tensor(a)))}]"
+            if name == "mont_pow":
+                key = k4_label(*args)
             size = sum(a.numel() for a in args if torch.is_tensor(a))
             if size > self.calls.get(key, (0,))[0]:
                 copy = [a.clone() if torch.is_tensor(a) else a for a in args]
@@ -261,6 +272,11 @@ def ladder_label(F, endo_q, x, *_) -> str:
     return f"endo_ladder[{shape_of(x)}]"
 
 
+def k4_label(F, a, e) -> str:
+    """A K4 call's label: its shape and the exponent's length."""
+    return f"mont_pow[{shape_of(a)} e {e.bit_length()} bits]"
+
+
 def k8_label(F, c, wx, wy, wz) -> str:
     """A K8 call's label: its windows, columns and window size."""
     return f"combine_windows[{wx.shape[1]}x{wx.shape[2]} c={c}]"
@@ -269,13 +285,13 @@ def k8_label(F, c, wx, wy, wz) -> str:
 # kernels whose time kernel_times also splits by call shape: short name, label
 SHAPE_LABELS = {"ec_prefix_scan_parts": ("K6", k6_label), "combine_windows": ("K8", k8_label),
                 "jacobian_add": ("K2", k2_label), "endo_ladder": ("ladder", ladder_label),
-                "ec_prefix_scan_fused": ("K7", k7_label)}
+                "ec_prefix_scan_fused": ("K7", k7_label), "mont_pow": ("K4", k4_label)}
 
 
 def kernel_times(result, device) -> None:
     """Each kernel's device time and launches over one proof and over one
-    verification of it, largest first, and the time of K6, K7, K8, K2 and
-    the endo ladder at each call shape."""
+    verification of it, largest first, and the time of K6, K7, K8, K2, K4
+    and the endo ladder at each call shape."""
     from proof_systems_tpu_torch.ops import kernels
 
     targets = [(kernels, name, SHAPE_LABELS[name][1] if name in SHAPE_LABELS else name)
@@ -354,6 +370,36 @@ def outputs_err(name: str, F, got, want) -> int:
     return err
 
 
+def pow_digit_count(e: int) -> int:
+    return (e.bit_length() + 3) // 4
+
+
+def pow_imads(e: int) -> int:
+    """Multiply-adds of one a^e (csrc/chain_field.cuh fe_pow_lat): the
+    table's 7 squares and 7 products, then 4 squares and a product for each
+    digit after the first."""
+    steps = max(pow_digit_count(e) - 1, 0)
+    return 7 * (LAT_IMADS["sqr"] + LAT_IMADS["mul"]) + steps * (4 * LAT_IMADS["sqr"]
+                                                                + LAT_IMADS["mul"])
+
+
+def pow_levels(e: int) -> tuple[int, int]:
+    """(products, dependent levels) of one a^e: the table's 14 products, of
+    which the first digit's entry waits for its depth in the tree, then 5
+    levels a digit after the first."""
+    nd = pow_digit_count(e)
+    if nd == 0:
+        return 14, 0
+    return 14 + 5 * (nd - 1), pow_tab_depth(e >> (4 * (nd - 1))) + 5 * (nd - 1)
+
+
+def pow_tab_depth(k: int) -> int:
+    """Depth of table entry k >= 2: tab[2j] = tab[j]^2, tab[2j+1] = tab[2j] a."""
+    if k < 2:
+        return 0
+    return pow_tab_depth(k // 2) + 1 + (k & 1)
+
+
 def bound_ms(name: str, args, kw) -> tuple[float, str]:
     """Least time for the call's work on an H100 SXM: bytes moved (inputs
     once, outputs once) over HBM bandwidth, or 32-bit multiply-adds over
@@ -370,17 +416,18 @@ def bound_ms(name: str, args, kw) -> tuple[float, str]:
         c, (W, b) = args[1], t[0].shape[1:]
         nbytes = 3 * fe * (W * b + b)
         products = b * k8_chain(W, c)[0]
-    elif name == "sponge_squeeze2":  # 2 permutations: sbox 4, MDS 9 a round
+    elif name == "sponge_squeeze2":  # 2 permutations of 3 x (x^7, a row of the MDS)
         nbytes = fe * sum(a[0].numel() for a in t) + fe * 4
-        products = 2 * args[1] * (3 * 4 + 9) + 1
-    elif name == "endo_inv":  # u = a*endo + b, then u^(p-2)
-        digits = ((args[0].p - 2).bit_length() + 3) // 4
-        nbytes, products = 4 * 128 + 2 * fe, 1 + 14 + 5 * digits
+        imads = 2 * args[1] * 3 * (2 * LAT_IMADS["sqr"] + 2 * LAT_IMADS["mul"]
+                                   + LAT_IMADS["dot3"]) + LAT_IMADS["mul"]
+        products = imads / IMADS_PER_PRODUCT
+    elif name == "endo_inv":  # u = a*endo + b (CIOS), then u^(p-2)
+        nbytes = 4 * 128 + 2 * fe
+        products = 1 + pow_imads(args[0].p - 2) / IMADS_PER_PRODUCT
     elif name == "mont_mul":
         nbytes, products = 3 * fe * elems, elems
     elif name == "mont_pow":
-        nd = (args[2].bit_length() + 3) // 4
-        nbytes, products = 2 * fe * elems, elems * (14 + 5 * nd)
+        nbytes, products = 2 * fe * elems, elems * pow_imads(args[2]) / IMADS_PER_PRODUCT
     elif name == "mont_prefix_scan":
         nbytes, products = 2 * fe * elems, 2 * elems
     elif name == "mont_prefix_scan_parts":  # partial and excl out
@@ -487,7 +534,8 @@ def k8_windows(curve, dc, rng, W: int, b: int, c: int, device):
 
 def edge_cases(device, curve_params):
     """Small inputs with the special values: 0, 1, p-1, 2^254-1 for the
-    field kernels; two rows of 300 for K9 with c = 0, 1 (a prefix sum),
+    field kernels, and K4 on one element 0, 1 or p - 1 with e = p - 2, 21
+    (an alpha exponent of the permutation) and 0; two rows of 300 for K9 with c = 0, 1 (a prefix sum),
     random and omega^(n - 3), and n = 1; two rows of 8,321 (C = 66,
     Cp = 70) with a zero element for K12; P+P, P+(-P), infinity on either
     side for the curve kernels; identities inside a scan row of length 300;
@@ -516,6 +564,9 @@ def edge_cases(device, curve_params):
             ("mont_pow", [F, a, 5], {}),
             ("mont_prefix_scan", [F, a.reshape(8, 2, 32).contiguous()], {}),
         ]
+        # K4 on one element, as a proof calls it: 0 (-> 0 but for e = 0), 1, p - 1
+        cases += [("mont_pow", [F, F.pack_mont([v], device=device), e], {})
+                  for v in (0, 1, fld.p - 1) for e in (fld.p - 2, 21, 0)]
 
     F = limb.device_field(Fp)
 
@@ -642,6 +693,20 @@ def k8_chain(W: int, c: int) -> tuple[int, int]:
     return (W - 1) * (7 * c + 16), (W - 1) * (3 * c + 5)
 
 
+def chain_levels(name: str, args) -> tuple[int, int]:
+    """(products, dependent levels) of one thread's chain in K4 (one
+    element), K11 (after its 64 steps of adds) or K10 (a lane: x^2, then
+    x^4 and x^3, then x^7, then its MDS row as one dot3, a round; the last
+    product is the challenge's REDC)."""
+    if name == "mont_pow":
+        return pow_levels(args[2])
+    if name == "endo_inv":
+        products, levels = pow_levels(args[0].p - 2)
+        return products + 1, levels + 1
+    rounds = 2 * args[1]
+    return 5 * rounds + 1, 4 * rounds + 1
+
+
 def chain_note(name: str, args, ms: float) -> str:
     """The dependent products one thread of a row scan runs (K7: adds); for
     K8 one column's chain, its levels and the time a product and a level."""
@@ -651,6 +716,10 @@ def chain_note(name: str, args, ms: float) -> str:
         products, levels = k8_chain(args[2].shape[1], args[1])
         return (f"; chain {products} dependent products in {levels} levels a column, "
                 f"{ms * 1e3 / products:.4f} us a product, {ms * 1e3 / levels:.4f} us a level")
+    if name in ("mont_pow", "endo_inv", "sponge_squeeze2"):
+        products, levels = chain_levels(name, args)
+        return (f"; chain {products} products in {levels} dependent levels, "
+                f"{ms * 1e3 / levels:.4f} us a level")
     if name == "ec_prefix_scan_fused":  # a team reduces, scans its totals, rescans
         team, cp = scan_team(args[1])[0], scan_chunk(args[1].shape[-1])
         sc = -(-cp // team)
@@ -690,6 +759,35 @@ def k7_note(kernels, args) -> str:
     regs, local, *_ = kernels.ec_prefix_scan_fused_attrs()
     return (f"K7 here: K6's kernels with team S = {team}, tile KT = {kt}, then the combine, "
             f"one thread a position: {regs} registers, {local} B local")
+
+
+def product_latency(kernels, device) -> None:
+    """One thread's chain of dependent products on the card, for the
+    product the kernels had before chain_field.cuh (field.cuh's CIOS fe_mul)
+    and for its product, square and dot3, from one call: us a step from the
+    difference of two chain lengths. Then the registers and local (stack)
+    bytes of K10, K4 and K11, which must keep nothing on a stack."""
+    from proof_systems_tpu_torch.fields import Fp
+    from proof_systems_tpu_torch.ops import limb
+
+    F = limb.device_field(Fp)
+    rng = random.Random(SEED + 6)
+    x = F.pack_mont([rng.randrange(Fp.p) for _ in range(4)], device=device)
+    short, long = 256, 2304
+    outs = {}
+    for name, kind in kernels.PRODUCT_CHAINS.items():
+        ms = [elapsed_ms(lambda: kernels.product_chain(F, kind, x, n), device, 5)
+              for n in (short, long)]
+        outs[kind] = kernels.product_chain(F, kind, x, long)
+        log(f"product latency: {name:26s} {(ms[1] - ms[0]) * 1e3 / (long - short):.4f} us a step")
+    if not torch.equal(outs[0], outs[1]):
+        raise AssertionError("fe_mul_lat's chain differs from fe_mul's")
+    attrs = kernels.chain_attrs()
+    log("chain kernels: " + "; ".join(f"{name}: {regs} registers, {local} B local"
+                                      for name, (regs, local, *_) in attrs.items()))
+    stacked = [n for n in ("k_sponge_squeeze2", "k_mont_pow") if attrs[n][1] != 0]
+    if stacked:
+        raise AssertionError(f"{stacked} keep a stack frame")
 
 
 def group_law_note(kernels) -> str:
@@ -1306,6 +1404,10 @@ def card_line() -> str:
 def run(device, log_n: int = LOG_N, cache_dir=None) -> list[dict]:
     from proof_systems_tpu_torch.curves import Vesta
     from proof_systems_tpu_torch.ops import kernels
+
+    if device.type == "cuda":
+        log("== one product's latency")
+        product_latency(kernels, device)
 
     log(f"== warm-up main path, k = {log_n}, recording kernel inputs")
     with Recorder(kernels) as rec:

@@ -1,28 +1,28 @@
-// Low-latency Montgomery arithmetic for the Pasta moduli, and the chains
-// that run on it: K4's exponentiation (fe_pow_lat, also K11's inverse) and
-// K10's two Poseidon permutations (sponge_squeeze2_lane).
+// A Montgomery product for the Pasta moduli with a short dependent chain,
+// and the chains that run on it: K4's exponentiation (fe_pow_lat, also
+// K11's inverse) and K10's two Poseidon permutations (sponge_squeeze2_lanes).
 //
-// Both Pasta primes have word 0 = 1, words 4-6 = 0, word 7 = 0x40000000
+// Both Pasta primes have word 0 = 1, words 4-6 = 0 and word 7 = 0x40000000
 // (32-bit words, little-endian), so -p^-1 mod 2^32 = 0xFFFFFFFF: a
-// reduction step's factor is m = -t_i and its product with p touches words
-// 0-3 and 7 only. Words 1-3 stay run-time FieldParams, so one build serves
-// Fp and Fq; pst_pasta_shape checks the rest on the host.
+// reduction step's factor is m = -t_i, and its product with p touches words
+// 1-3 and 7 only (word 7's is a shift). Words 1-3 stay run-time FieldParams,
+// so one build serves Fp and Fq; pst_pasta_shape checks the rest on the
+// host, and the launchers refuse another field.
 //
-// field.cuh's fe_mul is CIOS for any field: each of its 128 multiply-adds
-// waits for the carry of the one before, about 1,100 cycles a product on an
-// H100, and a chain of dependent products (K10's rounds, K4's squarings)
-// runs at that pace. This header's variants:
-//   PST_V_CIOS   CIOS specialised to the shape (m = -t_0, words 1-3 and 7);
-//   PST_V_ROLLED the same with its row loop rolled;
-//   PST_V_SEP    separated: the 64 (36 for a square) partial products go
-//                into 64-bit column sums, independent of one another, then
-//                8 reduction steps on the columns, one carry pass and one
-//                conditional subtraction;
-//   PST_V_PTX    CIOS in inline PTX carry chains (mad.lo.cc / madc.hi.cc)
-//                on the card, PST_V_CIOS elsewhere.
-// Every variant returns the canonical product, equal to fe_mul's limb for
-// limb. fe_dot3 is REDC(a0 b0 + a1 b1 + a2 b2): 3p^2 < p 2^256, so one
-// reduction and one conditional subtraction give the canonical result.
+// What bounds a chain on this card: one warp issues one instruction at a
+// time, and a 32-bit multiply-add or add of a warp occupies its 16-lane
+// pipe for two cycles, so one thread's product takes as long as its
+// instruction count allows, not its carry chain. field.cuh's CIOS fe_mul
+// (any field) takes 0.63-0.73 us on an H100. The separated product here
+// puts the 64 partial products (36 for a square) into 64-bit column sums
+// that do not wait for one another, then runs the 8 reduction steps on the
+// columns (3 multiplies a step), one carry pass and one conditional
+// subtraction: 0.47 us a product, 0.34 a square. fe_dot3_lat is REDC(a0 b0
+// + a1 b1 + a2 b2) in one reduction (3p^2 < p 2^256, so one conditional
+// subtraction gives the canonical result): 1.05 us against three products
+// and two adds. Every result is canonical and equal to fe_mul's limb for
+// limb. Specialised CIOS (rolled or not), CIOS in PTX carry chains, carry-
+// save rows and 16-bit halves of b were slower (PERF.md, PR 9).
 //
 // The code is C++ that g++ also compiles (tests/cuda_host/chain_host.cpp).
 
@@ -31,13 +31,6 @@
 #include "field.cuh"
 
 #define PST_P7 0x40000000u
-
-enum { PST_V_CIOS = 0, PST_V_ROLLED = 1, PST_V_SEP = 2, PST_V_PTX = 3 };
-
-// The product the kernels ship with.
-#ifndef PST_LAT
-#define PST_LAT PST_V_SEP
-#endif
 
 // Whether F has the Pasta shape this header relies on.
 static inline bool pst_pasta_shape(const FieldParams &F) {
@@ -53,7 +46,7 @@ __device__ __forceinline__ Fe fe_reduce_once(const FieldParams &F, const Fe &r) 
 }
 
 // ---------------------------------------------------------------------------
-// Separated: column sums, then the reduction
+// The product: column sums, then the reduction
 // ---------------------------------------------------------------------------
 
 // c += a * b as 64-bit sums of 32-bit halves: the low half of a_i b_j in
@@ -140,228 +133,203 @@ __device__ __forceinline__ Fe sep_dot3(const FieldParams &F, const Fe &a0, const
 }
 
 // ---------------------------------------------------------------------------
-// CIOS specialised to the Pasta shape
+// Variants timed against the separated product (scripts/torch_chain_bench.py
+// builds each with -DPST_LAT=v): 1 carry-save rows, 2 16-bit halves of b
 // ---------------------------------------------------------------------------
 
-// One CIOS row: t += a * bi, then t = (t + m p) / 2^32 with m = -t_0.
-__device__ __forceinline__ void cios_row(const FieldParams &F, uint32_t (&t)[PST_NL + 2],
-                                         const Fe &a, uint32_t bi) {
-    uint64_t carry = 0;
-#pragma unroll
-    for (int j = 0; j < PST_NL; ++j) {
-        const uint64_t cur = (uint64_t)a.v[j] * bi + t[j] + carry;
-        t[j] = (uint32_t)cur;
-        carry = cur >> 32;
-    }
-    uint64_t s = (uint64_t)t[PST_NL] + carry;
-    t[PST_NL] = (uint32_t)s;
-    t[PST_NL + 1] = (uint32_t)(s >> 32);
-    const uint32_t m = 0u - t[0];
-    carry = t[0] != 0u;
-    uint64_t cur = (uint64_t)m * F.p[1] + t[1] + carry;
-    t[0] = (uint32_t)cur;
-    cur = (uint64_t)m * F.p[2] + t[2] + (cur >> 32);
-    t[1] = (uint32_t)cur;
-    cur = (uint64_t)m * F.p[3] + t[3] + (cur >> 32);
-    t[2] = (uint32_t)cur;
-#pragma unroll
-    for (int j = 4; j < 7; ++j) {
-        cur = (uint64_t)t[j] + (cur >> 32);
-        t[j - 1] = (uint32_t)cur;
-    }
-    cur = ((uint64_t)m << 30) + t[7] + (cur >> 32);
-    t[6] = (uint32_t)cur;
-    s = (uint64_t)t[PST_NL] + (cur >> 32);
-    t[7] = (uint32_t)s;
-    t[PST_NL] = t[PST_NL + 1] + (uint32_t)(s >> 32);
-}
+#ifndef PST_LAT
+#define PST_LAT 0
+#endif
 
-template <bool ROLLED>
-__device__ __forceinline__ Fe cios_mul(const FieldParams &F, const Fe &a, const Fe &b) {
-    uint32_t t[PST_NL + 2] = {};
-    if constexpr (ROLLED) {
-        Fe bs = b;  // b's words shift down a row at a time: no run-time index
-#pragma unroll 1
-        for (int i = 0; i < PST_NL; ++i) {
-            cios_row(F, t, a, bs.v[0]);
-#pragma unroll
-            for (int k = 0; k + 1 < PST_NL; ++k) bs.v[k] = bs.v[k + 1];
-        }
-    } else {
-#pragma unroll
-        for (int i = 0; i < PST_NL; ++i) cios_row(F, t, a, b.v[i]);
-    }
-    Fe r;
-#pragma unroll
-    for (int l = 0; l < PST_NL; ++l) r.v[l] = t[l];
-    return fe_reduce_once(F, r);  // t < 2p: t[PST_NL] is 0
-}
-
-// ---------------------------------------------------------------------------
-// CIOS in PTX carry chains (the card only)
-// ---------------------------------------------------------------------------
-
-#if defined(__CUDA_ARCH__)
-__device__ __forceinline__ Fe ptx_mul(const FieldParams &F, const Fe &a, const Fe &b) {
-    uint32_t t0 = 0, t1 = 0, t2 = 0, t3 = 0, t4 = 0, t5 = 0, t6 = 0, t7 = 0, t8 = 0, t9 = 0;
-    const uint32_t p1 = F.p[1], p2 = F.p[2], p3 = F.p[3], p7 = PST_P7;
+// c += a * b. Row i adds a_j b_i + t_k + e_k (k = i + j) for every j at once:
+// (2^32 - 1)^2 + 2 (2^32 - 1) < 2^64, so each is one 64-bit multiply-add
+// with no carry from its neighbour; its low half is the new t_k, its high
+// half the new e_(k+1).
+__device__ __forceinline__ void rows_mac(uint64_t (&c)[16], const Fe &a, const Fe &b) {
+    uint32_t t[16] = {}, e[16] = {};
 #pragma unroll
     for (int i = 0; i < PST_NL; ++i) {
-        const uint32_t bi = b.v[i];
-        // t += a * bi: the low halves, then the high halves one word up
-        asm("mad.lo.cc.u32 %0, %10, %18, %0;\n\t"
-            "madc.lo.cc.u32 %1, %11, %18, %1;\n\t"
-            "madc.lo.cc.u32 %2, %12, %18, %2;\n\t"
-            "madc.lo.cc.u32 %3, %13, %18, %3;\n\t"
-            "madc.lo.cc.u32 %4, %14, %18, %4;\n\t"
-            "madc.lo.cc.u32 %5, %15, %18, %5;\n\t"
-            "madc.lo.cc.u32 %6, %16, %18, %6;\n\t"
-            "madc.lo.cc.u32 %7, %17, %18, %7;\n\t"
-            "addc.cc.u32 %8, %8, 0;\n\t"
-            "addc.u32 %9, 0, 0;\n\t"
-            "mad.hi.cc.u32 %1, %10, %18, %1;\n\t"
-            "madc.hi.cc.u32 %2, %11, %18, %2;\n\t"
-            "madc.hi.cc.u32 %3, %12, %18, %3;\n\t"
-            "madc.hi.cc.u32 %4, %13, %18, %4;\n\t"
-            "madc.hi.cc.u32 %5, %14, %18, %5;\n\t"
-            "madc.hi.cc.u32 %6, %15, %18, %6;\n\t"
-            "madc.hi.cc.u32 %7, %16, %18, %7;\n\t"
-            "madc.hi.cc.u32 %8, %17, %18, %8;\n\t"
-            "addc.u32 %9, %9, 0;"
-            : "+r"(t0), "+r"(t1), "+r"(t2), "+r"(t3), "+r"(t4), "+r"(t5), "+r"(t6), "+r"(t7),
-              "+r"(t8), "+r"(t9)
-            : "r"(a.v[0]), "r"(a.v[1]), "r"(a.v[2]), "r"(a.v[3]), "r"(a.v[4]), "r"(a.v[5]),
-              "r"(a.v[6]), "r"(a.v[7]), "r"(bi));
-        // t = (t + m p) / 2^32, m = -t0: t0 + m carries (t0 != 0)
-        const uint32_t m = 0u - t0;
-        asm("{\n\t"
-            ".reg .u32 z;\n\t"
-            "add.cc.u32 z, %0, %10;\n\t"
-            "madc.lo.cc.u32 %1, %10, %11, %1;\n\t"
-            "madc.lo.cc.u32 %2, %10, %12, %2;\n\t"
-            "madc.lo.cc.u32 %3, %10, %13, %3;\n\t"
-            "addc.cc.u32 %4, %4, 0;\n\t"
-            "addc.cc.u32 %5, %5, 0;\n\t"
-            "addc.cc.u32 %6, %6, 0;\n\t"
-            "madc.lo.cc.u32 %7, %10, %14, %7;\n\t"
-            "addc.cc.u32 %8, %8, 0;\n\t"
-            "addc.u32 %9, %9, 0;\n\t"
-            "mad.hi.cc.u32 %2, %10, %11, %2;\n\t"
-            "madc.hi.cc.u32 %3, %10, %12, %3;\n\t"
-            "madc.hi.cc.u32 %4, %10, %13, %4;\n\t"
-            "addc.cc.u32 %5, %5, 0;\n\t"
-            "addc.cc.u32 %6, %6, 0;\n\t"
-            "addc.cc.u32 %7, %7, 0;\n\t"
-            "madc.hi.cc.u32 %8, %10, %14, %8;\n\t"
-            "addc.u32 %9, %9, 0;\n\t"
-            "}"
-            : "+r"(t0), "+r"(t1), "+r"(t2), "+r"(t3), "+r"(t4), "+r"(t5), "+r"(t6), "+r"(t7),
-              "+r"(t8), "+r"(t9)
-            : "r"(m), "r"(p1), "r"(p2), "r"(p3), "r"(p7));
-        t0 = t1; t1 = t2; t2 = t3; t3 = t4; t4 = t5; t5 = t6; t6 = t7; t7 = t8; t8 = t9;
+        uint32_t ne[PST_NL];
+#pragma unroll
+        for (int j = 0; j < PST_NL; ++j) {
+            const uint64_t pr = (uint64_t)a.v[j] * b.v[i] + t[i + j] + e[i + j];
+            t[i + j] = (uint32_t)pr;
+            ne[j] = (uint32_t)(pr >> 32);
+        }
+        e[i] = 0;
+#pragma unroll
+        for (int j = 0; j < PST_NL; ++j) e[i + j + 1] = ne[j];
     }
-    Fe r;
-    r.v[0] = t0; r.v[1] = t1; r.v[2] = t2; r.v[3] = t3;
-    r.v[4] = t4; r.v[5] = t5; r.v[6] = t6; r.v[7] = t7;
-    return fe_reduce_once(F, r);
+#pragma unroll
+    for (int k = 0; k < 16; ++k) c[k] += (uint64_t)t[k] + e[k];
 }
-#endif
 
-// ---------------------------------------------------------------------------
-// The variants behind one interface
-// ---------------------------------------------------------------------------
-
-template <int V>
-__device__ __forceinline__ Fe mul_v(const FieldParams &F, const Fe &a, const Fe &b) {
-    if constexpr (V == PST_V_SEP) {
-        return sep_mul(F, a, b);
-    } else if constexpr (V == PST_V_ROLLED) {
-        return cios_mul<true>(F, a, b);
-    } else {
-#if defined(__CUDA_ARCH__)
-        if constexpr (V == PST_V_PTX) return ptx_mul(F, a, b);
-#endif
-        return cios_mul<false>(F, a, b);
+// E[k] += sum a_i lo16(b_j), O[k] += sum a_i hi16(b_j) over i + j = k: each
+// partial product one 64-bit multiply-add into its accumulator.
+__device__ __forceinline__ void split_mac(uint64_t (&E)[15], uint64_t (&O)[15], const Fe &a,
+                                          const Fe &b) {
+#pragma unroll
+    for (int j = 0; j < PST_NL; ++j) {
+        const uint32_t lo = b.v[j] & 0xFFFFu, hi = b.v[j] >> 16;
+#pragma unroll
+        for (int i = 0; i < PST_NL; ++i) {
+            E[i + j] += (uint64_t)a.v[i] * lo;
+            O[i + j] += (uint64_t)a.v[i] * hi;
+        }
     }
 }
 
-template <int V>
-__device__ __forceinline__ Fe sqr_v(const FieldParams &F, const Fe &a) {
-    if constexpr (V == PST_V_SEP) return sep_sqr(F, a);
-    else return mul_v<V>(F, a, a);
-}
-
-template <int V>
-__device__ __forceinline__ Fe dot3_v(const FieldParams &F, const Fe &a0, const Fe &b0,
-                                     const Fe &a1, const Fe &b1, const Fe &a2, const Fe &b2) {
-    if constexpr (V == PST_V_SEP) {
-        return sep_dot3(F, a0, b0, a1, b1, a2, b2);
-    } else {
-        const Fe s = fe_add(F, mul_v<V>(F, a0, b0), mul_v<V>(F, a1, b1));
-        return fe_add(F, s, mul_v<V>(F, a2, b2));
+__device__ __forceinline__ void split_fold(uint64_t (&c)[16], const uint64_t (&E)[15],
+                                           const uint64_t (&O)[15]) {
+#pragma unroll
+    for (int k = 0; k < 15; ++k) {
+        c[k] += E[k] + ((uint64_t)((uint32_t)O[k] & 0xFFFFu) << 16);
+        c[k + 1] += O[k] >> 16;
     }
 }
 
 __device__ __forceinline__ Fe fe_mul_lat(const FieldParams &F, const Fe &a, const Fe &b) {
-    return mul_v<PST_LAT>(F, a, b);
+#if PST_LAT == 1
+    uint64_t c[16] = {};
+    rows_mac(c, a, b);
+    return redc_cols(F, c);
+#elif PST_LAT == 2
+    uint64_t E[15] = {}, O[15] = {}, c[16] = {};
+    split_mac(E, O, a, b);
+    split_fold(c, E, O);
+    return redc_cols(F, c);
+#else
+    return sep_mul(F, a, b);
+#endif
 }
 
 __device__ __forceinline__ Fe fe_sqr_lat(const FieldParams &F, const Fe &a) {
-    return sqr_v<PST_LAT>(F, a);
+#if PST_LAT == 2
+    uint64_t E[15] = {}, O[15] = {}, c[16] = {};
+#pragma unroll
+    for (int j = 1; j < PST_NL; ++j) {
+        const uint32_t lo = a.v[j] & 0xFFFFu, hi = a.v[j] >> 16;
+#pragma unroll
+        for (int i = 0; i < j; ++i) {
+            E[i + j] += (uint64_t)a.v[i] * lo;
+            O[i + j] += (uint64_t)a.v[i] * hi;
+        }
+    }
+    split_fold(c, E, O);
+#pragma unroll
+    for (int k = 0; k < 16; ++k) c[k] += c[k];
+#pragma unroll
+    for (int i = 0; i < PST_NL; ++i) {
+        const uint64_t pr = (uint64_t)a.v[i] * a.v[i];
+        c[2 * i] += (uint32_t)pr;
+        c[2 * i + 1] += pr >> 32;
+    }
+    return redc_cols(F, c);
+#else
+    return sep_sqr(F, a);
+#endif
 }
 
 __device__ __forceinline__ Fe fe_dot3_lat(const FieldParams &F, const Fe &a0, const Fe &b0,
                                           const Fe &a1, const Fe &b1, const Fe &a2,
                                           const Fe &b2) {
-    return dot3_v<PST_LAT>(F, a0, b0, a1, b1, a2, b2);
+#if PST_LAT == 1
+    uint64_t c[16] = {};
+    rows_mac(c, a0, b0);
+    rows_mac(c, a1, b1);
+    rows_mac(c, a2, b2);
+    return redc_cols(F, c);
+#elif PST_LAT == 2
+    uint64_t E[15] = {}, O[15] = {}, c[16] = {};
+    split_mac(E, O, a0, b0);
+    split_mac(E, O, a1, b1);
+    split_mac(E, O, a2, b2);
+    split_fold(c, E, O);
+    return redc_cols(F, c);
+#else
+    return sep_dot3(F, a0, b0, a1, b1, a2, b2);
+#endif
 }
+
 
 // ---------------------------------------------------------------------------
 // K4 / K11: a^e
 // ---------------------------------------------------------------------------
 
-// Exponent as 4-bit digits, most significant first (at most 256 bits).
+// Exponent as nd 4-bit digits, most significant first (at most 256 bits),
+// left-aligned in w: digit k at bits 255 - 4k .. 252 - 4k. The chain reads
+// the top nibble and shifts w, so no digit is read at a run-time index.
 struct PowDigits {
-    uint8_t d[64];
+    uint32_t w[PST_NL];
     int32_t nd;
 };
 
-// tab[d] without a run-time index into the table: a select over registers.
-__device__ __forceinline__ Fe tab_select(const Fe (&tab)[16], uint32_t d) {
-    Fe r = tab[0];
-#pragma unroll
-    for (int j = 1; j < 16; ++j)
-        if (d == (uint32_t)j) r = tab[j];
-    return r;
+// Packs the digits; false if there are more than 64 or one is not a nibble.
+static inline bool pst_pow_digits(PowDigits &e, const uint8_t *digits, int nd) {
+    if (nd < 0 || nd > 64) return false;
+    std::memset(&e, 0, sizeof(e));
+    for (int k = 0; k < nd; ++k) {
+        if (digits[k] > 15) return false;
+        const int bit = 252 - 4 * k;
+        e.w[bit / 32] |= (uint32_t)digits[k] << (bit % 32);
+    }
+    e.nd = nd;
+    return true;
 }
 
-// a^e with 4-bit windows, most significant first (pallas_field.py:497-520):
-// the 15-entry table as a tree (tab[2k] = tab[k]^2, tab[2k+1] = tab[2k] a:
-// depth 6, its products independent), the chain from tab[d_0], then 4
-// squarings and one product a digit.
-template <int V>
-__device__ __forceinline__ Fe pow_v(const FieldParams &F, const Fe &a, const PowDigits &e) {
-    Fe tab[16];
-    tab[0] = fe_one(F);
-    tab[1] = a;
+// The top digit of w, then w <<= 4.
+__device__ __forceinline__ uint32_t pow_next_digit(PowDigits &e) {
+    const uint32_t d = e.w[PST_NL - 1] >> 28;
+#pragma unroll
+    for (int l = PST_NL - 1; l > 0; --l) e.w[l] = (e.w[l] << 4) | (e.w[l - 1] >> 28);
+    e.w[0] <<= 4;
+    return d;
+}
+
+// a^e with 4-bit windows, most significant first (pallas_field.py:497-520).
+// The 16-entry table (tab[0] = one) is a tree, tab[2k] = tab[k]^2 and
+// tab[2k+1] = tab[2k] a (depth 6, its products independent), kept in shared
+// memory: word l of entry k at tab[(8k + l) * stride], so that the threads
+// of a warp, given consecutive tab and stride = blockDim, read consecutive
+// words. The chain starts from tab[d_0], then runs 4 squarings and one
+// product a digit.
+__device__ __forceinline__ Fe fe_pow_lat(const FieldParams &F, const Fe &a, PowDigits e,
+                                         uint32_t *tab, int stride) {
+    auto put = [&](int k, const Fe &v) {
+#pragma unroll
+        for (int l = 0; l < PST_NL; ++l) tab[(PST_NL * k + l) * stride] = v.v[l];
+    };
+    auto get = [&](uint32_t k) {
+        Fe v;
+#pragma unroll
+        for (int l = 0; l < PST_NL; ++l) v.v[l] = tab[(PST_NL * k + l) * stride];
+        return v;
+    };
+    const Fe one = fe_one(F);
+    Fe low[8];  // entries 0-7 stay in registers for the tree
+    low[0] = one;
+    low[1] = a;
+    put(0, one);
+    put(1, a);
 #pragma unroll
     for (int k = 1; k < 8; ++k) {
-        tab[2 * k] = sqr_v<V>(F, tab[k]);
-        tab[2 * k + 1] = mul_v<V>(F, tab[2 * k], a);
+        const Fe ev = fe_sqr_lat(F, low[k]);
+        const Fe od = fe_mul_lat(F, ev, a);
+        put(2 * k, ev);
+        put(2 * k + 1, od);
+        if (2 * k < 8) low[2 * k] = ev;
+        if (2 * k + 1 < 8) low[2 * k + 1] = od;
     }
-    if (e.nd == 0) return tab[0];
-    Fe acc = tab_select(tab, e.d[0]);
+    if (e.nd == 0) return one;
+    Fe acc = get(pow_next_digit(e));
 #pragma unroll 1
     for (int k = 1; k < e.nd; ++k) {
+        const Fe m = get(pow_next_digit(e));
 #pragma unroll
-        for (int s = 0; s < 4; ++s) acc = sqr_v<V>(F, acc);
-        acc = mul_v<V>(F, acc, tab_select(tab, e.d[k]));
+        for (int s = 0; s < 4; ++s) acc = fe_sqr_lat(F, acc);
+        acc = fe_mul_lat(F, acc, m);
     }
     return acc;
-}
-
-__device__ __forceinline__ Fe fe_pow_lat(const FieldParams &F, const Fe &a, const PowDigits &e) {
-    return pow_v<PST_LAT>(F, a, e);
 }
 
 // ---------------------------------------------------------------------------
@@ -371,18 +339,80 @@ __device__ __forceinline__ Fe fe_pow_lat(const FieldParams &F, const Fe &a, cons
 // consts (8, 3 * nrounds + 9): rc[r][j] in column 3r + j, then mds[i][j] in
 // column 3 * nrounds + 3i + j.
 
-// One lane a state element (lanes 0-2 of a warp; the others mirror lane 2
-// and store nothing): each round is x^7 in three levels (x^2; x^4 and x^3;
-// x^7), the three x^7 gathered by shuffles, the lane's MDS row as one
-// fe_dot3, and the round constant, loaded a round ahead.
-template <int V>
-__device__ __forceinline__ void sponge_lane(const FieldParams &F, int lane,
+__device__ __forceinline__ Fe shfl_fe(const Fe &a, int src) {
+    Fe r;
+#pragma unroll
+    for (int l = 0; l < PST_NL; ++l) r.v[l] = __shfl_sync(0xffffffffu, a.v[l], src);
+    return r;
+}
+
+__device__ __forceinline__ uint64_t shfl_u64(uint64_t v, int src) {
+    const uint32_t lo = __shfl_sync(0xffffffffu, (uint32_t)v, src);
+    const uint32_t hi = __shfl_sync(0xffffffffu, (uint32_t)(v >> 32), src);
+    return ((uint64_t)hi << 32) | lo;
+}
+
+// One warp. Lane 3i + j takes row i and column j of the MDS (lanes 9-31
+// mirror lane 8 and store nothing), and every lane holds s_j. A round runs
+// x^7 in three product levels, with x^4 and x^3 on different lanes: x^2;
+// one product, x^2 * x^2 = x^4 on row 0's lanes and x^2 * s = x^3 on row
+// 1's; both gathered by shuffles into x^7 = x^4 * x^3 on every lane. Then
+// the lane's MDS entry times x^7_j as column sums, summed over the row's
+// three lanes by shuffles and reduced once on lane 3i (a dot3 whose three
+// products run on three lanes), plus the round constant, loaded a round
+// ahead; s_j comes back from lane 3j. No shared memory, no barrier.
+__device__ __forceinline__ void sponge_squeeze2_lanes(const FieldParams &F, int lane,
                                             const uint32_t *__restrict__ state,
                                             const uint32_t *__restrict__ xs,
                                             const uint32_t *__restrict__ ys,
                                             const uint32_t *__restrict__ consts, int nrounds,
                                             uint32_t *__restrict__ ost,
                                             uint32_t *__restrict__ ochal) {
+    const int L = lane < 9 ? lane : 8;
+    const int i = L / 3, j = L % 3;
+    const int64_t cstride = 3 * (int64_t)nrounds + 9;
+    const Fe mds = fe_load(consts, cstride, 3 * nrounds + 3 * i + j);
+    Fe s = fe_load(state, 3, j);
+    for (int k = 0; k < 2; ++k) {
+        if (j == 0) s = fe_add(F, s, fe_load(xs, 2, k));
+        if (j == 1) s = fe_add(F, s, fe_load(ys, 2, k));
+        Fe rc = fe_load(consts, cstride, i);
+#pragma unroll 1
+        for (int r = 0; r < nrounds; ++r) {
+            const Fe rc_next = fe_load(consts, cstride, 3 * (r + 1 < nrounds ? r + 1 : r) + i);
+            const Fe x2 = fe_sqr_lat(F, s);
+            Fe v;  // x^2 on row 0, s on the others: x^4 and x^3
+#pragma unroll
+            for (int l = 0; l < PST_NL; ++l) v.v[l] = i == 0 ? x2.v[l] : s.v[l];
+            const Fe u = fe_mul_lat(F, x2, v);
+            const Fe x7 = fe_mul_lat(F, shfl_fe(u, j), shfl_fe(u, 3 + j));
+            uint64_t c[16] = {};
+            cols_mac(c, mds, x7);
+#pragma unroll
+            for (int q = 0; q < 16; ++q)
+                c[q] += shfl_u64(c[q], (L + 1) % 32) + shfl_u64(c[q], (L + 2) % 32);
+            const Fe row = fe_add(F, redc_cols(F, c), rc);  // s'_i on lane 3i
+            s = shfl_fe(row, 3 * j);
+            rc = rc_next;
+        }
+    }
+    if (lane < 3) fe_store(ost, 3, j, s);
+    if (lane == 0) {
+        Fe one = fe_zero();
+        one.v[0] = 1;  // the product with plain 1 is REDC
+        fe_store(ochal, 1, 0, fe_mul_lat(F, s, one));
+    }
+}
+
+// The three-lane variant (-DPST_SPONGE=3): lane t < 3 owns s_t, runs x^2,
+// x^4, x^3, x^7 and its MDS row as one fe_dot3_lat.
+__device__ __forceinline__ void sponge_three(const FieldParams &F, int lane,
+                                             const uint32_t *__restrict__ state,
+                                             const uint32_t *__restrict__ xs,
+                                             const uint32_t *__restrict__ ys,
+                                             const uint32_t *__restrict__ consts, int nrounds,
+                                             uint32_t *__restrict__ ost,
+                                             uint32_t *__restrict__ ochal) {
     const int t = lane < 3 ? lane : 2;
     const int64_t cstride = 3 * (int64_t)nrounds + 9;
     Fe mds[3];
@@ -396,70 +426,19 @@ __device__ __forceinline__ void sponge_lane(const FieldParams &F, int lane,
 #pragma unroll 1
         for (int r = 0; r < nrounds; ++r) {
             const Fe rc_next = fe_load(consts, cstride, 3 * (r + 1 < nrounds ? r + 1 : r) + t);
-            const Fe x2 = sqr_v<V>(F, s);
-            const Fe x4 = sqr_v<V>(F, x2);
-            const Fe x3 = mul_v<V>(F, x2, s);
-            const Fe x7 = mul_v<V>(F, x4, x3);
-            Fe y[3];
-#pragma unroll
-            for (int j = 0; j < 3; ++j)
-#pragma unroll
-                for (int l = 0; l < PST_NL; ++l) y[j].v[l] = __shfl_sync(0xffffffffu, x7.v[l], j);
-            s = fe_add(F, dot3_v<V>(F, mds[0], y[0], mds[1], y[1], mds[2], y[2]), rc);
+            const Fe x2 = fe_sqr_lat(F, s);
+            const Fe x4 = fe_sqr_lat(F, x2);
+            const Fe x3 = fe_mul_lat(F, x2, s);
+            const Fe x7 = fe_mul_lat(F, x4, x3);
+            const Fe y0 = shfl_fe(x7, 0), y1 = shfl_fe(x7, 1), y2 = shfl_fe(x7, 2);
+            s = fe_add(F, fe_dot3_lat(F, mds[0], y0, mds[1], y1, mds[2], y2), rc);
             rc = rc_next;
         }
     }
     if (lane < 3) fe_store(ost, 3, t, s);
     if (lane == 0) {
         Fe one = fe_zero();
-        one.v[0] = 1;  // the product with plain 1 is REDC
-        fe_store(ochal, 1, 0, mul_v<V>(F, s, one));
+        one.v[0] = 1;
+        fe_store(ochal, 1, 0, fe_mul_lat(F, s, one));
     }
-}
-
-// One thread, the three state elements as three interleaved chains.
-template <int V>
-__device__ __forceinline__ void sponge_thread(const FieldParams &F,
-                                              const uint32_t *__restrict__ state,
-                                              const uint32_t *__restrict__ xs,
-                                              const uint32_t *__restrict__ ys,
-                                              const uint32_t *__restrict__ consts, int nrounds,
-                                              uint32_t *__restrict__ ost,
-                                              uint32_t *__restrict__ ochal) {
-    const int64_t cstride = 3 * (int64_t)nrounds + 9;
-    Fe mds[9], s[3], rc[3];
-#pragma unroll
-    for (int j = 0; j < 9; ++j) mds[j] = fe_load(consts, cstride, 3 * nrounds + j);
-#pragma unroll
-    for (int j = 0; j < 3; ++j) s[j] = fe_load(state, 3, j);
-    for (int k = 0; k < 2; ++k) {
-        s[0] = fe_add(F, s[0], fe_load(xs, 2, k));
-        s[1] = fe_add(F, s[1], fe_load(ys, 2, k));
-#pragma unroll
-        for (int j = 0; j < 3; ++j) rc[j] = fe_load(consts, cstride, j);
-#pragma unroll 1
-        for (int r = 0; r < nrounds; ++r) {
-            const int rn = r + 1 < nrounds ? r + 1 : r;
-            Fe rc_next[3], x7[3];
-#pragma unroll
-            for (int j = 0; j < 3; ++j) rc_next[j] = fe_load(consts, cstride, 3 * rn + j);
-#pragma unroll
-            for (int j = 0; j < 3; ++j) {
-                const Fe x2 = sqr_v<V>(F, s[j]);
-                x7[j] = mul_v<V>(F, sqr_v<V>(F, x2), mul_v<V>(F, x2, s[j]));
-            }
-#pragma unroll
-            for (int i = 0; i < 3; ++i)
-                s[i] = fe_add(F, dot3_v<V>(F, mds[3 * i], x7[0], mds[3 * i + 1], x7[1],
-                                           mds[3 * i + 2], x7[2]),
-                              rc[i]);
-#pragma unroll
-            for (int j = 0; j < 3; ++j) rc[j] = rc_next[j];
-        }
-    }
-#pragma unroll
-    for (int j = 0; j < 3; ++j) fe_store(ost, 3, j, s[j]);
-    Fe one = fe_zero();
-    one.v[0] = 1;
-    fe_store(ochal, 1, 0, mul_v<V>(F, s[0], one));
 }

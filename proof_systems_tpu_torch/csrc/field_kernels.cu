@@ -52,6 +52,10 @@
 
 #include "chain_field.cuh"
 
+#ifndef PST_SPONGE
+#define PST_SPONGE 9
+#endif
+
 __global__ void __launch_bounds__(256)
     k_mont_mul(FieldParams F, const uint32_t *__restrict__ a, const uint32_t *__restrict__ b,
                uint32_t *__restrict__ o, int64_t n) {
@@ -60,12 +64,16 @@ __global__ void __launch_bounds__(256)
     fe_store(o, n, i, fe_mul(F, fe_load(a, n, i), fe_load(b, n, i)));
 }
 
-__global__ void __launch_bounds__(128)
+// One thread an element, POW_BLOCK threads a block, each with its 16-entry
+// table in the block's shared memory (32 KB).
+#define POW_BLOCK 64
+__global__ void __launch_bounds__(POW_BLOCK)
     k_mont_pow(FieldParams F, PowDigits e, const uint32_t *__restrict__ a,
                uint32_t *__restrict__ o, int64_t n) {
+    __shared__ uint32_t tab[16 * PST_NL * POW_BLOCK];
     int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
     if (i >= n) return;
-    fe_store(o, n, i, fe_pow_lat(F, fe_load(a, n, i), e));
+    fe_store(o, n, i, fe_pow_lat(F, fe_load(a, n, i), e, tab + threadIdx.x, POW_BLOCK));
 }
 
 // Exclusive Hillis-Steele product over the block's lane values `v` (neutral:
@@ -186,7 +194,11 @@ __global__ void __launch_bounds__(32)
                       const uint32_t *__restrict__ xs, const uint32_t *__restrict__ ys,
                       const uint32_t *__restrict__ consts, int nrounds,
                       uint32_t *__restrict__ ost, uint32_t *__restrict__ ochal) {
-    sponge_lane<PST_LAT>(F, threadIdx.x, state, xs, ys, consts, nrounds, ost, ochal);
+#if PST_SPONGE == 3
+    sponge_three(F, threadIdx.x, state, xs, ys, consts, nrounds, ost, ochal);
+#else
+    sponge_squeeze2_lanes(F, threadIdx.x, state, xs, ys, consts, nrounds, ost, ochal);
+#endif
 }
 
 // One thread. bits: 128 int32 challenge bits, least significant first;
@@ -209,7 +221,8 @@ __global__ void __launch_bounds__(32)
     }
     const Fe u = fe_add(F, fe_mul(F, a, endo), b);
     fe_store(ou, 1, 0, u);
-    fe_store(oinv, 1, 0, fe_pow_lat(F, u, e));
+    __shared__ uint32_t tab[16 * PST_NL];
+    fe_store(oinv, 1, 0, fe_pow_lat(F, u, e, tab, 1));
 }
 
 // One thread's chain of `steps` dependent products of one kind, to time a
@@ -238,11 +251,7 @@ __global__ void __launch_bounds__(32)
 }
 
 static int pow_digits(PowDigits &e, const uint8_t *digits, int nd) {
-    if (nd < 0 || nd > 64) return (int)cudaErrorInvalidValue;
-    std::memset(&e, 0, sizeof(e));
-    std::memcpy(e.d, digits, nd);
-    e.nd = nd;
-    return 0;
+    return pst_pow_digits(e, digits, nd) ? 0 : (int)cudaErrorInvalidValue;
 }
 
 extern "C" {
@@ -264,8 +273,8 @@ int pst_mont_pow(const uint32_t *fp, const uint8_t *digits, int nd, const uint32
     const FieldParams F = pst_field_params(fp);
     if (!pst_pasta_shape(F)) return (int)cudaErrorInvalidValue;
     if (n > 0) {
-        int64_t blocks = (n + 127) / 128;
-        k_mont_pow<<<(unsigned)blocks, 128, 0, (cudaStream_t)stream>>>(F, e, a, o, n);
+        int64_t blocks = (n + POW_BLOCK - 1) / POW_BLOCK;
+        k_mont_pow<<<(unsigned)blocks, POW_BLOCK, 0, (cudaStream_t)stream>>>(F, e, a, o, n);
     }
     return (int)cudaGetLastError();
 }

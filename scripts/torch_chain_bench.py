@@ -11,13 +11,14 @@ at 1 and 3 elements with e = p - 2, at one element with e = 21, and at
 24 x 65,537 with e = p - 2, K11 on 128 bits; CUDA events, mean of REPS
 calls after one) and checks each against its plain version limb for limb.
 
-Without --shapes-only it also builds scripts/chain_variants.cu and, in the
-same process, times chain_field.cuh's product variants: one thread's chain
-of dependent products, squares and dot3s (us a product, from the difference
-of two chain lengths), K10 on each variant with one warp or one thread,
-and K4 on each variant with the table selected over registers or read from
-shared memory; prints each kernel's registers and local (stack) bytes and
-checks every output against the plain versions.
+Without --shapes-only it also builds csrc/field_kernels.cu once for each
+variant of chain_field.cuh's product (PST_LAT) and K10's lanes
+(PST_SPONGE) and, in the same process,
+times each: one thread's chain of dependent products of field.cuh's CIOS
+fe_mul, fe_mul_lat, fe_sqr_lat and fe_dot3_lat (us a step, from the
+difference of two chain lengths), and K10, K4 and K11 at the shapes above;
+prints K10's, K4's and K11's registers and local (stack) bytes and checks
+every output against the plain versions.
 
 --shapes-only times the public wrappers and nothing else, so that another
 checkout (given with --root) can be timed beside this one in the same call.
@@ -28,7 +29,6 @@ from __future__ import annotations
 
 import argparse
 import ctypes
-import hashlib
 import pathlib
 import random
 import subprocess
@@ -39,11 +39,12 @@ import torch
 REPS = 20
 SEED = 20261019
 HERE = pathlib.Path(__file__).resolve().parent
-VARIANTS = {0: "CIOS, Pasta shape", 1: "CIOS, rolled rows", 2: "separated columns",
-            3: "CIOS in PTX carry chains", 4: "field.cuh fe_mul (any field)"}
-KINDS = {0: "product", 1: "square", 2: "dot3"}
-SPONGE = [(0, 0), (1, 0), (2, 0), (3, 0), (2, 1), (0, 1)]  # (variant, 0 warp / 1 thread)
-POW = [(v, t) for v in range(4) for t in (0, 1)]  # (variant, 0 registers / 1 shared)
+# builds of field_kernels.cu: chain_field.cuh's product (PST_LAT) and K10's
+# lanes (PST_SPONGE)
+VARIANTS = {0: ("separated column sums, K10 on 3 lanes", ["-DPST_LAT=0", "-DPST_SPONGE=3"]),
+            1: ("separated column sums, K10 on 9 lanes", ["-DPST_LAT=0", "-DPST_SPONGE=9"]),
+            2: ("carry-save rows, K10 on 9 lanes", ["-DPST_LAT=1", "-DPST_SPONGE=9"]),
+            3: ("16-bit halves of b, K10 on 9 lanes", ["-DPST_LAT=2", "-DPST_SPONGE=9"])}
 
 
 def timed_ms(fn, reps: int = REPS) -> float:
@@ -93,7 +94,7 @@ def inputs(dev):
     return sponge, pows, (Fpd, Vesta.endos[1], bits)
 
 
-def time_wrappers(kernels, sponge, pows, endo, check: bool) -> bool:
+def time_wrappers(kernels, sponge, pows, endo, check: bool, prefix: str = "") -> bool:
     ok = True
     cases = [("K10 sponge_squeeze2", kernels.sponge_squeeze2, kernels.sponge_squeeze2_plain,
               sponge)]
@@ -107,103 +108,64 @@ def time_wrappers(kernels, sponge, pows, endo, check: bool) -> bool:
             equal = same(fn(*args), plain(*args))
             ok &= equal
             note = f"; = plain: {equal}"
-        print(f"{label:36s} {ms:.4f} ms{note}", flush=True)
+        print(f"{prefix}{label:36s} {ms:.4f} ms{note}", flush=True)
     return ok
 
 
-def build_variants(out_root: pathlib.Path) -> ctypes.CDLL:
+def build_variants(out_root: pathlib.Path) -> dict:
+    """field_kernels.cu built once for each variant, in parallel; {v: the
+    loaded library}."""
     from proof_systems_tpu_torch.ops import kernels
 
-    src = HERE / "chain_variants.cu"
-    h = hashlib.sha256(src.read_bytes())
-    for p in sorted(kernels.CSRC.glob("*.cuh")):
-        h.update(p.read_bytes())
-    out = out_root / "chain_variants" / h.hexdigest()[:16]
+    src = kernels.CSRC / "field_kernels.cu"
+    out = out_root / "chain_variants" / kernels._source_tag()
     out.mkdir(parents=True, exist_ok=True)
-    so = out / "chain_variants.so"
-    if not so.exists():
-        cmd = [kernels._nvcc(), *kernels.NVCC_FLAGS, "-I", str(kernels.CSRC), "-o", str(so),
-               str(src)]
-        res = subprocess.run(cmd, capture_output=True, text=True)
-        for line in res.stdout.splitlines() + res.stderr.splitlines():
-            if any(k in line for k in ("Compiling entry", "registers", "spill", "error")):
-                print("ptxas: " + line.strip(), flush=True)
-        if res.returncode != 0:
-            raise RuntimeError("nvcc failed for chain_variants.cu")
-    lib = ctypes.CDLL(str(so))
-    P, I = ctypes.c_void_p, ctypes.c_int
-    lib.pstv_lat.argtypes = [P, I, P, I, I, P, P, P]
-    lib.pstv_sponge.argtypes = [P, I, I, P, P, P, P, I, P, P, P, P]
-    lib.pstv_pow.argtypes = [P, I, I, ctypes.c_char_p, I, P, P, ctypes.c_int64, P, P]
-    for fn in (lib.pstv_lat, lib.pstv_sponge, lib.pstv_pow):
-        fn.restype = I
-    return lib
+    procs = {}
+    for v in VARIANTS:
+        so = out / f"field_{v}.so"
+        if not so.exists():
+            cmd = [kernels._nvcc(), *kernels.NVCC_FLAGS, *VARIANTS[v][1], "-o", str(so), str(src)]
+            procs[v] = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                        text=True)
+    for v, proc in procs.items():
+        text, _ = proc.communicate()
+        keep = [ln.strip() for ln in text.splitlines()
+                if any(k in ln for k in ("Compiling entry", "registers", "spill", "error"))]
+        print(f"ptxas, variant {v}:\n  " + "\n  ".join(keep), flush=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for variant {v}")
+    return {v: kernels._bind_field(ctypes.CDLL(str(out / f"field_{v}.so"))) for v in VARIANTS}
 
 
-def variants(lib, kernels, sponge, pows, dev) -> bool:
+def variants(libs: dict, kernels, sponge, pows, endo, dev) -> bool:
+    """Each variant's product chains, K10, K4 and K11 in one process."""
     from proof_systems_tpu_torch.fields import Fp
     from proof_systems_tpu_torch.ops import limb
 
-    stream = lambda: torch.cuda.current_stream(dev).cuda_stream  # noqa: E731
-    attrs = (ctypes.c_int * 2)()
     ok = True
-
-    def call(fn, *args):
-        rc = fn(*args, ctypes.addressof(attrs), stream())
-        if rc != 0:
-            raise RuntimeError(f"{fn.__name__}: CUDA error {rc}")
-
     F = limb.device_field(Fp)
     rng = random.Random(SEED + 1)
     x = F.pack_mont([rng.randrange(Fp.p) for _ in range(4)], device=dev)
-    fp = kernels._field_words(F)
     short, long = 256, 2304
-    for kind, kname in KINDS.items():
-        ref = None
-        for v, vname in VARIANTS.items():
-            outs = {}
-            times = {}
+    ref = {}
+    for v, lib in libs.items():
+        kernels.LIBRARY.field = lib  # the wrappers launch this variant's kernels
+        attrs = kernels.chain_attrs()
+        print(f"variant {v} ({VARIANTS[v][0]}): " + "; ".join(
+            f"{name} {regs} registers, {local} B local" for name, (regs, local, *_) in
+            attrs.items()), flush=True)
+        for name, kind in kernels.PRODUCT_CHAINS.items():
+            times, outs = {}, {}
             for steps in (short, long):
-                o = torch.empty((8, 1), dtype=torch.int32, device=dev)
-                times[steps] = timed_ms(lambda: call(lib.pstv_lat, fp, v, x.data_ptr(), kind,
-                                                     steps, o.data_ptr()), reps=5)
-                outs[steps] = o
+                times[steps] = timed_ms(lambda: kernels.product_chain(F, kind, x, steps), reps=5)
+                outs[steps] = kernels.product_chain(F, kind, x, steps)
             us = (times[long] - times[short]) * 1e3 / (long - short)
-            if ref is None:
-                ref = outs
-            equal = all(torch.equal(outs[s], ref[s]) for s in outs)
+            base = ref.setdefault(max(kind, 1), outs)  # fe_mul's chain is fe_mul_lat's
+            equal = all(torch.equal(outs[s], base[s]) for s in outs)
             ok &= equal
-            print(f"chain {kname:7s} variant {v} ({vname:28s}): {us:.4f} us a {kname}, "
-                  f"{attrs[0]} registers, {attrs[1]} B local; = variant 0: {equal}", flush=True)
-
-    st = torch.empty_like(sponge[2])
-    chal = torch.empty((8, 1), dtype=torch.int32, device=dev)
-    want = kernels.sponge_squeeze2_plain(*sponge)
-    Fq_words = kernels._field_words(sponge[0])
-    for v, design in SPONGE:
-        ms = timed_ms(lambda: call(lib.pstv_sponge, Fq_words, v, design,
-                                   *[t.data_ptr() for t in sponge[2:5]], sponge[5].data_ptr(),
-                                   sponge[1], st.data_ptr(), chal.data_ptr()))
-        equal = same((st, chal), want)
-        ok &= equal
-        levels = 2 * sponge[1] * 4
-        print(f"K10 variant {v} ({VARIANTS[v]}), {'one warp' if design == 0 else 'one thread'}: "
-              f"{ms:.4f} ms, {ms * 1e3 / levels:.4f} us a level ({levels}); {attrs[0]} "
-              f"registers, {attrs[1]} B local; = plain: {equal}", flush=True)
-
-    for label, (Fd, a, e) in pows:
-        digits = bytes(kernels.pow_digits(e))
-        want = kernels.mont_pow_plain(Fd, a, e)
-        o = torch.empty_like(a)
-        for v, table in POW:
-            ms = timed_ms(lambda: call(lib.pstv_pow, kernels._field_words(Fd), v, table, digits,
-                                       len(digits), a.data_ptr(), o.data_ptr(), a[0].numel()),
-                          reps=5 if a[0].numel() > 1000 else REPS)
-            equal = torch.equal(o, want)
-            ok &= equal
-            print(f"K4 {label:22s} variant {v} ({VARIANTS[v]}), table in "
-                  f"{'registers' if table == 0 else 'shared memory'}: {ms:.4f} ms; {attrs[0]} "
-                  f"registers, {attrs[1]} B local; = plain: {equal}", flush=True)
+            print(f"  chain of {name:26s} {us:.4f} us a step; = fe_mul / the first variant: "
+                  f"{equal}", flush=True)
+        ok &= time_wrappers(kernels, sponge, pows, endo, check=True, prefix="  ")
     return ok
 
 
@@ -230,7 +192,7 @@ def main() -> int:
     sponge, pows, endo = inputs(dev)
     ok = time_wrappers(kernels, sponge, pows, endo, check=not args.shapes_only)
     if not args.shapes_only:
-        ok &= variants(build_variants(BUILD_DIR), kernels, sponge, pows, dev)
+        ok &= variants(build_variants(BUILD_DIR), kernels, sponge, pows, endo, dev)
     return 0 if ok else 1
 
 

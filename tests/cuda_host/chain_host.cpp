@@ -99,8 +99,8 @@ int main(int argc, char **argv) {
         for (int lane = 0; lane < 32; ++lane)
             lanes.emplace_back([&, lane] {
                 host_lane = lane;
-                sponge_lane<PST_LAT>(F, lane, state.data(), xs.data(), ys.data(), consts.data(),
-                                     nrounds, ost.data(), ochal.data());
+                sponge_squeeze2_lanes(F, lane, state.data(), xs.data(), ys.data(), consts.data(), nrounds,
+                            ost.data(), ochal.data());
             });
         for (auto &t : lanes) t.join();
         std::fwrite(ost.data(), 4, ost.size(), out);
@@ -111,12 +111,15 @@ int main(int argc, char **argv) {
     const uint32_t m = in.word();
     const std::vector<Fe> xs = in.elems(m);
     const uint32_t k = in.word();
+    std::vector<uint32_t> tab(16 * PST_NL);  // the table, stride 1 as in K11
     for (uint32_t j = 0; j < k; ++j) {
-        PowDigits e{};
-        e.nd = (int32_t)in.word();
-        if (e.nd < 0 || e.nd > 64) return 2;
-        for (int t = 0; t < e.nd; ++t) e.d[t] = (uint8_t)in.word();
-        for (uint32_t i = 0; i < m; ++i) put(out, fe_pow_lat(F, xs[i], e));
+        const int nd = (int)in.word();
+        if (nd < 0 || nd > 64) return 2;
+        std::vector<uint8_t> digits(nd);
+        for (auto &d : digits) d = (uint8_t)in.word();
+        PowDigits e;
+        if (!pst_pow_digits(e, digits.data(), nd)) return 2;
+        for (uint32_t i = 0; i < m; ++i) put(out, fe_pow_lat(F, xs[i], e, tab.data(), 1));
     }
     std::printf("fe_pow_lat: %u exponents of %u elements written\n", k, m);
     std::fclose(out);

@@ -165,3 +165,24 @@ def test_pow_matches_python(exe, tmp_path, name):
     got = _ints(out)
     want = [pow(x * rinv % p, e, p) * r % p for e in exps for x in xs]
     assert got == want, log
+
+
+@pytest.mark.parametrize("wrapper", ["mont_pow", "sponge_squeeze2", "endo_inv"])
+def test_wrappers_reject_other_fields(wrapper):
+    """The wrappers of the kernels on this product raise for a modulus of
+    another shape (BN254's scalar field), on the CPU as on the card."""
+    from proof_systems_tpu_torch.fields import FieldParams
+
+    bn254_r = FieldParams("bn254_r", 0x30644E72E131A029B85045B68181585D2833E84879B9709143E1F593F0000001,
+                          5, 28)
+    F = limb.device_field(bn254_r)
+    two = F.pack_mont([1, 2], device="cpu")
+    calls = {
+        "mont_pow": lambda: kernels.mont_pow(F, two, 7),
+        "sponge_squeeze2": lambda: kernels.sponge_squeeze2(
+            F, fq_kimchi.rounds_full, F.pack_mont([1, 2, 3], device="cpu"), two, two,
+            kernels.sponge_consts(fq_kimchi, "cpu")),
+        "endo_inv": lambda: kernels.endo_inv(F, 2, torch.zeros(128, dtype=torch.int32)),
+    }
+    with pytest.raises(ValueError, match="Pasta"):
+        calls[wrapper]()

@@ -474,3 +474,111 @@ def test_prefix_mul_dispatch_on_the_card(dev, n):
     long_row = n > 64 * 128
     assert after["mont_prefix_scan_parts"] - before["mont_prefix_scan_parts"] == int(long_row)
     assert after["mont_prefix_scan"] - before["mont_prefix_scan"] == int(not long_row)
+
+
+def _sponge_host(state, xs, ys):
+    from proof_systems_tpu_torch.poseidon import fq_kimchi, poseidon_block_cipher
+
+    host = list(state)
+    for k in range(2):
+        host[0] = (host[0] + xs[k]) % Fq.p
+        host[1] = (host[1] + ys[k]) % Fq.p
+        poseidon_block_cipher(fq_kimchi, host)
+    return host
+
+
+@pytest.mark.parametrize("case", ["random", "edge_state", "L_at_infinity", "R_at_infinity",
+                                  "both_at_infinity"])
+def test_sponge_squeeze2_lanes_match_plain_and_host(dev, case):
+    """K10 (chain_field.cuh's product, one warp) on random and edge states:
+    0, 1 and p - 1 in the state, points at infinity as (0, 0)."""
+    from proof_systems_tpu_torch.poseidon import fq_kimchi
+
+    rng = random.Random(609)
+    Fqd = limb.device_field(Fq)
+    state = [0, 1, Fq.p - 1] if case == "edge_state" else [rng.randrange(Fq.p) for _ in range(3)]
+    L, R = (Vesta.scalar_mul(rng.randrange(1, Vesta.scalar.p), Vesta.generator)
+            for _ in range(2))
+    if case in ("L_at_infinity", "both_at_infinity"):
+        L = None
+    if case in ("R_at_infinity", "both_at_infinity"):
+        R = None
+    xs = [0 if P is None else P[0] for P in (L, R)]
+    ys = [0 if P is None else P[1] for P in (L, R)]
+    args = (Fqd, fq_kimchi.rounds_full, Fqd.pack_mont(state, device=dev),
+            Fqd.pack_mont(xs, device=dev), Fqd.pack_mont(ys, device=dev),
+            kernels.sponge_consts(fq_kimchi, dev))
+    before = kernels.launch_counts()["sponge_squeeze2"]
+    (st, chal), (st_p, chal_p) = _pair("sponge_squeeze2", *args)
+    assert kernels.launch_counts()["sponge_squeeze2"] == before + 1
+    assert torch.equal(st, st_p) and torch.equal(chal, chal_p)
+    host = _sponge_host(state, xs, ys)
+    assert Fqd.unpack_mont(st) == host
+    assert Fqd.unpack(chal) == [host[0]]
+
+
+@pytest.mark.parametrize("e", ["p-2", "small"])
+@pytest.mark.parametrize("n", [1, 2, 3, 32, 33, (24, 65537)], ids=str)
+@pytest.mark.parametrize("field", [Fp, Fq], ids=["Fp", "Fq"])
+def test_mont_pow_shapes_match_plain(dev, field, n, e):
+    """K4 at the proof's one-element and small shapes and at 24 x 65,537,
+    with 0, 1 and p - 1 among the inputs, for e = p - 2 and an alpha
+    exponent of the permutation (21)."""
+    F = limb.device_field(field)
+    shape = n if isinstance(n, tuple) else (n,)
+    count = shape[0] * shape[-1] if len(shape) == 2 else shape[0]
+    if count > 1000:
+        gen = torch.Generator(device=dev).manual_seed(610)
+        a = limb.to_mont(F, torch.randint(0, 1 << 30, (8, *shape), dtype=torch.int32, device=dev,
+                                          generator=gen)).contiguous()
+    else:
+        rng = random.Random(610 + count)
+        xs = ([0, 1, field.p - 1] + [rng.randrange(field.p) for _ in range(count)])[:count]
+        a = F.pack_mont(xs, shape=shape, device=dev)
+    exp = field.p - 2 if e == "p-2" else 21
+    before = kernels.launch_counts()["mont_pow"]
+    got, want = _pair("mont_pow", F, a, exp)
+    assert kernels.launch_counts()["mont_pow"] == before + 1
+    assert torch.equal(got, want)
+    if count <= 1000:
+        assert F.unpack_mont(got) == [pow(x, exp, field.p) for x in F.unpack_mont(a)]
+
+
+@pytest.mark.parametrize("curve", [Vesta, Pallas], ids=["Vesta", "Pallas"])
+def test_endo_inv_both_scalar_fields(dev, curve):
+    """K11 on the fe_pow of chain_field.cuh, over both scalar fields."""
+    rng = random.Random(611)
+    F = limb.device_field(curve.scalar)
+    t = torch.tensor([rng.randrange(2) for _ in range(128)], dtype=torch.int32, device=dev)
+    (u, u_inv), (u_p, u_inv_p) = _pair("endo_inv", F, curve.endos[1], t)
+    assert torch.equal(u, u_p) and torch.equal(u_inv, u_inv_p)
+    [uv], [uiv] = F.unpack_mont(u), F.unpack_mont(u_inv)
+    assert uv * uiv % curve.scalar.p == 1
+
+
+def test_chain_kernels_have_no_stack(dev):
+    attrs = kernels.chain_attrs()
+    assert attrs["k_sponge_squeeze2"][1] == 0 and attrs["k_mont_pow"][1] == 0, attrs
+
+
+def test_chain_wrappers_reject_other_fields(dev):
+    """K4, K10 and K11 run the Pasta moduli's product: another modulus
+    raises before anything is launched."""
+    from proof_systems_tpu_torch.fields import FieldParams
+    from proof_systems_tpu_torch.poseidon import fq_kimchi
+
+    bn254_r = FieldParams("bn254_r", 0x30644E72E131A029B85045B68181585D2833E84879B9709143E1F593F0000001,
+                          5, 28)
+    F = limb.device_field(bn254_r)
+    a = F.pack_mont([3, 5], device=dev)
+    before = kernels.launch_counts()
+    with pytest.raises(ValueError, match="Pasta"):
+        kernels.mont_pow(F, a, 7)
+    three = F.pack_mont([1, 2, 3], device=dev)
+    two = F.pack_mont([1, 2], device=dev)
+    with pytest.raises(ValueError, match="Pasta"):
+        kernels.sponge_squeeze2(F, fq_kimchi.rounds_full, three, two, two,
+                                kernels.sponge_consts(fq_kimchi, dev))
+    with pytest.raises(ValueError, match="Pasta"):
+        kernels.endo_inv(F, 2, torch.zeros(128, dtype=torch.int32, device=dev))
+    assert kernels.launch_counts() == before
