@@ -9,20 +9,20 @@
 // so one build serves Fp and Fq; pst_pasta_shape checks the rest on the
 // host, and the launchers refuse another field.
 //
-// What bounds a chain on this card: one warp issues one instruction at a
-// time, and a 32-bit multiply-add or add of a warp occupies its 16-lane
-// pipe for two cycles, so one thread's product takes as long as its
-// instruction count allows, not its carry chain. field.cuh's CIOS fe_mul
-// (any field) takes 0.63-0.73 us on an H100. The separated product here
-// puts the 64 partial products (36 for a square) into 64-bit column sums
-// that do not wait for one another, then runs the 8 reduction steps on the
-// columns (3 multiplies a step), one carry pass and one conditional
-// subtraction: 0.47 us a product, 0.34 a square. fe_dot3_lat is REDC(a0 b0
-// + a1 b1 + a2 b2) in one reduction (3p^2 < p 2^256, so one conditional
-// subtraction gives the canonical result): 1.05 us against three products
-// and two adds. Every result is canonical and equal to fe_mul's limb for
-// limb. Specialised CIOS (rolled or not), CIOS in PTX carry chains, carry-
-// save rows and 16-bit halves of b were slower (PERF.md, PR 9).
+// What bounds a chain on this card: a warp issues one instruction at a
+// time and runs its 32-bit integer multiply-adds on 16-lane pipes, so one
+// thread's product costs about its instruction count, whatever its carry
+// chain. field.cuh's CIOS fe_mul (any field) takes 0.63-0.73 us on an H100
+// (700 W). The product here puts the 64 partial products (36 for a square)
+// into 64-bit column sums that do not wait for one another, then runs the
+// 8 reduction steps on the columns (3 multiplies a step), one carry pass
+// and one conditional subtraction: 0.46-0.48 us a product, 0.33-0.34 a
+// square. fe_dot3_lat is REDC(a0 b0 + a1 b1 + a2 b2) in one reduction
+// (3p^2 < p 2^256, so one conditional subtraction gives the canonical
+// result): 1.05 us, against three products and two adds. Every result is
+// canonical and equal to fe_mul's limb for limb. Specialised CIOS (rolled
+// or not), CIOS in PTX carry chains, carry-save rows and 16-bit halves of
+// b ran slower (PERF.md section 6).
 //
 // The code is C++ that g++ also compiles (tests/cuda_host/chain_host.cpp).
 
@@ -94,7 +94,7 @@ __device__ __forceinline__ Fe redc_cols(const FieldParams &F, uint64_t (&c)[16])
     return fe_reduce_once(F, r);
 }
 
-__device__ __forceinline__ Fe sep_mul(const FieldParams &F, const Fe &a, const Fe &b) {
+__device__ __forceinline__ Fe fe_mul_lat(const FieldParams &F, const Fe &a, const Fe &b) {
     uint64_t c[16] = {};
     cols_mac(c, a, b);
     return redc_cols(F, c);
@@ -102,7 +102,7 @@ __device__ __forceinline__ Fe sep_mul(const FieldParams &F, const Fe &a, const F
 
 // The square shares its cross products: 28 of them doubled, then the 8
 // diagonal ones.
-__device__ __forceinline__ Fe sep_sqr(const FieldParams &F, const Fe &a) {
+__device__ __forceinline__ Fe fe_sqr_lat(const FieldParams &F, const Fe &a) {
     uint64_t c[16] = {};
 #pragma unroll
     for (int i = 0; i < PST_NL; ++i)
@@ -123,134 +123,15 @@ __device__ __forceinline__ Fe sep_sqr(const FieldParams &F, const Fe &a) {
     return redc_cols(F, c);
 }
 
-__device__ __forceinline__ Fe sep_dot3(const FieldParams &F, const Fe &a0, const Fe &b0,
-                                       const Fe &a1, const Fe &b1, const Fe &a2, const Fe &b2) {
+__device__ __forceinline__ Fe fe_dot3_lat(const FieldParams &F, const Fe &a0, const Fe &b0,
+                                          const Fe &a1, const Fe &b1, const Fe &a2,
+                                          const Fe &b2) {
     uint64_t c[16] = {};
     cols_mac(c, a0, b0);
     cols_mac(c, a1, b1);
     cols_mac(c, a2, b2);
     return redc_cols(F, c);
 }
-
-// ---------------------------------------------------------------------------
-// Variants timed against the separated product (scripts/torch_chain_bench.py
-// builds each with -DPST_LAT=v): 1 carry-save rows, 2 16-bit halves of b
-// ---------------------------------------------------------------------------
-
-#ifndef PST_LAT
-#define PST_LAT 0
-#endif
-
-// c += a * b. Row i adds a_j b_i + t_k + e_k (k = i + j) for every j at once:
-// (2^32 - 1)^2 + 2 (2^32 - 1) < 2^64, so each is one 64-bit multiply-add
-// with no carry from its neighbour; its low half is the new t_k, its high
-// half the new e_(k+1).
-__device__ __forceinline__ void rows_mac(uint64_t (&c)[16], const Fe &a, const Fe &b) {
-    uint32_t t[16] = {}, e[16] = {};
-#pragma unroll
-    for (int i = 0; i < PST_NL; ++i) {
-        uint32_t ne[PST_NL];
-#pragma unroll
-        for (int j = 0; j < PST_NL; ++j) {
-            const uint64_t pr = (uint64_t)a.v[j] * b.v[i] + t[i + j] + e[i + j];
-            t[i + j] = (uint32_t)pr;
-            ne[j] = (uint32_t)(pr >> 32);
-        }
-        e[i] = 0;
-#pragma unroll
-        for (int j = 0; j < PST_NL; ++j) e[i + j + 1] = ne[j];
-    }
-#pragma unroll
-    for (int k = 0; k < 16; ++k) c[k] += (uint64_t)t[k] + e[k];
-}
-
-// E[k] += sum a_i lo16(b_j), O[k] += sum a_i hi16(b_j) over i + j = k: each
-// partial product one 64-bit multiply-add into its accumulator.
-__device__ __forceinline__ void split_mac(uint64_t (&E)[15], uint64_t (&O)[15], const Fe &a,
-                                          const Fe &b) {
-#pragma unroll
-    for (int j = 0; j < PST_NL; ++j) {
-        const uint32_t lo = b.v[j] & 0xFFFFu, hi = b.v[j] >> 16;
-#pragma unroll
-        for (int i = 0; i < PST_NL; ++i) {
-            E[i + j] += (uint64_t)a.v[i] * lo;
-            O[i + j] += (uint64_t)a.v[i] * hi;
-        }
-    }
-}
-
-__device__ __forceinline__ void split_fold(uint64_t (&c)[16], const uint64_t (&E)[15],
-                                           const uint64_t (&O)[15]) {
-#pragma unroll
-    for (int k = 0; k < 15; ++k) {
-        c[k] += E[k] + ((uint64_t)((uint32_t)O[k] & 0xFFFFu) << 16);
-        c[k + 1] += O[k] >> 16;
-    }
-}
-
-__device__ __forceinline__ Fe fe_mul_lat(const FieldParams &F, const Fe &a, const Fe &b) {
-#if PST_LAT == 1
-    uint64_t c[16] = {};
-    rows_mac(c, a, b);
-    return redc_cols(F, c);
-#elif PST_LAT == 2
-    uint64_t E[15] = {}, O[15] = {}, c[16] = {};
-    split_mac(E, O, a, b);
-    split_fold(c, E, O);
-    return redc_cols(F, c);
-#else
-    return sep_mul(F, a, b);
-#endif
-}
-
-__device__ __forceinline__ Fe fe_sqr_lat(const FieldParams &F, const Fe &a) {
-#if PST_LAT == 2
-    uint64_t E[15] = {}, O[15] = {}, c[16] = {};
-#pragma unroll
-    for (int j = 1; j < PST_NL; ++j) {
-        const uint32_t lo = a.v[j] & 0xFFFFu, hi = a.v[j] >> 16;
-#pragma unroll
-        for (int i = 0; i < j; ++i) {
-            E[i + j] += (uint64_t)a.v[i] * lo;
-            O[i + j] += (uint64_t)a.v[i] * hi;
-        }
-    }
-    split_fold(c, E, O);
-#pragma unroll
-    for (int k = 0; k < 16; ++k) c[k] += c[k];
-#pragma unroll
-    for (int i = 0; i < PST_NL; ++i) {
-        const uint64_t pr = (uint64_t)a.v[i] * a.v[i];
-        c[2 * i] += (uint32_t)pr;
-        c[2 * i + 1] += pr >> 32;
-    }
-    return redc_cols(F, c);
-#else
-    return sep_sqr(F, a);
-#endif
-}
-
-__device__ __forceinline__ Fe fe_dot3_lat(const FieldParams &F, const Fe &a0, const Fe &b0,
-                                          const Fe &a1, const Fe &b1, const Fe &a2,
-                                          const Fe &b2) {
-#if PST_LAT == 1
-    uint64_t c[16] = {};
-    rows_mac(c, a0, b0);
-    rows_mac(c, a1, b1);
-    rows_mac(c, a2, b2);
-    return redc_cols(F, c);
-#elif PST_LAT == 2
-    uint64_t E[15] = {}, O[15] = {}, c[16] = {};
-    split_mac(E, O, a0, b0);
-    split_mac(E, O, a1, b1);
-    split_mac(E, O, a2, b2);
-    split_fold(c, E, O);
-    return redc_cols(F, c);
-#else
-    return sep_dot3(F, a0, b0, a1, b1, a2, b2);
-#endif
-}
-
 
 // ---------------------------------------------------------------------------
 // K4 / K11: a^e
@@ -400,45 +281,6 @@ __device__ __forceinline__ void sponge_squeeze2_lanes(const FieldParams &F, int 
     if (lane == 0) {
         Fe one = fe_zero();
         one.v[0] = 1;  // the product with plain 1 is REDC
-        fe_store(ochal, 1, 0, fe_mul_lat(F, s, one));
-    }
-}
-
-// The three-lane variant (-DPST_SPONGE=3): lane t < 3 owns s_t, runs x^2,
-// x^4, x^3, x^7 and its MDS row as one fe_dot3_lat.
-__device__ __forceinline__ void sponge_three(const FieldParams &F, int lane,
-                                             const uint32_t *__restrict__ state,
-                                             const uint32_t *__restrict__ xs,
-                                             const uint32_t *__restrict__ ys,
-                                             const uint32_t *__restrict__ consts, int nrounds,
-                                             uint32_t *__restrict__ ost,
-                                             uint32_t *__restrict__ ochal) {
-    const int t = lane < 3 ? lane : 2;
-    const int64_t cstride = 3 * (int64_t)nrounds + 9;
-    Fe mds[3];
-#pragma unroll
-    for (int j = 0; j < 3; ++j) mds[j] = fe_load(consts, cstride, 3 * nrounds + 3 * t + j);
-    Fe s = fe_load(state, 3, t);
-    for (int k = 0; k < 2; ++k) {
-        if (t == 0) s = fe_add(F, s, fe_load(xs, 2, k));
-        if (t == 1) s = fe_add(F, s, fe_load(ys, 2, k));
-        Fe rc = fe_load(consts, cstride, t);
-#pragma unroll 1
-        for (int r = 0; r < nrounds; ++r) {
-            const Fe rc_next = fe_load(consts, cstride, 3 * (r + 1 < nrounds ? r + 1 : r) + t);
-            const Fe x2 = fe_sqr_lat(F, s);
-            const Fe x4 = fe_sqr_lat(F, x2);
-            const Fe x3 = fe_mul_lat(F, x2, s);
-            const Fe x7 = fe_mul_lat(F, x4, x3);
-            const Fe y0 = shfl_fe(x7, 0), y1 = shfl_fe(x7, 1), y2 = shfl_fe(x7, 2);
-            s = fe_add(F, fe_dot3_lat(F, mds[0], y0, mds[1], y1, mds[2], y2), rc);
-            rc = rc_next;
-        }
-    }
-    if (lane < 3) fe_store(ost, 3, t, s);
-    if (lane == 0) {
-        Fe one = fe_zero();
-        one.v[0] = 1;
         fe_store(ochal, 1, 0, fe_mul_lat(F, s, one));
     }
 }

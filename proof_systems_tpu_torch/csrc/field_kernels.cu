@@ -7,6 +7,7 @@
 //   K4 mont_pow_fused (l.481): a^e with 4-bit windows MSB-first and a
 //      15-entry table (l.497-520); the exponent's digits are a kernel
 //      argument here, as they were scalar-prefetched on the TPU.
+//      Redesigned on chain_field.cuh (fe_pow_lat, below).
 //   K5 mont_prefix_scan_fused (l.1019, _mont_scan_kernel l.873): inclusive
 //      prefix product along the last axis, for rows of at most 64 chunks of
 //      128 (limb.prefix_mul's dispatch, as pallas_field.py:1030-1034).
@@ -29,32 +30,35 @@
 //      (x_R, y_R), permute, read REDC(state[0]); Poseidon over Fq with 55
 //      full rounds of x^7 and the 3x3 MDS. The round constants and the MDS
 //      arrive as one device tensor, built once per parameter set.
+//      Redesigned on chain_field.cuh (sponge_squeeze2_lanes, below).
 //   K11 endo_inv_fused (l.742): ScalarChallenge.to_field (the 64-step
 //      a = b = 2 recurrence over bit pairs, sponge.rs:190-228), u = a*endo + b,
-//      then u^(p-2) with K4's windowed exponentiation (fe_pow).
+//      then u^(p-2) with K4's exponentiation (fe_pow_lat).
 //
 // Bound on this card: K1 is memory bound (3 x 32 B per product at
-// 3.35 TB/s against 136 integer multiplies); K4 is integer-multiply bound (about
-// 334 products per element); K5, K12 and K9 are latency bound at the main
-// path's shapes (one to a handful of rows): a thread runs a chain of about
-// C + 7 dependent products (C + 7 + C for K9), 519 and 1,031 at n = 2^16.
+// 3.35 TB/s against 136 integer multiplies); K4 at a large batch is
+// integer-multiply bound (329 products an element); K5, K12 and K9 are
+// latency bound at the main path's shapes (one to a handful of rows): a
+// thread runs a chain of about C + 7 dependent products (C + 7 + C for K9),
+// 519 and 1,031 at n = 2^16.
 //
-// Simple design, left for later: one thread per element (K1, K4) and one
-// block of PST_LANES threads per row (K5, K12, K9), each thread scanning a
+// Simple design, left for later: one thread per element (K1) and one block
+// of PST_LANES threads per row (K5, K12, K9), each thread scanning a
 // contiguous chunk, so the scans' loads are not coalesced across a warp.
 //
-// K10 and K11 run once per IPA round on a handful of field elements: they
-// are latency bound, a chain of dependent Montgomery products. K10 is one
-// block of three threads, one per state element, sharing the sboxed state
-// through shared memory for the MDS product: 2 x 55 rounds of 4 + 3
-// dependent products each. K11 is one thread: 64 steps of adds and
-// subtracts, one product, then 64 x 5 + 14 products of the inverse.
+// K10, K11 and K4 at the proof's shapes (one element, or a handful) are
+// chains of dependent products on one warp, which issues one instruction
+// at a time: they run on chain_field.cuh's product for the Pasta moduli,
+// whose time is its instruction count (0.47 us a product, 0.34 a square,
+// against fe_mul's 0.63-0.73 on an H100). K4 is one thread an element with
+// its table in shared memory, and a chain of 4 squares and a product a
+// digit after the first (317 levels for e = p - 2). K10 is one warp on
+// nine lanes, 4 product levels a round (x^2; x^4 and x^3 on two lanes;
+// x^7; the lane's MDS entry times x^7 as column sums, reduced once a row):
+// 441 levels. K11 is one thread: 64 steps of adds and subtracts, one CIOS
+// product, then K4's chain.
 
 #include "chain_field.cuh"
-
-#ifndef PST_SPONGE
-#define PST_SPONGE 9
-#endif
 
 __global__ void __launch_bounds__(256)
     k_mont_mul(FieldParams F, const uint32_t *__restrict__ a, const uint32_t *__restrict__ b,
@@ -187,18 +191,14 @@ __global__ void __launch_bounds__(PST_LANES)
                  fe_add(F, fe_load(o, stride, base + j), fe_mul(F, fe_load(tab, tstride, j - lo), e)));
 }
 
-// One warp; lanes 0-2 own the state elements (sponge_lane, chain_field.cuh).
+// One warp on nine lanes (sponge_squeeze2_lanes, chain_field.cuh).
 // state (8, 3), xs and ys (8, 2) Montgomery; consts (8, 3 * nrounds + 9).
 __global__ void __launch_bounds__(32)
     k_sponge_squeeze2(FieldParams F, const uint32_t *__restrict__ state,
                       const uint32_t *__restrict__ xs, const uint32_t *__restrict__ ys,
                       const uint32_t *__restrict__ consts, int nrounds,
                       uint32_t *__restrict__ ost, uint32_t *__restrict__ ochal) {
-#if PST_SPONGE == 3
-    sponge_three(F, threadIdx.x, state, xs, ys, consts, nrounds, ost, ochal);
-#else
     sponge_squeeze2_lanes(F, threadIdx.x, state, xs, ys, consts, nrounds, ost, ochal);
-#endif
 }
 
 // One thread. bits: 128 int32 challenge bits, least significant first;

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Time K10 (sponge_squeeze2), K4 (mont_pow) and K11 (endo_inv) on the card,
-and the variants of their Montgomery product against one another.
+and the latency of the Montgomery product they run on.
 
     python3 scripts/torch_chain_bench.py
     python3 scripts/torch_chain_bench.py --root DIR --shapes-only
@@ -11,14 +11,11 @@ at 1 and 3 elements with e = p - 2, at one element with e = 21, and at
 24 x 65,537 with e = p - 2, K11 on 128 bits; CUDA events, mean of REPS
 calls after one) and checks each against its plain version limb for limb.
 
-Without --shapes-only it also builds csrc/field_kernels.cu once for each
-variant of chain_field.cuh's product (PST_LAT) and K10's lanes
-(PST_SPONGE) and, in the same process,
-times each: one thread's chain of dependent products of field.cuh's CIOS
-fe_mul, fe_mul_lat, fe_sqr_lat and fe_dot3_lat (us a step, from the
-difference of two chain lengths), and K10, K4 and K11 at the shapes above;
-prints K10's, K4's and K11's registers and local (stack) bytes and checks
-every output against the plain versions.
+Without --shapes-only it also prints chip_smoke.py's product latency: one
+thread's chain of dependent products of field.cuh's CIOS fe_mul and of
+chain_field.cuh's fe_mul_lat, fe_sqr_lat and fe_dot3_lat (us a step, from
+the difference of two chain lengths), and K10's, K4's and K11's registers
+and local (stack) bytes.
 
 --shapes-only times the public wrappers and nothing else, so that another
 checkout (given with --root) can be timed beside this one in the same call.
@@ -28,10 +25,8 @@ Needs a CUDA device; exits 2 without one, 1 on a mismatch.
 from __future__ import annotations
 
 import argparse
-import ctypes
 import pathlib
 import random
-import subprocess
 import sys
 
 import torch
@@ -39,12 +34,6 @@ import torch
 REPS = 20
 SEED = 20261019
 HERE = pathlib.Path(__file__).resolve().parent
-# builds of field_kernels.cu: chain_field.cuh's product (PST_LAT) and K10's
-# lanes (PST_SPONGE)
-VARIANTS = {0: ("separated column sums, K10 on 3 lanes", ["-DPST_LAT=0", "-DPST_SPONGE=3"]),
-            1: ("separated column sums, K10 on 9 lanes", ["-DPST_LAT=0", "-DPST_SPONGE=9"]),
-            2: ("carry-save rows, K10 on 9 lanes", ["-DPST_LAT=1", "-DPST_SPONGE=9"]),
-            3: ("16-bit halves of b, K10 on 9 lanes", ["-DPST_LAT=2", "-DPST_SPONGE=9"])}
 
 
 def timed_ms(fn, reps: int = REPS) -> float:
@@ -94,7 +83,7 @@ def inputs(dev):
     return sponge, pows, (Fpd, Vesta.endos[1], bits)
 
 
-def time_wrappers(kernels, sponge, pows, endo, check: bool, prefix: str = "") -> bool:
+def time_wrappers(kernels, sponge, pows, endo, check: bool) -> bool:
     ok = True
     cases = [("K10 sponge_squeeze2", kernels.sponge_squeeze2, kernels.sponge_squeeze2_plain,
               sponge)]
@@ -108,64 +97,7 @@ def time_wrappers(kernels, sponge, pows, endo, check: bool, prefix: str = "") ->
             equal = same(fn(*args), plain(*args))
             ok &= equal
             note = f"; = plain: {equal}"
-        print(f"{prefix}{label:36s} {ms:.4f} ms{note}", flush=True)
-    return ok
-
-
-def build_variants(out_root: pathlib.Path) -> dict:
-    """field_kernels.cu built once for each variant, in parallel; {v: the
-    loaded library}."""
-    from proof_systems_tpu_torch.ops import kernels
-
-    src = kernels.CSRC / "field_kernels.cu"
-    out = out_root / "chain_variants" / kernels._source_tag()
-    out.mkdir(parents=True, exist_ok=True)
-    procs = {}
-    for v in VARIANTS:
-        so = out / f"field_{v}.so"
-        if not so.exists():
-            cmd = [kernels._nvcc(), *kernels.NVCC_FLAGS, *VARIANTS[v][1], "-o", str(so), str(src)]
-            procs[v] = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                                        text=True)
-    for v, proc in procs.items():
-        text, _ = proc.communicate()
-        keep = [ln.strip() for ln in text.splitlines()
-                if any(k in ln for k in ("Compiling entry", "registers", "spill", "error"))]
-        print(f"ptxas, variant {v}:\n  " + "\n  ".join(keep), flush=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for variant {v}")
-    return {v: kernels._bind_field(ctypes.CDLL(str(out / f"field_{v}.so"))) for v in VARIANTS}
-
-
-def variants(libs: dict, kernels, sponge, pows, endo, dev) -> bool:
-    """Each variant's product chains, K10, K4 and K11 in one process."""
-    from proof_systems_tpu_torch.fields import Fp
-    from proof_systems_tpu_torch.ops import limb
-
-    ok = True
-    F = limb.device_field(Fp)
-    rng = random.Random(SEED + 1)
-    x = F.pack_mont([rng.randrange(Fp.p) for _ in range(4)], device=dev)
-    short, long = 256, 2304
-    ref = {}
-    for v, lib in libs.items():
-        kernels.LIBRARY.field = lib  # the wrappers launch this variant's kernels
-        attrs = kernels.chain_attrs()
-        print(f"variant {v} ({VARIANTS[v][0]}): " + "; ".join(
-            f"{name} {regs} registers, {local} B local" for name, (regs, local, *_) in
-            attrs.items()), flush=True)
-        for name, kind in kernels.PRODUCT_CHAINS.items():
-            times, outs = {}, {}
-            for steps in (short, long):
-                times[steps] = timed_ms(lambda: kernels.product_chain(F, kind, x, steps), reps=5)
-                outs[steps] = kernels.product_chain(F, kind, x, steps)
-            us = (times[long] - times[short]) * 1e3 / (long - short)
-            base = ref.setdefault(max(kind, 1), outs)  # fe_mul's chain is fe_mul_lat's
-            equal = all(torch.equal(outs[s], base[s]) for s in outs)
-            ok &= equal
-            print(f"  chain of {name:26s} {us:.4f} us a step; = fe_mul / the first variant: "
-                  f"{equal}", flush=True)
-        ok &= time_wrappers(kernels, sponge, pows, endo, check=True, prefix="  ")
+        print(f"{label:36s} {ms:.4f} ms{note}", flush=True)
     return ok
 
 
@@ -182,7 +114,6 @@ def main() -> int:
     root = pathlib.Path(args.root).resolve()
     sys.path.insert(0, str(root))
     import chip_smoke
-    from proof_systems_tpu_torch import BUILD_DIR
     from proof_systems_tpu_torch.ops import kernels
 
     print(f"root {root}: {chip_smoke.card_line()}", flush=True)
@@ -192,7 +123,7 @@ def main() -> int:
     sponge, pows, endo = inputs(dev)
     ok = time_wrappers(kernels, sponge, pows, endo, check=not args.shapes_only)
     if not args.shapes_only:
-        ok &= variants(build_variants(BUILD_DIR), kernels, sponge, pows, endo, dev)
+        chip_smoke.product_latency(kernels, dev)
     return 0 if ok else 1
 
 

@@ -570,15 +570,16 @@ def test_chain_wrappers_reject_other_fields(dev):
     bn254_r = FieldParams("bn254_r", 0x30644E72E131A029B85045B68181585D2833E84879B9709143E1F593F0000001,
                           5, 28)
     F = limb.device_field(bn254_r)
-    a = F.pack_mont([3, 5], device=dev)
-    before = kernels.launch_counts()
-    with pytest.raises(ValueError, match="Pasta"):
-        kernels.mont_pow(F, a, 7)
-    three = F.pack_mont([1, 2, 3], device=dev)
     two = F.pack_mont([1, 2], device=dev)
+    three = F.pack_mont([1, 2, 3], device=dev)
+    consts = kernels.sponge_consts(fq_kimchi, dev)
+    bits = torch.zeros(128, dtype=torch.int32, device=dev)
+    names = ("mont_pow", "sponge_squeeze2", "endo_inv")
+    before = {k: kernels.launch_counts()[k] for k in names}
     with pytest.raises(ValueError, match="Pasta"):
-        kernels.sponge_squeeze2(F, fq_kimchi.rounds_full, three, two, two,
-                                kernels.sponge_consts(fq_kimchi, dev))
+        kernels.mont_pow(F, two, 7)
     with pytest.raises(ValueError, match="Pasta"):
-        kernels.endo_inv(F, 2, torch.zeros(128, dtype=torch.int32, device=dev))
-    assert kernels.launch_counts() == before
+        kernels.sponge_squeeze2(F, fq_kimchi.rounds_full, three, two, two, consts)
+    with pytest.raises(ValueError, match="Pasta"):
+        kernels.endo_inv(F, 2, bits)
+    assert {k: kernels.launch_counts()[k] for k in names} == before
