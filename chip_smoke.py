@@ -192,10 +192,10 @@ class Recorder:
             key = name + ("[mixed]" if kw.get("mixed") else "")
             if name == "combine_windows" and args[2].shape[2] == 1:
                 key += f"[b=1,c={args[1]}]"  # single chains: sg, the verifier
-            if name in BY_SHAPE:
-                key += f"[{shape_of(next(a for a in args if torch.is_tensor(a)))}]"
             if name == "mont_pow":
                 key = k4_label(*args)
+            elif name in BY_SHAPE:
+                key += f"[{shape_of(next(a for a in args if torch.is_tensor(a)))}]"
             size = sum(a.numel() for a in args if torch.is_tensor(a))
             if size > self.calls.get(key, (0,))[0]:
                 copy = [a.clone() if torch.is_tensor(a) else a for a in args]
@@ -535,8 +535,8 @@ def k8_windows(curve, dc, rng, W: int, b: int, c: int, device):
 def edge_cases(device, curve_params):
     """Small inputs with the special values: 0, 1, p-1, 2^254-1 for the
     field kernels, and K4 on one element 0, 1 or p - 1 with e = p - 2, 21
-    (an alpha exponent of the permutation) and 0; two rows of 300 for K9 with c = 0, 1 (a prefix sum),
-    random and omega^(n - 3), and n = 1; two rows of 8,321 (C = 66,
+    (an alpha exponent of the permutation) and 0; two rows of 300 for K9
+    with c = 0, 1 (a prefix sum), random and omega^(n - 3), and n = 1; two rows of 8,321 (C = 66,
     Cp = 70) with a zero element for K12; P+P, P+(-P), infinity on either
     side for the curve kernels; identities inside a scan row of length 300;
     K6's team geometry on the rows of k6_rows, both variants, and K7 on
@@ -716,6 +716,8 @@ def chain_note(name: str, args, ms: float) -> str:
         products, levels = k8_chain(args[2].shape[1], args[1])
         return (f"; chain {products} dependent products in {levels} levels a column, "
                 f"{ms * 1e3 / products:.4f} us a product, {ms * 1e3 / levels:.4f} us a level")
+    if name == "mont_pow" and args[1][0].numel() > 32:
+        return ""  # a batch: throughput, not one chain
     if name in ("mont_pow", "endo_inv", "sponge_squeeze2"):
         products, levels = chain_levels(name, args)
         return (f"; chain {products} products in {levels} dependent levels, "

@@ -7,7 +7,7 @@
 //   K4 mont_pow_fused (l.481): a^e with 4-bit windows MSB-first and a
 //      15-entry table (l.497-520); the exponent's digits are a kernel
 //      argument here, as they were scalar-prefetched on the TPU.
-//      Redesigned on chain_field.cuh (fe_pow_lat, below).
+//      Redesigned on chain_field.cuh (fe_pow_lat).
 //   K5 mont_prefix_scan_fused (l.1019, _mont_scan_kernel l.873): inclusive
 //      prefix product along the last axis, for rows of at most 64 chunks of
 //      128 (limb.prefix_mul's dispatch, as pallas_field.py:1030-1034).
@@ -30,7 +30,7 @@
 //      (x_R, y_R), permute, read REDC(state[0]); Poseidon over Fq with 55
 //      full rounds of x^7 and the 3x3 MDS. The round constants and the MDS
 //      arrive as one device tensor, built once per parameter set.
-//      Redesigned on chain_field.cuh (sponge_squeeze2_lanes, below).
+//      Redesigned on chain_field.cuh (sponge_squeeze2_lanes).
 //   K11 endo_inv_fused (l.742): ScalarChallenge.to_field (the 64-step
 //      a = b = 2 recurrence over bit pairs, sponge.rs:190-228), u = a*endo + b,
 //      then u^(p-2) with K4's exponentiation (fe_pow_lat).
