@@ -224,12 +224,17 @@ def _field_words(F) -> int:
     return F.kernel_params.ctypes.data
 
 
-# The Pasta shape that csrc/chain_field.cuh's product relies on (K4, K10,
-# K11): p's word 0 is 1, words 4-6 are 0, word 7 is 0x40000000, so
-# -p^-1 mod 2^32 is 0xFFFFFFFF.
+@functools.lru_cache(maxsize=None)
+def _pasta_shape(p: int) -> bool:
+    """The shape that csrc/chain_field.cuh's product relies on (K4, K10,
+    K11): p's 32-bit word 0 is 1 (so -p^-1 mod 2^32 is 0xFFFFFFFF), words
+    4-6 are 0 and word 7 is 0x40000000."""
+    w = _words(p)
+    return w[0] == 1 and w[4:7] == [0, 0, 0] and w[7] == 0x40000000
+
+
 def _require_pasta(F, name: str) -> None:
-    w = [int(v) for v in F.kernel_params[:NL + 1]]
-    if w[0] != 1 or w[4:7] != [0, 0, 0] or w[7] != 0x40000000 or w[8] != 0xFFFFFFFF:
+    if not _pasta_shape(F.p):
         raise ValueError(f"{name} runs the Pasta moduli's product; p = {F.p:#x} has "
                          "another shape")
 
