@@ -768,7 +768,8 @@ def product_latency(kernels, device) -> None:
     product the kernels had before chain_field.cuh (field.cuh's CIOS fe_mul)
     and for its product, square and dot3, from one call: us a step from the
     difference of two chain lengths. Then the registers and local (stack)
-    bytes of K10, K4 and K11, which must keep nothing on a stack."""
+    bytes of K10, K4, K11 and the chain kernel; K10 and K4 must keep
+    nothing on a stack."""
     from proof_systems_tpu_torch.fields import Fp
     from proof_systems_tpu_torch.ops import limb
 

@@ -228,12 +228,15 @@ __global__ void __launch_bounds__(32)
 // One thread's chain of `steps` dependent products of one kind, to time a
 // product's latency (chip_smoke.py): kind 0 field.cuh's CIOS fe_mul, 1
 // fe_mul_lat, 2 fe_sqr_lat, 3 fe_dot3_lat. x (8, 4): the start a and the
-// operands x1-x3; a = a * x1, a^2 or dot3(a, x1, a, x2, a, x3).
+// operands x1-x3; a = a * x1, a^2 or dot3(a, x1, a, x2, a, x3). The
+// operands are read at the thread's index (0), as the kernels read theirs,
+// so that the compiler cannot treat them as the same for every thread.
 __global__ void __launch_bounds__(32)
     k_product_chain(FieldParams F, int kind, const uint32_t *__restrict__ x, int steps,
                     uint32_t *__restrict__ o) {
-    Fe a = fe_load(x, 4, 0);
-    const Fe x1 = fe_load(x, 4, 1), x2 = fe_load(x, 4, 2), x3 = fe_load(x, 4, 3);
+    const int t = threadIdx.x;
+    Fe a = fe_load(x, 4, t);
+    const Fe x1 = fe_load(x, 4, t + 1), x2 = fe_load(x, 4, t + 2), x3 = fe_load(x, 4, t + 3);
     if (kind == 0) {
 #pragma unroll 1
         for (int s = 0; s < steps; ++s) a = fe_mul(F, a, x1);
@@ -247,7 +250,7 @@ __global__ void __launch_bounds__(32)
 #pragma unroll 1
         for (int s = 0; s < steps; ++s) a = fe_dot3_lat(F, a, x1, a, x2, a, x3);
     }
-    fe_store(o, 1, 0, a);
+    fe_store(o, 1, t, a);
 }
 
 static int pow_digits(PowDigits &e, const uint8_t *digits, int nd) {
@@ -334,11 +337,13 @@ int pst_product_chain(const uint32_t *fp, int kind, const uint32_t *x, int steps
 }
 
 // Registers, local (stack) bytes, static and dynamic shared memory of
-// k_sponge_squeeze2 (which 0), k_mont_pow (1) or k_endo_inv (2).
+// k_sponge_squeeze2 (which 0), k_mont_pow (1), k_endo_inv (2) or
+// k_product_chain (3).
 int pst_chain_attrs(int which, int *out) {
     const void *fn = which == 0   ? (const void *)k_sponge_squeeze2
                      : which == 1 ? (const void *)k_mont_pow
                      : which == 2 ? (const void *)k_endo_inv
+                     : which == 3 ? (const void *)k_product_chain
                                   : nullptr;
     if (fn == nullptr) return (int)cudaErrorInvalidValue;
     cudaFuncAttributes a;

@@ -1179,10 +1179,12 @@ def sponge_squeeze2(F, nrounds: int, state, xs, ys, consts):
 
 def chain_attrs() -> dict[str, tuple[int, ...]]:
     """Registers, local (stack) bytes, static and dynamic shared memory of
-    the kernels on chain_field.cuh's product: K10, K4 and K11."""
+    the kernels on chain_field.cuh's product: K10, K4, K11 and the latency
+    chain of product_chain."""
     lib = LIBRARY.load().field
     out = {}
-    for which, name in enumerate(("k_sponge_squeeze2", "k_mont_pow", "k_endo_inv")):
+    for which, name in enumerate(("k_sponge_squeeze2", "k_mont_pow", "k_endo_inv",
+                                  "k_product_chain")):
         vals = (ctypes.c_int * 4)()
         rc = lib.pst_chain_attrs(which, vals)
         if rc != 0:
