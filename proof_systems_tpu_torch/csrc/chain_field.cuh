@@ -11,17 +11,18 @@
 //
 // What bounds a chain on this card, as measured: the instructions one warp
 // issues, one at a time, more than the dependent carries. field.cuh's CIOS
-// fe_mul (any field) takes 0.63-0.73 us a step of chip_smoke.py's
+// fe_mul (any field) takes 0.62-0.70 us a step of chip_smoke.py's
 // one-thread chain on an H100 (700 W). The product here puts the 64
 // partial products (36 for a square) into 64-bit column sums that do not
 // wait for one another, then runs the 8 reduction steps on the columns (3
 // multiplies a step), one carry pass and one conditional subtraction:
-// 0.46-0.48 us a product, 0.33-0.34 a square. fe_dot3_lat is REDC(a0 b0 + a1 b1 + a2 b2) in one reduction
-// (3p^2 < p 2^256, so one conditional subtraction gives the canonical
-// result): 1.05 us, against three products and two adds. Every result is
-// canonical and equal to fe_mul's limb for limb. Specialised CIOS (rolled
-// or not), CIOS in PTX carry chains, carry-save rows and 16-bit halves of
-// b ran slower (PERF.md section 6).
+// 0.44-0.45 us a product, 0.31-0.33 a square. fe_dot3_lat is REDC(a0 b0 +
+// a1 b1 + a2 b2) in one reduction (3p^2 < p 2^256, so one conditional
+// subtraction gives the canonical result); K10 runs a row's three products
+// on three lanes instead and reduces their summed columns once. Every
+// result is canonical and equal to fe_mul's limb for limb. Specialised
+// CIOS (rolled or not), CIOS in PTX carry chains, carry-save rows and
+// 16-bit halves of b ran slower (PERF.md section 6).
 //
 // The code is C++ that g++ also compiles (tests/cuda_host/chain_host.cpp).
 

@@ -49,8 +49,8 @@
 // K10, K11 and K4 at the proof's shapes (one element, or a handful) are
 // chains of dependent products on one warp, which issues one instruction
 // at a time: they run on chain_field.cuh's product for the Pasta moduli,
-// whose time is its instruction count (0.47 us a product, 0.34 a square,
-// against fe_mul's 0.63-0.73 on an H100). K4 is one thread an element with
+// whose time is its instruction count (0.44 us a product, 0.32 a square,
+// against fe_mul's 0.62-0.70 on an H100). K4 is one thread an element with
 // its table in shared memory, and a chain of 4 squares and a product a
 // digit after the first (317 levels for e = p - 2). K10 is one warp on
 // nine lanes, 4 product levels a round (x^2; x^4 and x^3 on two lanes;
