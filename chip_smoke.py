@@ -14,17 +14,22 @@ Phases, each fatal on failure:
      and dot3 (us a step), and the registers and local memory of K10, K4
      and K11 (K10 and K4 must have no stack);
   3. warm-up run of the main path, recording every kernel's largest call
-     (K2's, K7's and the endo ladder's at every call shape, K4's at every
-     shape and exponent length); then each
+     (K2's, K7's, K12's and the endo ladder's at every call shape, K4's at
+     every shape and exponent length, K9's at every shape and length of c);
+     then each
      kernel against its plain PyTorch version on those inputs and on edge
      cases (field and transcript kernels, K2, K3, K8 and the ladder exact,
      K6 as group elements, K7 as group elements and exact where one thread
      scans a lane chunk; K6 and K7 also on rows that split each lane chunk
-     over a team of threads; K8 also on its fallback and identity windows;
+     over a team of threads; K12 and K9 on rows whose lanes a team of
+     threads shares, K12 with padded lanes and zeros at a member's first
+     position; K8 also on its fallback and identity windows;
      the ladder on both curves with all-zero and all-one bits and a point
      at infinity), with the kernel's and the plain version's times, K6's
      and K7's team size and tile width, the registers and local memory of
-     K6's kernels and K7's combine, K8's registers, local memory and chain
+     K6's kernels, K7's combine, K12's and K9's kernels (which must keep no
+     stack), K12's and K9's team size and chain, K8's
+     registers, local memory and chain
      (products, levels, time a product), and the registers and local
      memory of K2, K3 and the ladder, and for K10, K4 and K11 the us a
      dependent level of their chains;
@@ -117,8 +122,10 @@ SOURCES = {
 # two kinds (the others are printed): K6's mixed bucket scan.
 JSON_KEY = {"ec_prefix_scan_parts": "ec_prefix_scan_parts[mixed]"}
 # Kernels recorded and checked at every call shape (K4 at every shape and
-# exponent length); the JSON line reports the largest call.
-BY_SHAPE = ("jacobian_add", "ec_prefix_scan_fused", "endo_ladder", "mont_pow")
+# exponent length, K9 at every shape and length of c); the JSON line
+# reports the largest call.
+BY_SHAPE = ("jacobian_add", "ec_prefix_scan_fused", "endo_ladder", "mont_pow",
+            "mont_prefix_scan_parts", "linear_scan")
 
 
 def log(msg: str) -> None:
@@ -194,6 +201,8 @@ class Recorder:
                 key += f"[b=1,c={args[1]}]"  # single chains: sg, the verifier
             if name == "mont_pow":
                 key = k4_label(*args)
+            elif name == "linear_scan":
+                key = k9_label(*args)
             elif name in BY_SHAPE:
                 key += f"[{shape_of(next(a for a in args if torch.is_tensor(a)))}]"
             size = sum(a.numel() for a in args if torch.is_tensor(a))
@@ -277,6 +286,17 @@ def k4_label(F, a, e) -> str:
     return f"mont_pow[{shape_of(a)} e {e.bit_length()} bits]"
 
 
+def k12_label(F, x) -> str:
+    """A K12 call's label: its shape."""
+    return f"mont_prefix_scan_parts[{shape_of(x)}]"
+
+
+def k9_label(F, x, c) -> str:
+    """A K9 call's label: its shape and the length of c (the prover's
+    boundary divisions: c = 1 and omega^(n - zk))."""
+    return f"linear_scan[{shape_of(x)} c {c.bit_length()} bits]"
+
+
 def k8_label(F, c, wx, wy, wz) -> str:
     """A K8 call's label: its windows, columns and window size."""
     return f"combine_windows[{wx.shape[1]}x{wx.shape[2]} c={c}]"
@@ -285,13 +305,14 @@ def k8_label(F, c, wx, wy, wz) -> str:
 # kernels whose time kernel_times also splits by call shape: short name, label
 SHAPE_LABELS = {"ec_prefix_scan_parts": ("K6", k6_label), "combine_windows": ("K8", k8_label),
                 "jacobian_add": ("K2", k2_label), "endo_ladder": ("ladder", ladder_label),
-                "ec_prefix_scan_fused": ("K7", k7_label), "mont_pow": ("K4", k4_label)}
+                "ec_prefix_scan_fused": ("K7", k7_label), "mont_pow": ("K4", k4_label),
+                "mont_prefix_scan_parts": ("K12", k12_label), "linear_scan": ("K9", k9_label)}
 
 
 def kernel_times(result, device) -> None:
     """Each kernel's device time and launches over one proof and over one
-    verification of it, largest first, and the time of K6, K7, K8, K2, K4
-    and the endo ladder at each call shape."""
+    verification of it, largest first, and the time of K6, K7, K8, K2, K4,
+    K12, K9 and the endo ladder at each call shape."""
     from proof_systems_tpu_torch.ops import kernels
 
     targets = [(kernels, name, SHAPE_LABELS[name][1] if name in SHAPE_LABELS else name)
@@ -536,8 +557,9 @@ def edge_cases(device, curve_params):
     """Small inputs with the special values: 0, 1, p-1, 2^254-1 for the
     field kernels, and K4 on one element 0, 1 or p - 1 with e = p - 2, 21
     (an alpha exponent of the permutation) and 0; two rows of 300 for K9
-    with c = 0, 1 (a prefix sum), random and omega^(n - 3), and n = 1; two rows of 8,321 (C = 66,
-    Cp = 70) with a zero element for K12; P+P, P+(-P), infinity on either
+    with c = 0, 1 (a prefix sum), random and omega^(n - 3), and n = 1; two
+    rows of 8,321 (C = 66, Cp = 70) with a zero element for K12; K12's and
+    K9's edge rows (k12_k9_edge_cases); P+P, P+(-P), infinity on either
     side for the curve kernels; identities inside a scan row of length 300;
     K6's team geometry on the rows of k6_rows, both variants, and K7 on
     the general ones; an infinity window partial for K8, and its edge rows
@@ -584,6 +606,7 @@ def edge_cases(device, curve_params):
         ("linear_scan", [F, two_rows(1), 5], {}),
         ("mont_prefix_scan_parts", [F, two_rows(8321, zero_at=8321 + 40)], {}),
     ]
+    cases += k12_k9_edge_cases(F, rng, device)
     dc = device_curve(curve_params)
     g = curve_params.generator
     pts = [curve_params.scalar_mul(rng.randrange(1, curve_params.scalar.p), g) for _ in range(300)]
@@ -635,6 +658,41 @@ def edge_cases(device, curve_params):
     ]
     cases += ladder_edge_cases(rng, device)
     return cases, (dc, P, Q, want_add)
+
+
+# K12 edge rows (rows, n) with the wrapper's team of 32: the smallest K12
+# row (C = Cp = 65: 3 positions a member, the 22nd 2, the last ten none),
+# 65,537 (Cp = 528 > C = 513, padded lanes: 17 a member, the last 1) on one
+# row and three
+K12_EDGE_SHAPES = [(1, 8193), (1, 65537), (3, 65537)]
+# K9 edge rows (rows, n): n < 128 (one thread a lane), one past 128, 8,321
+# (cp = 66: 3 positions a member, the last ten none) and 65,537 (cp = 513:
+# 17 a member, the 31st 3, the last none)
+K9_EDGE_SHAPES = [(2, 127), (3, 129), (1, 8321), (1, 65537)]
+
+
+def k12_k9_edge_cases(F, rng, device) -> list:
+    """K12 on K12_EDGE_SHAPES with a zero at a team member's first position
+    and at a lane's first (in the last row); K9 on K9_EDGE_SHAPES with c =
+    0, 1, p - 1, random and omega^(n - 3) (at 65,537 the last two)."""
+    p = F.p
+    cases = []
+    for rows, n in K12_EDGE_SHAPES:
+        team, cp = field_scan_shape("mont_prefix_scan_parts", rows, n, device)
+        sc = -(-cp // team)
+        xs = [rng.randrange(p) for _ in range(rows * n)]
+        base = (rows - 1) * n
+        xs[base + 5 * cp + min(team - 1, (cp - 1) // sc) * sc] = 0
+        xs[base + 9 * cp] = 0
+        cases.append(("mont_prefix_scan_parts", [F, F.pack_mont(xs, shape=(rows, n),
+                                                                 device=device)], {}))
+    omega = F.params.root_of_unity(LOG_N)
+    for rows, n in K9_EDGE_SHAPES:
+        x = F.pack_mont([rng.randrange(p) for _ in range(rows * n)], shape=(rows, n),
+                        device=device)
+        cs = [0, 1, p - 1, rng.randrange(p), pow(omega, n - 3, p)]
+        cases += [("linear_scan", [F, x, c], {}) for c in (cs[3:] if n > 8321 else cs)]
+    return cases
 
 
 def ladder_edge_cases(rng, device) -> list:
@@ -708,9 +766,10 @@ def chain_levels(name: str, args) -> tuple[int, int]:
 
 
 def chain_note(name: str, args, ms: float) -> str:
-    """The dependent products one thread of a row scan runs (K7: adds); for
-    K8 one column's chain, its levels and the time a product and a level."""
-    from proof_systems_tpu_torch.ops.kernels import scan_chunk, scan_geometry
+    """The dependent products one thread of a row scan runs (K7: adds; K12
+    and K9: with their team size S and sub-chunk sc); for K8 one column's
+    chain, its levels and the time a product and a level."""
+    from proof_systems_tpu_torch.ops.kernels import scan_chunk
 
     if name == "combine_windows":
         products, levels = k8_chain(args[2].shape[1], args[1])
@@ -727,12 +786,36 @@ def chain_note(name: str, args, ms: float) -> str:
         sc = -(-cp // team)
         chain = cp if team == 1 else 2 * sc + team.bit_length() - 1
         return f"; chain {chain} + 7 + 1 dependent adds a position"
-    if name not in ("linear_scan", "mont_prefix_scan", "mont_prefix_scan_parts"):
+    if name == "mont_prefix_scan":
+        return f"; chain {scan_chunk(args[1].shape[-1])} + 7 + 1 products"
+    if name not in ("linear_scan", "mont_prefix_scan_parts"):
         return ""
-    n = args[1].shape[-1]
-    if name == "mont_prefix_scan_parts":
-        return f"; chain {scan_geometry(n)[2]} + 7 products"
-    return f"; chain {scan_chunk(n)} + 7 + 1 products, then {scan_chunk(n)} offsets"
+    x = args[1]
+    team, cp = field_scan_shape(name, x[0].numel() // x.shape[-1], x.shape[-1], x.device)
+    sc, lg = -(-cp // team), team.bit_length() - 1
+    if name == "mont_prefix_scan_parts":  # reduce, team scan, rescan; the lane kernel
+        chain = f"{sc} + {lg} + {sc} + 7 products" if team > 1 else f"{sc} + 7 products"
+    else:  # the local recurrence, team scan, lane total; the lane kernel; the combine
+        chain = f"{sc} + {lg} + 1 steps, 7, then 2 products a position"
+    return f"; S = {team}, sc = {sc}: chain {chain}"
+
+
+def field_scan_shape(name: str, rows: int, n: int, device) -> tuple[int, int]:
+    """(S, cp): the team size that K12's or K9's wrapper derives for `rows`
+    rows of n on `device` (132 SMs on the CPU, where the plain versions
+    run), and the positions of a lane."""
+    from proof_systems_tpu_torch.ops import kernels
+
+    cp = kernels.scan_geometry(n)[2] if name == "mont_prefix_scan_parts" else kernels.scan_chunk(n)
+    cuda = torch.device(device).type == "cuda"
+    sms = torch.cuda.get_device_properties(device).multi_processor_count if cuda else 132
+    return kernels.field_scan_team(rows, cp, sms), cp
+
+
+def field_scan_note(kernels) -> str:
+    """The registers and local (stack) bytes of K12's and K9's kernels."""
+    return "; ".join(f"{name}: {regs} registers, {local} B local"
+                     for name, (regs, local, *_) in kernels.field_scan_attrs().items())
 
 
 def scan_team(x: torch.Tensor) -> tuple[int, int]:
@@ -858,6 +941,10 @@ def check_kernels(kernels, recorded, device, curve_params) -> list[dict]:
     if missing:
         raise AssertionError(f"the main path never called {sorted(missing)}")
     log("group law kernels: " + group_law_note(kernels))
+    log("field scan kernels (K12, K9): " + field_scan_note(kernels))
+    local = [k for k, (_, b, *_) in kernels.field_scan_attrs().items() if b]
+    if local:
+        raise AssertionError(f"{local} keep a stack frame")
     return [rows[n] for n in kernels.WRAPPERS]
 
 

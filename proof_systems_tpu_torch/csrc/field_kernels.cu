@@ -17,15 +17,16 @@
 //      past n), and `excl` (rows, 128), the exclusive products of the lane
 //      totals. The combine excl[j / Cp] * partial[j] is one K1 launch over
 //      all positions, as on the TPU; that is what sets it apart from K5,
-//      which combines inside its block.
+//      which combines inside its block. Redesigned on scan_field.cuh
+//      (k_prod_parts, then k_prod_lanes).
 //   K9 linear_scan_fused (l.1069): the first-order recurrence
 //      s_j = x_j + c*s_(j-1) along the last axis for a static c (division by
-//      X - c). Lane l owns a contiguous chunk of C = ceil(n / 128) positions;
-//      the lane recurrence S_l = V_l + c^C S_(l-1) runs as a Hillis-Steele
-//      pass whose multiplier at level k is the uniform constant c^(C 2^k),
-//      and position i of a chunk gets s + c^(i+1) E_l. The constants arrive
-//      as one device table [c^(i+1), i < C] ++ [c^(C 2^k), k < 7], built once
-//      per (field, c, C).
+//      X - c). Lane l owns a contiguous chunk of C = ceil(n / 128)
+//      positions; the lane recurrence S_l = V_l + c^C S_(l-1) is a scan
+//      whose multiplier at level k is the uniform constant c^(C 2^k), and
+//      position i of a chunk gets s + c^(i+1) E_l. The constants arrive as
+//      one device table, built once per (field, c, C, team). Redesigned on
+//      scan_field.cuh (k_lin_parts, k_lin_lanes, then k_lin_combine).
 //   K10 sponge_squeeze2_fused (l.646): absorb (x_L, y_L), permute, absorb
 //      (x_R, y_R), permute, read REDC(state[0]); Poseidon over Fq with 55
 //      full rounds of x^7 and the 3x3 MDS. The round constants and the MDS
@@ -38,13 +39,14 @@
 // Bound on this card: K1 is memory bound (3 x 32 B per product at
 // 3.35 TB/s against 136 integer multiplies); K4 at a large batch is
 // integer-multiply bound (329 products an element); K5, K12 and K9 are
-// latency bound at the main path's shapes (one to a handful of rows): a
-// thread runs a chain of about C + 7 dependent products (C + 7 + C for K9),
-// 519 and 1,031 at n = 2^16.
-//
-// Simple design, left for later: one thread per element (K1) and one block
-// of PST_LANES threads per row (K5, K12, K9), each thread scanning a
-// contiguous chunk, so the scans' loads are not coalesced across a warp.
+// latency bound at the main path's shapes (one row): a chain of dependent
+// products. K5 (one block of PST_LANES threads a row, each thread scanning
+// a contiguous chunk with loads that are not coalesced across a warp) runs
+// C + 7 levels, at most 71. K12 and K9 spread a row's lanes over teams of
+// threads (scan_field.cuh): sc + log2 S + sc + 7 levels for K12 (16 + 5 +
+// 16 + 7 at n = 2^16 with S = 32, against 512 + 7 one thread a lane), sc +
+// log2 S + 1 + 7 and then 2 products a position for K9 (512 + 7 + 1 + 512
+// before).
 //
 // K10, K11 and K4 at the proof's shapes (one element, or a handful) are
 // chains of dependent products on one warp, which issues one instruction
@@ -59,6 +61,7 @@
 // product, then K4's chain.
 
 #include "chain_field.cuh"
+#include "scan_field.cuh"
 
 __global__ void __launch_bounds__(256)
     k_mont_mul(FieldParams F, const uint32_t *__restrict__ a, const uint32_t *__restrict__ b,
@@ -127,69 +130,76 @@ __global__ void __launch_bounds__(PST_LANES)
         fe_store(o, stride, base + j, fe_mul(F, excl, fe_load(o, stride, base + j)));
 }
 
-// One block per row of x (rows, n), limb stride rows * n; partial (rows,
-// PST_LANES * cp) and excl (rows, PST_LANES) with their own limb strides.
-// Thread t owns positions [t * cp, t * cp + cp), one past n.
-__global__ void __launch_bounds__(PST_LANES)
-    k_mont_prefix_parts(FieldParams F, const uint32_t *__restrict__ x,
-                        uint32_t *__restrict__ part, uint32_t *__restrict__ excl,
-                        int64_t rows, int64_t n, int64_t cp) {
-    __shared__ Fe sh[PST_LANES];
-    const int t = threadIdx.x;
-    const int64_t npad = (int64_t)PST_LANES * cp;
-    const int64_t row = blockIdx.x;
-    const Fe one = fe_one(F);
-    Fe carry = one;
-    for (int64_t c = 0; c < cp; ++c) {
-        const int64_t j = (int64_t)t * cp + c;
-        carry = fe_mul(F, carry, j < n ? fe_load(x, rows * n, row * n + j) : one);
-        fe_store(part, rows * npad, row * npad + j, carry);
-    }
-    fe_store(excl, rows * PST_LANES, row * PST_LANES + t, block_excl_prod(F, sh, carry));
+// K12 and K9 (scan_field.cuh). Phase 1: SCAN_WARPS warps a block, each 32 /
+// S lanes of one row, S = 1 << team_log2 threads a lane; TEAM = false
+// compiles S = 1 alone. Phase 2: one block of PST_LANES threads a row.
+template <bool TEAM>
+__global__ void __launch_bounds__(32 * SCAN_WARPS)
+    k_prod_parts(FieldParams F, const uint32_t *__restrict__ x, uint32_t *__restrict__ part,
+                 uint32_t *__restrict__ tot, int64_t rows, int64_t n, int64_t cp, int team_log2) {
+    __shared__ uint32_t tiles[SCAN_WARPS * SCAN_TILE_WORDS];
+    const int w = threadIdx.x / 32;
+    ScanWarp g;
+    if (!scan_warp(g, rows, n, cp, TEAM ? team_log2 : 0, (int64_t)blockIdx.x * SCAN_WARPS + w))
+        return;  // whole warps
+    prod_parts_thread<TEAM>(F, g, x, part, tot, tiles + w * SCAN_TILE_WORDS, threadIdx.x % 32);
 }
 
-// One block per row of x (rows, n), limb stride rows * n. tab (8, cp + 7):
-// c^(i+1) for i < cp, then c^(cp * 2^k) for k < 7. Thread t owns positions
-// [t * cp, t * cp + cp) of its row; the recurrence starts from s = 0.
+// In place over the lane totals tot (rows, PST_LANES): their exclusive
+// products.
 __global__ void __launch_bounds__(PST_LANES)
-    k_linear_scan(FieldParams F, const uint32_t *__restrict__ x,
-                  const uint32_t *__restrict__ tab, uint32_t *__restrict__ o,
-                  int64_t rows, int64_t n, int64_t cp) {
-    __shared__ Fe sh[PST_LANES];
+    k_prod_lanes(FieldParams F, uint32_t *__restrict__ tot, int64_t rows) {
+    __shared__ uint32_t sh[2 * PST_NL * PST_LANES];
     const int t = threadIdx.x;
-    const int64_t stride = rows * n;
-    const int64_t tstride = cp + 7;
-    const int64_t base = (int64_t)blockIdx.x * n;
-    const int64_t lo = (int64_t)t * cp;
-    const int64_t hi = lo + cp < n ? lo + cp : n;
-
-    // 1. s = x + c*s over this thread's chunk
-    const Fe c = fe_load(tab, tstride, 0);
-    Fe s = fe_zero();
-    for (int64_t j = lo; j < hi; ++j) {
-        s = fe_add(F, fe_load(x, stride, base + j), fe_mul(F, c, s));
-        fe_store(o, stride, base + j, s);
-    }
-
-    // 2. inclusive Hillis-Steele S_l = V_l + c^(cp 2^k) S_(l - 2^k), neutral
-    //    zero, then E_l = S_(l-1)
-    sh[t] = s;
-    __syncthreads();
-    for (int k = 0; k < 7; ++k) {
-        const int d = 1 << k;
-        Fe other = t >= d ? sh[t - d] : fe_zero();
-        __syncthreads();
-        s = fe_add(F, s, fe_mul(F, fe_load(tab, tstride, cp + k), other));
-        sh[t] = s;
-        __syncthreads();
-    }
-    const Fe e = t > 0 ? sh[t - 1] : fe_zero();
-
-    // 3. position i of the chunk: s + c^(i+1) E_l
-    for (int64_t j = lo; j < hi; ++j)
-        fe_store(o, stride, base + j,
-                 fe_add(F, fe_load(o, stride, base + j), fe_mul(F, fe_load(tab, tstride, j - lo), e)));
+    const int64_t i = (int64_t)blockIdx.x * PST_LANES + t;
+    const Fe v = fe_load(tot, rows * PST_LANES, i);
+    fe_store(tot, rows * PST_LANES, i, lane_excl(ProdOp{F}, t, v, sh));
 }
+
+template <bool TEAM>
+__global__ void __launch_bounds__(32 * SCAN_WARPS)
+    k_lin_parts(FieldParams F, const uint32_t *__restrict__ x, const uint32_t *__restrict__ tab,
+                int64_t tlen, uint32_t *__restrict__ out, uint32_t *__restrict__ toff,
+                uint32_t *__restrict__ tot, int64_t rows, int64_t n, int64_t cp, int team_log2) {
+    __shared__ uint32_t tiles[SCAN_WARPS * SCAN_TILE_WORDS];
+    const int w = threadIdx.x / 32;
+    ScanWarp g;
+    if (!scan_warp(g, rows, n, cp, TEAM ? team_log2 : 0, (int64_t)blockIdx.x * SCAN_WARPS + w))
+        return;
+    lin_parts_thread<TEAM>(lin_op(F, tab, tlen, cp), g, x, out, toff, tot,
+                           tiles + w * SCAN_TILE_WORDS, threadIdx.x % 32);
+}
+
+// In place over the lane values tot (rows, PST_LANES): each lane's incoming
+// value E_l = S_(l-1) of S_l = V_l + c^cp S_(l-1).
+__global__ void __launch_bounds__(PST_LANES)
+    k_lin_lanes(FieldParams F, const uint32_t *__restrict__ tab, int64_t tlen, int64_t cp,
+                uint32_t *__restrict__ tot, int64_t rows) {
+    __shared__ uint32_t sh[2 * PST_NL * PST_LANES];
+    const int t = threadIdx.x;
+    const int64_t i = (int64_t)blockIdx.x * PST_LANES + t;
+    const Fe v = fe_load(tot, rows * PST_LANES, i);
+    fe_store(tot, rows * PST_LANES, i, lane_excl(lin_op(F, tab, tlen, cp), t, v, sh));
+}
+
+// One thread a position of the (rows, n) output.
+__global__ void __launch_bounds__(256)
+    k_lin_combine(FieldParams F, const uint32_t *__restrict__ tab, int64_t tlen, int64_t cp,
+                  int64_t sc, int team_log2, uint32_t *out, const uint32_t *__restrict__ toff,
+                  const uint32_t *__restrict__ excl, int64_t rows, int64_t n) {
+    const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+    if (i >= rows * n) return;
+    lin_combine_at(lin_op(F, tab, tlen, cp), rows, n, sc, team_log2, out, toff, excl, i);
+}
+
+// Blocks of phase 1: rows * PST_LANES lanes of S threads, SCAN_WARPS warps a
+// block.
+static unsigned scan_blocks(int64_t rows, int team_log2) {
+    const int64_t warps = (rows * PST_LANES << team_log2) / 32;
+    return (unsigned)((warps + SCAN_WARPS - 1) / SCAN_WARPS);
+}
+
+static bool scan_team_valid(int team_log2) { return team_log2 >= 0 && team_log2 <= 5; }
 
 // One warp on nine lanes (sponge_squeeze2_lanes, chain_field.cuh).
 // state (8, 3), xs and ys (8, 2) Montgomery; consts (8, 3 * nrounds + 9).
@@ -290,19 +300,49 @@ int pst_mont_prefix(const uint32_t *fp, const uint32_t *x, uint32_t *o, int64_t 
     return (int)cudaGetLastError();
 }
 
+// K12: the partial products into part (rows, PST_LANES * cp), the
+// exclusive products of the lane totals into excl (rows, PST_LANES); teams
+// of 1 << team_log2 threads, team_log2 in [0, 5] (kernels.field_scan_team).
 int pst_mont_prefix_parts(const uint32_t *fp, const uint32_t *x, uint32_t *part,
-                          uint32_t *excl, int64_t rows, int64_t n, int64_t cp, void *stream) {
-    if (rows > 0 && n > 0)
-        k_mont_prefix_parts<<<(unsigned)rows, PST_LANES, 0, (cudaStream_t)stream>>>(
-            pst_field_params(fp), x, part, excl, rows, n, cp);
+                          uint32_t *excl, int64_t rows, int64_t n, int64_t cp, int team_log2,
+                          void *stream) {
+    if (!scan_team_valid(team_log2)) return (int)cudaErrorInvalidValue;
+    if (rows > 0 && n > 0) {
+        const FieldParams F = pst_field_params(fp);
+        const cudaStream_t s = (cudaStream_t)stream;
+        const auto parts = team_log2 ? k_prod_parts<true> : k_prod_parts<false>;
+        parts<<<scan_blocks(rows, team_log2), 32 * SCAN_WARPS, 0, s>>>(F, x, part, excl, rows, n,
+                                                                       cp, team_log2);
+        const cudaError_t e = cudaGetLastError();
+        if (e != cudaSuccess) return (int)e;
+        k_prod_lanes<<<(unsigned)rows, PST_LANES, 0, s>>>(F, excl, rows);
+    }
     return (int)cudaGetLastError();
 }
 
-int pst_linear_scan(const uint32_t *fp, const uint32_t *x, const uint32_t *tab, uint32_t *o,
-                    int64_t rows, int64_t n, int64_t cp, void *stream) {
-    if (rows > 0 && n > 0)
-        k_linear_scan<<<(unsigned)rows, PST_LANES, 0, (cudaStream_t)stream>>>(
-            pst_field_params(fp), x, tab, o, rows, n, cp);
+// K9: tab (8, tlen) of kernels.linear_kernel_table for (c, cp, sc); scratch
+// PST_NL * rows * PST_LANES * (S + 1) words: the team offsets (rows,
+// PST_LANES, S) limb-major, then the lane values (rows, PST_LANES).
+int pst_linear_scan(const uint32_t *fp, const uint32_t *x, const uint32_t *tab, int64_t tlen,
+                    uint32_t *scratch, uint32_t *o, int64_t rows, int64_t n, int64_t cp,
+                    int team_log2, void *stream) {
+    if (!scan_team_valid(team_log2)) return (int)cudaErrorInvalidValue;
+    if (rows > 0 && n > 0) {
+        const FieldParams F = pst_field_params(fp);
+        const cudaStream_t s = (cudaStream_t)stream;
+        const int64_t sc = (cp + (1 << team_log2) - 1) >> team_log2;
+        uint32_t *toff = scratch, *tot = scratch + (PST_NL * rows * PST_LANES << team_log2);
+        const auto parts = team_log2 ? k_lin_parts<true> : k_lin_parts<false>;
+        parts<<<scan_blocks(rows, team_log2), 32 * SCAN_WARPS, 0, s>>>(F, x, tab, tlen, o, toff,
+                                                                       tot, rows, n, cp, team_log2);
+        cudaError_t e = cudaGetLastError();
+        if (e != cudaSuccess) return (int)e;
+        k_lin_lanes<<<(unsigned)rows, PST_LANES, 0, s>>>(F, tab, tlen, cp, tot, rows);
+        e = cudaGetLastError();
+        if (e != cudaSuccess) return (int)e;
+        k_lin_combine<<<(unsigned)((rows * n + 255) / 256), 256, 0, s>>>(
+            F, tab, tlen, cp, sc, team_log2, o, toff, tot, rows, n);
+    }
     return (int)cudaGetLastError();
 }
 
@@ -348,6 +388,26 @@ int pst_chain_attrs(int which, int *out) {
     if (fn == nullptr) return (int)cudaErrorInvalidValue;
     cudaFuncAttributes a;
     const cudaError_t e = cudaFuncGetAttributes(&a, fn);
+    out[0] = a.numRegs;
+    out[1] = (int)a.localSizeBytes;
+    out[2] = (int)a.sharedSizeBytes;
+    out[3] = 0;
+    return (int)e;
+}
+
+// Registers, local (stack) bytes, static and dynamic shared memory of K12's
+// and K9's kernels: k_prod_parts<false> (which 0), k_prod_parts<true> (1),
+// k_prod_lanes (2), k_lin_parts<false> (3), k_lin_parts<true> (4),
+// k_lin_lanes (5), k_lin_combine (6).
+int pst_scan_attrs(int which, int *out) {
+    const void *fns[] = {(const void *)k_prod_parts<false>, (const void *)k_prod_parts<true>,
+                         (const void *)k_prod_lanes,        (const void *)k_lin_parts<false>,
+                         (const void *)k_lin_parts<true>,   (const void *)k_lin_lanes,
+                         (const void *)k_lin_combine};
+    if (which < 0 || which >= (int)(sizeof(fns) / sizeof(fns[0])))
+        return (int)cudaErrorInvalidValue;
+    cudaFuncAttributes a;
+    const cudaError_t e = cudaFuncGetAttributes(&a, fns[which]);
     out[0] = a.numRegs;
     out[1] = (int)a.localSizeBytes;
     out[2] = (int)a.sharedSizeBytes;

@@ -13,10 +13,10 @@ signature and the same results:
   K6 ec_prefix_scan_parts     (pallas_field.py:1333)  csrc/curve_kernels.cu
   K7 ec_prefix_scan_fused     (pallas_field.py:1410)  csrc/curve_kernels.cu
   K8 combine_windows          (pallas_field.py:560)   csrc/curve_kernels.cu, k8_combine.cuh
-  K9 linear_scan              (pallas_field.py:1069)  csrc/field_kernels.cu
+  K9 linear_scan              (pallas_field.py:1069)  csrc/field_kernels.cu, scan_field.cuh
   K10 sponge_squeeze2         (pallas_field.py:646)   csrc/field_kernels.cu, chain_field.cuh
   K11 endo_inv                (pallas_field.py:742)   csrc/field_kernels.cu, chain_field.cuh
-  K12 mont_prefix_scan_parts  (pallas_field.py:956)   csrc/field_kernels.cu
+  K12 mont_prefix_scan_parts  (pallas_field.py:956)   csrc/field_kernels.cu, scan_field.cuh
 
 and one kernel for a loop of them: the IPA fold step's endo ladder
 (`endo_ladder`, csrc/endo_ladder.cuh), the reference's `fori_loop` of K2
@@ -145,8 +145,9 @@ def _bind_field(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.pst_mont_mul.argtypes = [_P, _P, _P, _P, _I64, _P]
     lib.pst_mont_pow.argtypes = [_P, ctypes.c_char_p, ctypes.c_int, _P, _P, _I64, _P]
     lib.pst_mont_prefix.argtypes = [_P, _P, _P, _I64, _I64, _I64, _P]
-    lib.pst_mont_prefix_parts.argtypes = [_P, _P, _P, _P, _I64, _I64, _I64, _P]
-    lib.pst_linear_scan.argtypes = [_P, _P, _P, _P, _I64, _I64, _I64, _P]
+    lib.pst_mont_prefix_parts.argtypes = [_P] * 4 + [_I64] * 3 + [ctypes.c_int, _P]
+    lib.pst_linear_scan.argtypes = [_P] * 3 + [_I64, _P, _P] + [_I64] * 3 + [ctypes.c_int, _P]
+    lib.pst_scan_attrs.argtypes = [ctypes.c_int, _P]
     lib.pst_sponge_squeeze2.argtypes = [_P, _P, _P, _P, _P, ctypes.c_int, _P, _P, _P]
     lib.pst_endo_inv.argtypes = [_P, _P, ctypes.c_char_p, ctypes.c_int, _P, _P, _P, _P]
     lib.pst_chain_attrs.argtypes = [ctypes.c_int, _P]
@@ -154,7 +155,7 @@ def _bind_field(lib: ctypes.CDLL) -> ctypes.CDLL:
     for fn in (lib.pst_mont_mul, lib.pst_mont_pow, lib.pst_mont_prefix,
                lib.pst_mont_prefix_parts, lib.pst_linear_scan,
                lib.pst_sponge_squeeze2, lib.pst_endo_inv, lib.pst_chain_attrs,
-               lib.pst_product_chain):
+               lib.pst_product_chain, lib.pst_scan_attrs):
         fn.restype = ctypes.c_int
     lib.pst_field_error_string.argtypes = [ctypes.c_int]
     lib.pst_field_error_string.restype = ctypes.c_char_p
@@ -761,6 +762,46 @@ def mont_prefix_scan_parts_plain(F, x: torch.Tensor):
             from16(excl).reshape(NL, *batch, LANES), cp)
 
 
+# K12's and K9's team size (csrc/scan_field.cuh): the threads a team split
+# may put on one SM (two waves at the team kernels' 128-138 registers: at 24
+# rows of 2^16 a team of 32 still ran fastest, PERF.md), the largest team
+# (one warp), and the fewest positions a member keeps.
+FIELD_SCAN_SM_THREADS = 1024
+FIELD_SCAN_TEAM_MAX = 32
+FIELD_SCAN_MIN_SUB = 2
+
+
+@functools.lru_cache(maxsize=None)
+def field_scan_team(rows: int, cp: int, sms: int) -> int:
+    """The team size S of K12 and K9 for `rows` rows of lane chunks of cp
+    positions on a card of `sms` SMs: S threads share each lane chunk. A
+    chain of dependent products is shortest with the largest team (sc +
+    log2 S + sc levels, sc = ceil(cp / S)), and a row of the main path
+    leaves the card nearly idle: S doubles up to one warp while twice the
+    threads fit FIELD_SCAN_SM_THREADS an SM and each member keeps at least
+    FIELD_SCAN_MIN_SUB positions; S = 1 where the rows fill the card."""
+    lanes, slots = rows * LANES, sms * FIELD_SCAN_SM_THREADS
+    s = 1
+    while s < FIELD_SCAN_TEAM_MAX and 2 * s * lanes <= slots and cp >= 2 * s * FIELD_SCAN_MIN_SUB:
+        s *= 2
+    return s
+
+
+def _prefix_parts_launch(F, x: torch.Tensor, team: int):
+    """K12's two kernels on (8, ..., n) CUDA rows with `team` threads a lane
+    chunk (a power of two up to FIELD_SCAN_TEAM_MAX); counts nothing."""
+    dev = x.device
+    rows, n = _rows_n(x)
+    cp = scan_geometry(n)[2]
+    batch = x.shape[1:-1]
+    partial = torch.empty((NL, *batch, LANES * cp), dtype=torch.int32, device=dev)
+    excl = torch.empty((NL, *batch, LANES), dtype=torch.int32, device=dev)
+    _launch(LIBRARY.load().field, "pst_mont_prefix_parts", "pst_field_error_string", dev,
+            _field_words(F), x.data_ptr(), partial.data_ptr(), excl.data_ptr(), rows, n, cp,
+            team.bit_length() - 1)
+    return partial, excl, cp
+
+
 def mont_prefix_scan_parts(F, x: torch.Tensor):
     """Blocked Montgomery prefix product, phases 1-2, along the last axis.
 
@@ -768,34 +809,56 @@ def mont_prefix_scan_parts(F, x: torch.Tensor):
     (8, ..., LANES * cp), position j of lane j // cp holding the product of
     its lane's positions up to j (one past n); excl (8, ..., LANES), the
     exclusive products of the lane totals. The inclusive prefix product of
-    position j is excl[..., j // cp] * partial[..., j]."""
+    position j is excl[..., j // cp] * partial[..., j]. On the card a team
+    of threads shares each lane (field_scan_team); the limbs are the plain
+    version's."""
     dev = _check(x)
     if dev.type == "cpu":
         return mont_prefix_scan_parts_plain(F, x)
     rows, n = _rows_n(x)
-    cp = scan_geometry(n)[2]
-    batch = x.shape[1:-1]
-    partial = torch.empty((NL, *batch, LANES * cp), dtype=torch.int32, device=dev)
-    excl = torch.empty((NL, *batch, LANES), dtype=torch.int32, device=dev)
-    lib = LIBRARY.load().field
-    _launch(lib, "pst_mont_prefix_parts", "pst_field_error_string", dev,
-            _field_words(F), x.data_ptr(), partial.data_ptr(), excl.data_ptr(), rows, n, cp)
+    out = _prefix_parts_launch(F, x, field_scan_team(rows, scan_geometry(n)[2], _sm_count(dev)))
     LAUNCHES["mont_prefix_scan_parts"] += 1
-    return partial, excl, cp
+    return out
+
+
+def _mont_table(p: int, r_mod_p: int, vals: list[int], device: str) -> torch.Tensor:
+    """(8, len(vals)) int32 limbs of vals in Montgomery form on `device`."""
+    arr = torch.tensor([_words(v * r_mod_p % p) for v in vals], dtype=torch.int64).T
+    return torch.where(arr >= 1 << 31, arr - (1 << 32), arr).to(torch.int32).contiguous().to(device)
 
 
 @functools.lru_cache(maxsize=None)
 def _linear_table(p: int, r_mod_p: int, c: int, cp: int, device: str) -> torch.Tensor:
     vals = [pow(c, i + 1, p) for i in range(cp)] + [pow(c, cp << k, p) for k in range(7)]
-    arr = torch.tensor([_words(v * r_mod_p % p) for v in vals], dtype=torch.int64).T
-    return torch.where(arr >= 1 << 31, arr - (1 << 32), arr).to(torch.int32).contiguous().to(device)
+    return _mont_table(p, r_mod_p, vals, device)
 
 
 def linear_table(F, c: int, n: int, device) -> torch.Tensor:
-    """(8, cp + 7) Montgomery constants of K9 for a row of length n
-    (cp = scan_chunk(n)): c^(i+1) for i < cp, then c^(cp * 2^k) for k < 7.
-    Built on the host and copied to `device` once per (field, c, cp)."""
+    """(8, cp + 7) Montgomery constants of K9's plain version for a row of
+    length n (cp = scan_chunk(n)): c^(i+1) for i < cp, then c^(cp * 2^k)
+    for k < 7. Built on the host and copied to `device` once per (field, c,
+    cp)."""
     return _linear_table(F.p, F.r_mod_p, c % F.p, scan_chunk(n), str(torch.device(device)))
+
+
+@functools.lru_cache(maxsize=None)
+def _linear_kernel_table(p: int, r_mod_p: int, c: int, cp: int, sc: int,
+                         device: str) -> torch.Tensor:
+    vals = ([pow(c, i + 1, p) for i in range(cp)] + [pow(c, cp << k, p) for k in range(7)]
+            + [pow(c, sc << k, p) for k in range(5)])
+    return _mont_table(p, r_mod_p, vals, device)
+
+
+def linear_kernel_table(F, c: int, n: int, team: int, device) -> torch.Tensor:
+    """(8, cp + 12) Montgomery constants of the K9 kernel for a row of
+    length n (cp = scan_chunk(n)) with `team` threads a lane chunk (sc =
+    ceil(cp / team) positions each): c^(i+1) for i < cp, c^(cp * 2^k) for
+    k < 7 (the lane scan's levels), then c^(sc * 2^k) for k < 5 (the
+    team's). Built on the host and copied to `device` once per (field, c,
+    cp, sc)."""
+    cp = scan_chunk(n)
+    return _linear_kernel_table(F.p, F.r_mod_p, c % F.p, cp, -(-cp // team),
+                                str(torch.device(device)))
 
 
 def linear_scan_plain(F, x: torch.Tensor, c: int) -> torch.Tensor:
@@ -820,20 +883,50 @@ def linear_scan_plain(F, x: torch.Tensor, c: int) -> torch.Tensor:
     return from16(out.reshape(16, rows, LANES * cp)[..., :n]).reshape(x.shape)
 
 
+def _linear_scan_launch(F, x: torch.Tensor, c: int, team: int) -> torch.Tensor:
+    """K9's three kernels on (8, ..., n) CUDA rows with `team` threads a
+    lane chunk (a power of two up to FIELD_SCAN_TEAM_MAX); counts nothing."""
+    dev = x.device
+    rows, n = _rows_n(x)
+    tab = linear_kernel_table(F, c, n, team, dev)
+    # the team offsets (rows, LANES, team), then the lane values (rows, LANES)
+    scratch = torch.empty(NL * rows * LANES * (team + 1), dtype=torch.int32, device=dev)
+    out = torch.empty_like(x)
+    _launch(LIBRARY.load().field, "pst_linear_scan", "pst_field_error_string", dev,
+            _field_words(F), x.data_ptr(), tab.data_ptr(), tab.shape[1], scratch.data_ptr(),
+            out.data_ptr(), rows, n, scan_chunk(n), team.bit_length() - 1)
+    return out
+
+
 def linear_scan(F, x: torch.Tensor, c: int) -> torch.Tensor:
     """Inclusive recurrence s_j = x_j + c * s_(j-1) along the last axis, for
-    a static int c; x in Montgomery form."""
+    a static int c; x in Montgomery form. On the card a team of threads
+    shares each lane chunk (field_scan_team)."""
     dev = _check(x)
     if dev.type == "cpu":
         return linear_scan_plain(F, x, c)
     rows, n = _rows_n(x)
-    tab = linear_table(F, c, n, dev)
-    out = torch.empty_like(x)
-    lib = LIBRARY.load().field
-    _launch(lib, "pst_linear_scan", "pst_field_error_string", dev,
-            _field_words(F), x.data_ptr(), tab.data_ptr(), out.data_ptr(), rows, n,
-            scan_chunk(n))
+    out = _linear_scan_launch(F, x, c, field_scan_team(rows, scan_chunk(n), _sm_count(dev)))
     LAUNCHES["linear_scan"] += 1
+    return out
+
+
+# K12's and K9's kernels, in the order of pst_scan_attrs
+FIELD_SCAN_KERNELS = ("K12 parts S 1", "K12 parts S > 1", "K12 lanes", "K9 parts S 1",
+                      "K9 parts S > 1", "K9 lanes", "K9 combine")
+
+
+def field_scan_attrs() -> dict[str, tuple[int, ...]]:
+    """(registers, local bytes, static and dynamic shared bytes) of each K12
+    and K9 kernel (FIELD_SCAN_KERNELS), from cudaFuncGetAttributes."""
+    lib = LIBRARY.load().field
+    out = {}
+    for which, name in enumerate(FIELD_SCAN_KERNELS):
+        buf = (ctypes.c_int * 4)()
+        rc = lib.pst_scan_attrs(which, buf)
+        if rc:
+            raise RuntimeError(f"pst_scan_attrs: CUDA error {rc}")
+        out[name] = tuple(buf)
     return out
 
 

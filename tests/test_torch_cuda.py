@@ -430,31 +430,101 @@ def _field_row(rng, F, rows, n, dev, zero_at=None):
     return F.pack_mont(xs, shape=(rows, n), device=dev)
 
 
-@pytest.mark.parametrize("n,c", [(1, 5), (300, 0), (300, 1), (300, "random"),
-                                 (1 << 16, "omega")])
-def test_linear_scan_matches_plain(dev, n, c):
-    """K9 on two rows, for c = 0, c = 1 (a prefix sum), a random c and the
-    boundary's omega^(n - 3), at n = 1, n not a multiple of 128 and the
-    prover's 2^16."""
+# (rows, n, c) of K9: n = 1, not a multiple of 128, the prover's 2^16 and
+# one past it; 1, 2 and 24 rows; c = 0, 1 (a prefix sum), p - 1, random and
+# the boundary's omega^(n - 3)
+K9_CASES = ([(2, n, c) for n, c in [(1, 5), (300, 0), (300, 1), (300, "random"),
+                                    (1 << 16, "omega")]]
+            + [(rows, n, "omega") for rows in (1, 2, 24) for n in (127, 129, 8321, 65537)]
+            + [(1, 65537, c) for c in (0, 1, "p-1", "random")])
+# every team size the K12 and K9 kernels take
+FIELD_SCAN_TEAMS = [1, 2, 4, 8, 16, 32]
+
+
+def _k9_c(rng, c, n):
+    return {"random": rng.randrange(Fp.p), "p-1": Fp.p - 1,
+            "omega": pow(Fp.root_of_unity(16), n - 3, Fp.p)}.get(c, c)
+
+
+@pytest.mark.parametrize("rows,n,c", K9_CASES, ids=str)
+def test_linear_scan_matches_plain(dev, rows, n, c):
+    """K9 as the wrapper launches it (the team of field_scan_team), one
+    launch a call, limb for limb against the plain version."""
     rng = random.Random(606)
     F = limb.device_field(Fp)
-    c = {"random": rng.randrange(Fp.p), "omega": pow(Fp.root_of_unity(16), n - 3, Fp.p)}.get(c, c)
-    x = _field_row(rng, F, 2, n, dev)
+    c = _k9_c(rng, c, n)
+    x = _field_row(rng, F, rows, n, dev)
     before = kernels.launch_counts()["linear_scan"]
     got, want = _pair("linear_scan", F, x, c)
     assert torch.equal(got, want)
     assert kernels.launch_counts()["linear_scan"] == before + 1
 
 
-@pytest.mark.parametrize("n", [8321, 1 << 16])
-def test_mont_prefix_scan_parts_matches_plain(dev, n):
-    """K12 on two rows with a zero element (Cp = 70 at n = 8,321)."""
+@pytest.mark.parametrize("rows,n", [(2, 1), (2, 129), (2, 8321), (1, 1 << 16), (24, 65537)],
+                         ids=str)
+def test_linear_scan_teams_match_plain(dev, rows, n):
+    """K9 with every team size through its launcher (which counts nothing),
+    limb for limb against the plain version."""
+    rng = random.Random(617)
+    F = limb.device_field(Fp)
+    c = _k9_c(rng, "omega", n)
+    x = _field_row(rng, F, rows, n, dev)
+    want = kernels.linear_scan_plain(F, x, c)
+    before = kernels.launch_counts()
+    for team in FIELD_SCAN_TEAMS:
+        assert torch.equal(kernels._linear_scan_launch(F, x, c, team), want), team
+    assert kernels.launch_counts() == before
+
+
+# (rows, n) of K12: the smallest K12 row (C = Cp = 65), padded lanes (n =
+# 8,321: Cp = 70 > C = 66; 65,537: Cp = 528 > C = 513), the prover's 2^16;
+# 1, 2, 3 and 24 rows
+K12_CASES = [(2, 8321), (2, 1 << 16), (1, 8193), (3, 8321), (1, 65537), (24, 65537),
+             (1, 1 << 16)]
+
+
+@pytest.mark.parametrize("rows,n", K12_CASES, ids=str)
+def test_mont_prefix_scan_parts_matches_plain(dev, rows, n):
+    """K12 as the wrapper launches it, one launch a call, limb for limb
+    against the plain version (partial, excl and cp), on rows with a zero
+    element."""
     rng = random.Random(607)
     F = limb.device_field(Fp)
-    x = _field_row(rng, F, 2, n, dev, zero_at=n + 17)
+    x = _field_row(rng, F, rows, n, dev, zero_at=(rows - 1) * n + 17)
+    before = kernels.launch_counts()["mont_prefix_scan_parts"]
     (part, excl, cp), (part_p, excl_p, cp_p) = _pair("mont_prefix_scan_parts", F, x)
+    assert kernels.launch_counts()["mont_prefix_scan_parts"] == before + 1
     assert cp == cp_p == kernels.scan_geometry(n)[2]
     assert torch.equal(part, part_p) and torch.equal(excl, excl_p)
+
+
+@pytest.mark.parametrize("rows,n", [(1, 8193), (3, 8321), (1, 1 << 16), (24, 65537)], ids=str)
+def test_mont_prefix_scan_parts_teams_match_plain(dev, rows, n):
+    """K12 with every team size through its launcher (which counts
+    nothing), limb for limb against the plain version, with zeros at
+    lane 9's first position and at the middle of lane 5 (a member's first
+    position where sc divides cp / 2: at 2^16, every team)."""
+    rng = random.Random(618)
+    F = limb.device_field(Fp)
+    cp = kernels.scan_geometry(n)[2]
+    xs = [rng.randrange(Fp.p) for _ in range(rows * n)]
+    base = (rows - 1) * n
+    xs[base + 5 * cp + cp // 2] = 0
+    xs[base + 9 * cp] = 0
+    x = F.pack_mont(xs, shape=(rows, n), device=dev)
+    want_p, want_e, _ = kernels.mont_prefix_scan_parts_plain(F, x)
+    before = kernels.launch_counts()
+    for team in FIELD_SCAN_TEAMS:
+        part, excl, got_cp = kernels._prefix_parts_launch(F, x, team)
+        assert got_cp == cp
+        assert torch.equal(part, want_p) and torch.equal(excl, want_e), team
+    assert kernels.launch_counts() == before
+
+
+def test_field_scan_kernels_have_no_local_memory(dev):
+    """K12's and K9's kernels keep nothing on a stack."""
+    for name, (regs, local, _, _) in kernels.field_scan_attrs().items():
+        assert local == 0 and 0 < regs <= 255, name
 
 
 @pytest.mark.parametrize("n", [64 * 128, 64 * 128 + 1])
