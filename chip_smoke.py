@@ -12,10 +12,13 @@ Phases, each fatal on failure:
   2. print the card; one thread's chain of dependent products on the card
      for field.cuh's CIOS fe_mul and for chain_field.cuh's product, square
      and dot3 (us a step), and the registers and local memory of K10, K4
-     and K11 (K10 and K4 must have no stack);
+     and K11 (none may keep a stack); K11's binary-GCD inverse against pow
+     on 0, 1, 2, p - 1, p - 2, R, R^2 and 2^255 mod p and random values in
+     Fp and Fq, and its latency (us an inverse);
   3. warm-up run of the main path, recording every kernel's largest call
-     (K2's, K7's, K12's and the endo ladder's at every call shape, K4's at
-     every shape and exponent length, K9's at every shape and length of c);
+     (K2's, K5's, K7's, K12's and the endo ladder's at every call shape,
+     K4's at every shape and exponent length, K9's at every shape and
+     length of c);
      then each
      kernel against its plain PyTorch version on those inputs and on edge
      cases (field and transcript kernels, K2, K3, K8 and the ladder exact,
@@ -23,16 +26,18 @@ Phases, each fatal on failure:
      scans a lane chunk; K6 and K7 also on rows that split each lane chunk
      over a team of threads; K12 and K9 on rows whose lanes a team of
      threads shares, K12 with padded lanes and zeros at a member's first
-     position; K8 also on its fallback and identity windows;
-     the ladder on both curves with all-zero and all-one bits and a point
-     at infinity), with the kernel's and the plain version's times, K6's
+     position; K5 on rows around a warp, a block and its longest row; K8
+     also on its fallback and identity windows; K11 over both scalar
+     fields; the ladder on both curves with all-zero and all-one bits and
+     a point at infinity), with the kernel's and the plain version's times, K6's
      and K7's team size and tile width, the registers and local memory of
-     K6's kernels, K7's combine, K12's and K9's kernels (which must keep no
-     stack), K12's and K9's team size and chain, K8's
+     K6's kernels, K7's combine, K5's, K12's and K9's kernels (which must
+     keep no stack), K5's block and chain, K12's and K9's team size and
+     chain, K11's binary-GCD steps, K8's
      registers, local memory and chain
      (products, levels, time a product), and the registers and local
-     memory of K2, K3 and the ladder, and for K10, K4 and K11 the us a
-     dependent level of their chains;
+     memory of K2, K3 and the ladder, for K10 and K4 the us a dependent
+     level of their chains and for K11 the us a binary-GCD step;
   4. the main path at k = 16 on Vesta, with launch counts zeroed just
      before and read just after: SRS.create(2^16), the scaled basis of
      g ++ [h], iNTT of 15 random witness columns, their 15 hiding commits
@@ -96,6 +101,12 @@ LAT_IMADS = {"mul": 64 + 24, "sqr": 36 + 24, "dot3": 3 * 64 + 24}
 # The endo ladder a point: phi(x), the first add and doubling, 64 steps of a
 # doubling and an add
 LADDER_PRODUCTS = 1 + PRODUCTS["add"] + PRODUCTS["dbl"] + 64 * (PRODUCTS["dbl"] + PRODUCTS["add"])
+# K11's inverse (csrc/inv_field.cuh): batches of binary-GCD steps on 64-bit
+# approximations, and 32-bit integer operations: a step's test, compare,
+# subtractions, selects and shifts (16), a batch's update of a and b (2 x 8
+# words x 2 multiply-adds) and of u and v mod p (2 x 8 x 3)
+INV_BATCHES, INV_STEPS = 17, 30
+INV_OPS = INV_BATCHES * (INV_STEPS * 16 + 2 * 8 * 2 + 2 * 8 * 3)
 
 FIELD_CU = "proof_systems_tpu_torch/csrc/field_kernels.cu"
 CURVE_CU = "proof_systems_tpu_torch/csrc/curve_kernels.cu"
@@ -125,7 +136,7 @@ JSON_KEY = {"ec_prefix_scan_parts": "ec_prefix_scan_parts[mixed]"}
 # exponent length, K9 at every shape and length of c); the JSON line
 # reports the largest call.
 BY_SHAPE = ("jacobian_add", "ec_prefix_scan_fused", "endo_ladder", "mont_pow",
-            "mont_prefix_scan_parts", "linear_scan")
+            "mont_prefix_scan", "mont_prefix_scan_parts", "linear_scan")
 
 
 def log(msg: str) -> None:
@@ -286,6 +297,11 @@ def k4_label(F, a, e) -> str:
     return f"mont_pow[{shape_of(a)} e {e.bit_length()} bits]"
 
 
+def k5_label(F, x) -> str:
+    """A K5 call's label: its shape."""
+    return f"mont_prefix_scan[{shape_of(x)}]"
+
+
 def k12_label(F, x) -> str:
     """A K12 call's label: its shape."""
     return f"mont_prefix_scan_parts[{shape_of(x)}]"
@@ -306,13 +322,14 @@ def k8_label(F, c, wx, wy, wz) -> str:
 SHAPE_LABELS = {"ec_prefix_scan_parts": ("K6", k6_label), "combine_windows": ("K8", k8_label),
                 "jacobian_add": ("K2", k2_label), "endo_ladder": ("ladder", ladder_label),
                 "ec_prefix_scan_fused": ("K7", k7_label), "mont_pow": ("K4", k4_label),
-                "mont_prefix_scan_parts": ("K12", k12_label), "linear_scan": ("K9", k9_label)}
+                "mont_prefix_scan": ("K5", k5_label), "mont_prefix_scan_parts": ("K12", k12_label),
+                "linear_scan": ("K9", k9_label)}
 
 
 def kernel_times(result, device) -> None:
     """Each kernel's device time and launches over one proof and over one
     verification of it, largest first, and the time of K6, K7, K8, K2, K4,
-    K12, K9 and the endo ladder at each call shape."""
+    K5, K12, K9 and the endo ladder at each call shape."""
     from proof_systems_tpu_torch.ops import kernels
 
     targets = [(kernels, name, SHAPE_LABELS[name][1] if name in SHAPE_LABELS else name)
@@ -442,15 +459,15 @@ def bound_ms(name: str, args, kw) -> tuple[float, str]:
         imads = 2 * args[1] * 3 * (2 * LAT_IMADS["sqr"] + 2 * LAT_IMADS["mul"]
                                    + LAT_IMADS["dot3"]) + LAT_IMADS["mul"]
         products = imads / IMADS_PER_PRODUCT
-    elif name == "endo_inv":  # u = a*endo + b (CIOS), then u^(p-2)
+    elif name == "endo_inv":  # u = REDC(a endo R^2 + b R^2), the inverse, one product
         nbytes = 4 * 128 + 2 * fe
-        products = 1 + pow_imads(args[0].p - 2) / IMADS_PER_PRODUCT
+        products = (2 * 64 + 24 + LAT_IMADS["mul"] + INV_OPS) / IMADS_PER_PRODUCT
     elif name == "mont_mul":
         nbytes, products = 3 * fe * elems, elems
     elif name == "mont_pow":
         nbytes, products = 2 * fe * elems, elems * pow_imads(args[2]) / IMADS_PER_PRODUCT
-    elif name == "mont_prefix_scan":
-        nbytes, products = 2 * fe * elems, 2 * elems
+    elif name == "mont_prefix_scan":  # a full scan, on chain_field.cuh's product
+        nbytes, products = 2 * fe * elems, 2 * elems * LAT_IMADS["mul"] / IMADS_PER_PRODUCT
     elif name == "mont_prefix_scan_parts":  # partial and excl out
         from proof_systems_tpu_torch.ops.kernels import scan_geometry
 
@@ -565,8 +582,9 @@ def edge_cases(device, curve_params):
     the general ones; an infinity window partial for K8, and its edge rows
     (k8_windows: identity columns, the doubling and infinity fallbacks, W =
     1, c = 1, b = 33 and 130); L at infinity, (0, 0), for K10; all-zero and
-    all-one challenge bits for K11 and the endo ladder, which also meets a
-    point at infinity, on both curves."""
+    all-one challenge bits for K11 (and four random ones, over both scalar
+    fields) and the endo ladder, which also meets a point at infinity, on
+    both curves; K5 on two rows of each K5_EDGE_ROWS length in Fp and Fq."""
     from proof_systems_tpu_torch.fields import Fp, Fq
     from proof_systems_tpu_torch.ops import limb
     from proof_systems_tpu_torch.ops.curve_ops import device_curve
@@ -586,6 +604,9 @@ def edge_cases(device, curve_params):
             ("mont_pow", [F, a, 5], {}),
             ("mont_prefix_scan", [F, a.reshape(8, 2, 32).contiguous()], {}),
         ]
+        cases += [("mont_prefix_scan", [F, F.pack_mont([rng.randrange(fld.p) for _ in range(2 * n)],
+                                                     shape=(2, n), device=device)], {})
+                  for n in K5_EDGE_ROWS]
         # K4 on one element, as a proof calls it: 0 (-> 0 but for e = 0), 1, p - 1
         cases += [("mont_pow", [F, F.pack_mont([v], device=device), e], {})
                   for v in (0, 1, fld.p - 1) for e in (fld.p - 2, 21, 0)]
@@ -641,8 +662,7 @@ def edge_cases(device, curve_params):
     state = Fb.pack_mont([rng.randrange(Fb.p) for _ in range(3)], device=device)
     xs = Fb.pack_mont([0, qs[5][0]], device=device)
     ys = Fb.pack_mont([0, qs[5][1]], device=device)
-    Fs = limb.device_field(curve_params.scalar)
-    endo_r = curve_params.endos[1]
+    from proof_systems_tpu_torch.curves import Pallas
     cases += [
         ("combine_windows", [dc.F, 11, *wins], {}),
         ("combine_windows", [dc.F, 2, *(w[:, :3].contiguous() for w in wins)], {}),
@@ -653,13 +673,20 @@ def edge_cases(device, curve_params):
         ("sponge_squeeze2", [Fb, fq_kimchi.rounds_full, state, xs, ys,
                              kernels.sponge_consts(fq_kimchi, device)], {}),
     ] + [
-        ("endo_inv", [Fs, endo_r, torch.tensor(bits, dtype=torch.int32, device=device)], {})
-        for bits in ([0] * 128, [1] * 128, [rng.randrange(2) for _ in range(128)])
+        ("endo_inv", [limb.device_field(c.scalar), c.endos[1],
+                      torch.tensor(bits, dtype=torch.int32, device=device)], {})
+        for c in (curve_params, Pallas)
+        for bits in ([0] * 128, [1] * 128, *([rng.randrange(2) for _ in range(128)]
+                                           for _ in range(4)))
     ]
     cases += ladder_edge_cases(rng, device)
     return cases, (dc, P, Q, want_add)
 
 
+# K5 edge rows, two each: around a warp, a block of 128, the rule's blocks
+# of 256 and 1,024 threads, and the longest row (n = 1, 2 and 2,048-8,192
+# are main-path shapes, checked there)
+K5_EDGE_ROWS = [1, 2, 3, 31, 32, 33, 127, 128, 129, 2047, 2048, 8191, 8192]
 # K12 edge rows (rows, n) with the wrapper's team of 32: the smallest K12
 # row (C = Cp = 65: 3 positions a member, the 22nd 2, the last ten none),
 # 65,537 (Cp = 528 > C = 513, padded lanes: 17 a member, the last 1) on one
@@ -753,14 +780,10 @@ def k8_chain(W: int, c: int) -> tuple[int, int]:
 
 def chain_levels(name: str, args) -> tuple[int, int]:
     """(products, dependent levels) of one thread's chain in K4 (one
-    element), K11 (after its 64 steps of adds) or K10 (a lane: x^2, then
-    x^4 and x^3, then x^7, then its MDS row as one dot3, a round; the last
-    product is the challenge's REDC)."""
+    element) or K10 (a lane: x^2, then x^4 and x^3, then x^7, then its MDS
+    row as one dot3, a round; the last product is the challenge's REDC)."""
     if name == "mont_pow":
         return pow_levels(args[2])
-    if name == "endo_inv":
-        products, levels = pow_levels(args[0].p - 2)
-        return products + 1, levels + 1
     rounds = 2 * args[1]
     return 5 * rounds + 1, 4 * rounds + 1
 
@@ -777,17 +800,27 @@ def chain_note(name: str, args, ms: float) -> str:
                 f"{ms * 1e3 / products:.4f} us a product, {ms * 1e3 / levels:.4f} us a level")
     if name == "mont_pow" and args[1][0].numel() > 32:
         return ""  # a batch: throughput, not one chain
-    if name in ("mont_pow", "endo_inv", "sponge_squeeze2"):
+    if name in ("mont_pow", "sponge_squeeze2"):
         products, levels = chain_levels(name, args)
         return (f"; chain {products} products in {levels} dependent levels, "
                 f"{ms * 1e3 / levels:.4f} us a level")
+    if name == "endo_inv":  # u's reduction, the binary GCD, the product by R^3
+        steps = INV_BATCHES * INV_STEPS
+        return (f"; chain 1 product, {INV_BATCHES} batches of {INV_STEPS} binary-GCD steps "
+                f"({steps}) each with its update of a, b, u, v, then 1 product: "
+                f"{ms * 1e3 / steps:.4f} us a step")
     if name == "ec_prefix_scan_fused":  # a team reduces, scans its totals, rescans
         team, cp = scan_team(args[1])[0], scan_chunk(args[1].shape[-1])
         sc = -(-cp // team)
         chain = cp if team == 1 else 2 * sc + team.bit_length() - 1
         return f"; chain {chain} + 7 + 1 dependent adds a position"
-    if name == "mont_prefix_scan":
-        return f"; chain {scan_chunk(args[1].shape[-1])} + 7 + 1 products"
+    if name == "mont_prefix_scan":  # reduce, warp scan, warp totals' scan, offset, rescan
+        from proof_systems_tpu_torch.ops.kernels import prefix_geometry
+
+        threads, sc, lanes_log2 = prefix_geometry(args[1].shape[-1])
+        warps = (threads // 32).bit_length() - 1
+        chain = f"{sc} + {lanes_log2} + {warps} + {int(warps > 0)} + {sc}"
+        return f"; T = {threads}, sc = {sc}: chain {chain} products"
     if name not in ("linear_scan", "mont_prefix_scan_parts"):
         return ""
     x = args[1]
@@ -813,7 +846,8 @@ def field_scan_shape(name: str, rows: int, n: int, device) -> tuple[int, int]:
 
 
 def field_scan_note(kernels) -> str:
-    """The registers and local (stack) bytes of K12's and K9's kernels."""
+    """The registers and local (stack) bytes of K12's, K9's and K5's
+    kernels."""
     return "; ".join(f"{name}: {regs} registers, {local} B local"
                      for name, (regs, local, *_) in kernels.field_scan_attrs().items())
 
@@ -871,9 +905,40 @@ def product_latency(kernels, device) -> None:
     attrs = kernels.chain_attrs()
     log("chain kernels: " + "; ".join(f"{name}: {regs} registers, {local} B local"
                                       for name, (regs, local, *_) in attrs.items()))
-    stacked = [n for n in ("k_sponge_squeeze2", "k_mont_pow") if attrs[n][1] != 0]
+    stacked = [n for n in ("k_sponge_squeeze2", "k_mont_pow", "k_endo_inv") if attrs[n][1] != 0]
     if stacked:
         raise AssertionError(f"{stacked} keep a stack frame")
+    inverse_checks(kernels, device)
+
+
+def inverse_checks(kernels, device) -> None:
+    """K11's inverse on the card (product_chain's INVERSE_CHAIN: one thread,
+    a = inv(a) * R^3 mod p) against pow on 0, 1, 2, p - 1, p - 2, R, R^2 and
+    2^255 mod p as integers and on random values, in Fp and Fq; then its
+    latency, from the difference of two chain lengths."""
+    from proof_systems_tpu_torch.fields import Fp, Fq
+    from proof_systems_tpu_torch.ops import limb
+
+    rng = random.Random(SEED + 7)
+    for fld in (Fp, Fq):
+        F = limb.device_field(fld)
+        p, r = fld.p, (1 << 256) % fld.p
+        r3 = r * r % p * r % p
+        for x in [0, 1, 2, p - 1, p - 2, r, r * r % p, (1 << 255) % p] + [
+                rng.randrange(p) for _ in range(8)]:
+            ops = F.pack([x, r3, 0, 0], device=device)
+            [got] = F.unpack(kernels.product_chain(F, kernels.INVERSE_CHAIN, ops, 1))
+            if got != (pow(x, -1, p) * r * r % p if x else 0):
+                raise AssertionError(f"K11's inverse of {x:#x} in {fld.name} differs from pow")
+    log("inverse (K11, binary GCD): equal to pow on the edge values and 8 random ones, Fp and Fq")
+    F = limb.device_field(Fp)
+    ops = F.pack([rng.randrange(Fp.p), (1 << 256) % Fp.p * ((1 << 512) % Fp.p) % Fp.p, 0, 0],
+                 device=device)
+    short, long = 16, 144
+    ms = [elapsed_ms(lambda: kernels.product_chain(F, kernels.INVERSE_CHAIN, ops, n), device, 3)
+          for n in (short, long)]
+    log(f"product latency: {'inverse (binary GCD) * R^3':26s} "
+        f"{(ms[1] - ms[0]) * 1e3 / (long - short):.4f} us a step")
 
 
 def group_law_note(kernels) -> str:
@@ -941,7 +1006,7 @@ def check_kernels(kernels, recorded, device, curve_params) -> list[dict]:
     if missing:
         raise AssertionError(f"the main path never called {sorted(missing)}")
     log("group law kernels: " + group_law_note(kernels))
-    log("field scan kernels (K12, K9): " + field_scan_note(kernels))
+    log("field scan kernels (K5, K12, K9): " + field_scan_note(kernels))
     local = [k for k, (_, b, *_) in kernels.field_scan_attrs().items() if b]
     if local:
         raise AssertionError(f"{local} keep a stack frame")

@@ -1,6 +1,7 @@
 // A Montgomery product for the Pasta moduli with a short dependent chain,
-// and the chains that run on it: K4's exponentiation (fe_pow_lat, also
-// K11's inverse) and K10's two Poseidon permutations (sponge_squeeze2_lanes).
+// and the chains that run on it: K4's exponentiation (fe_pow_lat) and K10's
+// two Poseidon permutations (sponge_squeeze2_lanes); K5's scan operator
+// (ProdLatOp) and K11 (inv_field.cuh) run it too.
 //
 // Both Pasta primes have word 0 = 1, words 4-6 = 0 and word 7 = 0x40000000
 // (32-bit words, little-endian), so -p^-1 mod 2^32 = 0xFFFFFFFF: a
@@ -133,8 +134,18 @@ __device__ __forceinline__ Fe fe_dot3_lat(const FieldParams &F, const Fe &a0, co
     return redc_cols(F, c);
 }
 
+// K5's operator on this product (scan_field.cuh's ops): positions past n
+// hold one.
+struct ProdLatOp {
+    FieldParams F;
+    __device__ Fe identity() const { return fe_one(F); }
+    __device__ Fe pad() const { return fe_one(F); }
+    __device__ Fe step(const Fe &carry, const Fe &x) const { return fe_mul_lat(F, carry, x); }
+    __device__ Fe team(int, const Fe &lo, const Fe &hi) const { return fe_mul_lat(F, lo, hi); }
+};
+
 // ---------------------------------------------------------------------------
-// K4 / K11: a^e
+// K4: a^e
 // ---------------------------------------------------------------------------
 
 // Exponent as nd 4-bit digits, most significant first (at most 256 bits),

@@ -11,6 +11,7 @@
 //   K5 mont_prefix_scan_fused (l.1019, _mont_scan_kernel l.873): inclusive
 //      prefix product along the last axis, for rows of at most 64 chunks of
 //      128 (limb.prefix_mul's dispatch, as pallas_field.py:1030-1034).
+//      Redesigned on scan_field.cuh (prefix_block_thread): one block a row.
 //   K12 mont_prefix_scan_parts (l.956, _mont_parts_kernel l.913): phases 1-2
 //      of the product scan for longer rows: `partial` (rows, 128 * Cp), the
 //      inclusive products inside each lane's Cp positions (padded with one
@@ -34,22 +35,30 @@
 //      Redesigned on chain_field.cuh (sponge_squeeze2_lanes).
 //   K11 endo_inv_fused (l.742): ScalarChallenge.to_field (the 64-step
 //      a = b = 2 recurrence over bit pairs, sponge.rs:190-228), u = a*endo + b,
-//      then u^(p-2) with K4's exponentiation (fe_pow_lat).
+//      and u^-1 (u^(p-2) on the TPU). Redesigned on inv_field.cuh
+//      (endo_inv_thread: the recurrence's closed form, a binary-GCD inverse).
 //
 // Bound on this card: K1 is memory bound (3 x 32 B per product at
 // 3.35 TB/s against 136 integer multiplies); K4 at a large batch is
 // integer-multiply bound (329 products an element); K5, K12 and K9 are
 // latency bound at the main path's shapes (one row): a chain of dependent
-// products. K5 (one block of PST_LANES threads a row, each thread scanning
-// a contiguous chunk with loads that are not coalesced across a warp) runs
-// C + 7 levels, at most 71. K12 and K9 spread a row's lanes over teams of
-// threads (scan_field.cuh): sc + log2 S + sc + 7 levels for K12 (16 + 5 +
-// 16 + 7 at n = 2^16 with S = 32, against 512 + 7 one thread a lane), sc +
-// log2 S + 1 + 7 and then 2 products a position for K9 (512 + 7 + 1 + 512
-// before).
+// products. K5 runs a row (at most 8,192 positions) in one block of T
+// threads, T the fewest from 32 to 1,024 that leave each at most 8
+// positions (kernels.prefix_geometry), on chain_field.cuh's product: each
+// thread reduces its sub-chunk of sc positions, loaded through its warp's
+// tile (coalesced); the warp scans its 32 totals by shuffles (5 levels,
+// fewer where a lone warp holds the row in its first lanes); warp 0 scans
+// the block's warp totals (log2 of the warps); each thread rescans from its
+// offset: sc + 5 + log2 W + 1 + sc products (8 + 5 + 5 + 1 + 8 at 8,192,
+// against 64 + 7 and a strided fold of the one-block-of-128 design it
+// replaces; 1 + 1 + 1 on a row of 2, in one warp without a barrier). K12
+// and K9 spread a row's lanes over teams of threads (scan_field.cuh): sc +
+// log2 S + sc + 7 levels for K12 (16 + 5 + 16 + 7 at n = 2^16 with S = 32,
+// against 512 + 7 one thread a lane), sc + log2 S + 1 + 7 and then 2
+// products a position for K9 (512 + 7 + 1 + 512 before).
 //
 // K10, K11 and K4 at the proof's shapes (one element, or a handful) are
-// chains of dependent products on one warp, which issues one instruction
+// chains of dependent operations on one warp, which issues one instruction
 // at a time: they run on chain_field.cuh's product for the Pasta moduli,
 // whose time is its instruction count (0.44 us a product, 0.32 a square,
 // against fe_mul's 0.62-0.70 on an H100). K4 is one thread an element with
@@ -57,10 +66,12 @@
 // digit after the first (317 levels for e = p - 2). K10 is one warp on
 // nine lanes, 4 product levels a round (x^2; x^4 and x^3 on two lanes;
 // x^7; the lane's MDS entry times x^7 as column sums, reduced once a row):
-// 441 levels. K11 is one thread: 64 steps of adds and subtracts, one CIOS
-// product, then K4's chain.
+// 441 levels. K11 is one thread: u by the closed form of the recurrence
+// (one reduction of two products), then 17 batches of 30 binary-GCD steps
+// on 64-bit words, each batch ending in a 2x2 update of a, b and of the
+// Bezout coefficients (inv_field.cuh), then one product by R^3.
 
-#include "chain_field.cuh"
+#include "inv_field.cuh"
 #include "scan_field.cuh"
 
 __global__ void __launch_bounds__(256)
@@ -83,51 +94,19 @@ __global__ void __launch_bounds__(POW_BLOCK)
     fe_store(o, n, i, fe_pow_lat(F, fe_load(a, n, i), e, tab + threadIdx.x, POW_BLOCK));
 }
 
-// Exclusive Hillis-Steele product over the block's lane values `v` (neutral:
-// one); sh is the block's PST_LANES-entry scratch.
-__device__ Fe block_excl_prod(const FieldParams &F, Fe *sh, const Fe &v) {
-    const int t = threadIdx.x;
-    sh[t] = v;
-    __syncthreads();
-    Fe excl = t > 0 ? sh[t - 1] : fe_one(F);
-    __syncthreads();
-    sh[t] = excl;
-    __syncthreads();
-    for (int s = 1; s < PST_LANES; s <<= 1) {
-        Fe other = t >= s ? sh[t - s] : fe_one(F);
-        __syncthreads();
-        excl = fe_mul(F, excl, other);
-        sh[t] = excl;
-        __syncthreads();
-    }
-    return excl;
-}
-
-// One block per row of x (rows, n), limb stride rows * n. Thread t owns
-// positions [t * cp, t * cp + cp) of its row.
-__global__ void __launch_bounds__(PST_LANES)
+// K5 (prefix_block_thread, scan_field.cuh): one block of 32 << warps_log2
+// threads a row of x (rows, n), thread t owning positions [t sc, t sc + sc);
+// the warps' tiles in dynamic shared memory. MAXT: the largest block it
+// takes (the registers a thread may hold follow from it).
+template <class Op, int MAXT>
+__global__ void __launch_bounds__(MAXT)
     k_mont_prefix(FieldParams F, const uint32_t *__restrict__ x, uint32_t *__restrict__ o,
-                  int64_t rows, int64_t n, int64_t cp) {
-    __shared__ Fe sh[PST_LANES];
+                  int64_t rows, int64_t n, int64_t sc, int warps_log2, int lanes_log2) {
+    extern __shared__ uint32_t tiles[];
+    __shared__ uint32_t sh[PST_NL * 32];
     const int t = threadIdx.x;
-    const int64_t stride = rows * n;
-    const int64_t base = (int64_t)blockIdx.x * n;
-    const int64_t lo = (int64_t)t * cp;
-    const int64_t hi = lo + cp < n ? lo + cp : n;
-
-    // 1. sequential inclusive product over this thread's chunk
-    Fe carry = fe_one(F);
-    for (int64_t j = lo; j < hi; ++j) {
-        carry = fe_mul(F, carry, fe_load(x, stride, base + j));
-        fe_store(o, stride, base + j, carry);
-    }
-
-    // 2. exclusive Hillis-Steele over the chunk totals (neutral: one)
-    const Fe excl = block_excl_prod(F, sh, carry);
-
-    // 3. fold the offset into every position of the chunk
-    for (int64_t j = lo; j < hi; ++j)
-        fe_store(o, stride, base + j, fe_mul(F, excl, fe_load(o, stride, base + j)));
+    prefix_block_thread(Op{F}, x, o, rows, n, sc, warps_log2, lanes_log2, blockIdx.x,
+                        tiles + (t / 32) * SCAN_TILE_WORDS, sh, t);
 }
 
 // K12 and K9 (scan_field.cuh). Phase 1: SCAN_WARPS warps a block, each 32 /
@@ -211,34 +190,20 @@ __global__ void __launch_bounds__(32)
     sponge_squeeze2_lanes(F, threadIdx.x, state, xs, ys, consts, nrounds, ost, ochal);
 }
 
-// One thread. bits: 128 int32 challenge bits, least significant first;
-// endo: the endo coefficient in Montgomery form; e: the digits of p - 2.
+// One thread (endo_inv_thread, inv_field.cuh). bits: 128 int32 challenge
+// bits, least significant first.
 __global__ void __launch_bounds__(32)
-    k_endo_inv(FieldParams F, Fe endo, PowDigits e, const int32_t *__restrict__ bits,
+    k_endo_inv(FieldParams F, EndoConsts k, const int32_t *__restrict__ bits,
                uint32_t *__restrict__ ou, uint32_t *__restrict__ oinv) {
-    const Fe one = fe_one(F);
-    Fe a = fe_add(F, one, one);
-    Fe b = a;
-    for (int i = 63; i >= 0; --i) {
-        a = fe_add(F, a, a);
-        b = fe_add(F, b, b);
-        const bool r0 = bits[2 * i] == 1;
-        const bool r1 = bits[2 * i + 1] == 1;
-        if (r1)
-            a = r0 ? fe_add(F, a, one) : fe_sub(F, a, one);
-        else
-            b = r0 ? fe_add(F, b, one) : fe_sub(F, b, one);
-    }
-    const Fe u = fe_add(F, fe_mul(F, a, endo), b);
-    fe_store(ou, 1, 0, u);
-    __shared__ uint32_t tab[16 * PST_NL];
-    fe_store(oinv, 1, 0, fe_pow_lat(F, u, e, tab, 1));
+    endo_inv_thread(F, k, bits, ou, oinv);
 }
 
 // One thread's chain of `steps` dependent products of one kind, to time a
 // product's latency (chip_smoke.py): kind 0 field.cuh's CIOS fe_mul, 1
-// fe_mul_lat, 2 fe_sqr_lat, 3 fe_dot3_lat. x (8, 4): the start a and the
-// operands x1-x3; a = a * x1, a^2 or dot3(a, x1, a, x2, a, x3). The
+// fe_mul_lat, 2 fe_sqr_lat, 3 fe_dot3_lat, 4 K11's inverse. x (8, 4): the
+// start a and the operands x1-x3; a = a * x1, a^2, dot3(a, x1, a, x2, a,
+// x3) or fe_inv_gcd(a) * x1 (the integer inverse, times x1 = R^3 mod p
+// into Montgomery form). The
 // operands are read at the thread's index (0), as the kernels read theirs,
 // so that the compiler cannot treat them as the same for every thread.
 __global__ void __launch_bounds__(32)
@@ -256,15 +221,45 @@ __global__ void __launch_bounds__(32)
     } else if (kind == 2) {
 #pragma unroll 1
         for (int s = 0; s < steps; ++s) a = fe_sqr_lat(F, a);
-    } else {
+    } else if (kind == 3) {
 #pragma unroll 1
         for (int s = 0; s < steps; ++s) a = fe_dot3_lat(F, a, x1, a, x2, a, x3);
+    } else {
+#pragma unroll 1
+        for (int s = 0; s < steps; ++s) a = fe_mul_lat(F, fe_inv_gcd(F, a), x1);
     }
     fe_store(o, 1, t, a);
 }
 
 static int pow_digits(PowDigits &e, const uint8_t *digits, int nd) {
     return pst_pow_digits(e, digits, nd) ? 0 : (int)cudaErrorInvalidValue;
+}
+
+// Lets k_mont_prefix<Op, MAXT> take the dynamic shared memory of MAXT
+// threads' tiles, once a device.
+template <class Op, int MAXT>
+static cudaError_t mont_prefix_ready() {
+    static bool done[64] = {};
+    int dev = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e != cudaSuccess || dev < 0 || dev >= 64 || done[dev]) return e;
+    e = cudaFuncSetAttribute(k_mont_prefix<Op, MAXT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             SCAN_TILE_WORDS * 4 * (MAXT / 32));
+    done[dev] = e == cudaSuccess;
+    return e;
+}
+
+template <class Op>
+static int mont_prefix_launch(const FieldParams &F, const uint32_t *x, uint32_t *o,
+                              int64_t rows, int64_t n, int64_t sc, int warps_log2,
+                              int lanes_log2, cudaStream_t s) {
+    const bool wide = warps_log2 == 5;
+    const cudaError_t e = wide ? mont_prefix_ready<Op, 1024>() : mont_prefix_ready<Op, 512>();
+    if (e != cudaSuccess) return (int)e;
+    const auto kern = wide ? k_mont_prefix<Op, 1024> : k_mont_prefix<Op, 512>;
+    kern<<<(unsigned)rows, 32 << warps_log2, (SCAN_TILE_WORDS * 4) << warps_log2, s>>>(
+        F, x, o, rows, n, sc, warps_log2, lanes_log2);
+    return (int)cudaGetLastError();
 }
 
 extern "C" {
@@ -292,12 +287,22 @@ int pst_mont_pow(const uint32_t *fp, const uint8_t *digits, int nd, const uint32
     return (int)cudaGetLastError();
 }
 
+// K5 with 32 << warps_log2 threads a block (warps_log2 in [0, 5]), sc
+// positions a thread, lanes_log2 levels of the warp scan (5 with more than
+// one warp); product 0 field.cuh's fe_mul, 1 chain_field.cuh's fe_mul_lat
+// (the Pasta moduli only).
 int pst_mont_prefix(const uint32_t *fp, const uint32_t *x, uint32_t *o, int64_t rows,
-                    int64_t n, int64_t cp, void *stream) {
-    if (rows > 0 && n > 0)
-        k_mont_prefix<<<(unsigned)rows, PST_LANES, 0, (cudaStream_t)stream>>>(
-            pst_field_params(fp), x, o, rows, n, cp);
-    return (int)cudaGetLastError();
+                    int64_t n, int64_t sc, int warps_log2, int lanes_log2, int product,
+                    void *stream) {
+    const FieldParams F = pst_field_params(fp);
+    if (warps_log2 < 0 || warps_log2 > 5 || lanes_log2 < 0 || lanes_log2 > 5 ||
+        (warps_log2 > 0 && lanes_log2 != 5) || sc < 1 || (sc << (5 + warps_log2)) < n ||
+        product < 0 || product > 1 || (product == 1 && !pst_pasta_shape(F)))
+        return (int)cudaErrorInvalidValue;
+    if (rows <= 0 || n <= 0) return 0;
+    const cudaStream_t s = (cudaStream_t)stream;
+    return product ? mont_prefix_launch<ProdLatOp>(F, x, o, rows, n, sc, warps_log2, lanes_log2, s)
+                   : mont_prefix_launch<ProdOp>(F, x, o, rows, n, sc, warps_log2, lanes_log2, s);
 }
 
 // K12: the partial products into part (rows, PST_LANES * cp), the
@@ -356,22 +361,23 @@ int pst_sponge_squeeze2(const uint32_t *fp, const uint32_t *state, const uint32_
     return (int)cudaGetLastError();
 }
 
-int pst_endo_inv(const uint32_t *fp, const uint32_t *endo_words, const uint8_t *digits,
-                 int nd, const int32_t *bits, uint32_t *ou, uint32_t *oinv, void *stream) {
-    PowDigits e;
-    if (int rc = pow_digits(e, digits, nd)) return rc;
+// consts: 24 words, the integers endo R^2, R^2 and R^3 mod p (8 each).
+int pst_endo_inv(const uint32_t *fp, const uint32_t *consts, const int32_t *bits, uint32_t *ou,
+                 uint32_t *oinv, void *stream) {
     const FieldParams F = pst_field_params(fp);
     if (!pst_pasta_shape(F)) return (int)cudaErrorInvalidValue;
-    Fe endo;
-    std::memcpy(endo.v, endo_words, sizeof(endo.v));
-    k_endo_inv<<<1, 1, 0, (cudaStream_t)stream>>>(F, endo, e, bits, ou, oinv);
+    EndoConsts k;
+    std::memcpy(k.endo_r2.v, consts, sizeof(k.endo_r2.v));
+    std::memcpy(k.r2.v, consts + PST_NL, sizeof(k.r2.v));
+    std::memcpy(k.r3.v, consts + 2 * PST_NL, sizeof(k.r3.v));
+    k_endo_inv<<<1, 1, 0, (cudaStream_t)stream>>>(F, k, bits, ou, oinv);
     return (int)cudaGetLastError();
 }
 
 int pst_product_chain(const uint32_t *fp, int kind, const uint32_t *x, int steps, uint32_t *o,
                       void *stream) {
     const FieldParams F = pst_field_params(fp);
-    if (!pst_pasta_shape(F) || kind < 0 || kind > 3) return (int)cudaErrorInvalidValue;
+    if (!pst_pasta_shape(F) || kind < 0 || kind > 4) return (int)cudaErrorInvalidValue;
     k_product_chain<<<1, 1, 0, (cudaStream_t)stream>>>(F, kind, x, steps, o);
     return (int)cudaGetLastError();
 }
@@ -395,15 +401,20 @@ int pst_chain_attrs(int which, int *out) {
     return (int)e;
 }
 
-// Registers, local (stack) bytes, static and dynamic shared memory of K12's
-// and K9's kernels: k_prod_parts<false> (which 0), k_prod_parts<true> (1),
-// k_prod_lanes (2), k_lin_parts<false> (3), k_lin_parts<true> (4),
-// k_lin_lanes (5), k_lin_combine (6).
+// Registers, local (stack) bytes, static and dynamic shared memory of K12's,
+// K9's and K5's kernels: k_prod_parts<false> (which 0), k_prod_parts<true>
+// (1), k_prod_lanes (2), k_lin_parts<false> (3), k_lin_parts<true> (4),
+// k_lin_lanes (5), k_lin_combine (6), k_mont_prefix<ProdOp, 512> (7), <ProdOp,
+// 1024> (8), <ProdLatOp, 512> (9), <ProdLatOp, 1024> (10).
 int pst_scan_attrs(int which, int *out) {
     const void *fns[] = {(const void *)k_prod_parts<false>, (const void *)k_prod_parts<true>,
                          (const void *)k_prod_lanes,        (const void *)k_lin_parts<false>,
                          (const void *)k_lin_parts<true>,   (const void *)k_lin_lanes,
-                         (const void *)k_lin_combine};
+                         (const void *)k_lin_combine,
+                         (const void *)k_mont_prefix<ProdOp, 512>,
+                         (const void *)k_mont_prefix<ProdOp, 1024>,
+                         (const void *)k_mont_prefix<ProdLatOp, 512>,
+                         (const void *)k_mont_prefix<ProdLatOp, 1024>};
     if (which < 0 || which >= (int)(sizeof(fns) / sizeof(fns[0])))
         return (int)cudaErrorInvalidValue;
     cudaFuncAttributes a;

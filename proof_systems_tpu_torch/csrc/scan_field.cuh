@@ -1,6 +1,8 @@
 // K12 (mont_prefix_scan_parts) and K9 (linear_scan) on this card: a row's
 // lane chunks spread over teams of threads, the loads and stores staged
-// through shared memory, the lane scan in a kernel of its own.
+// through shared memory, the lane scan in a kernel of its own. K5
+// (mont_prefix_scan) reuses the tiles and the team scan for a row in one
+// block (prefix_block_thread, at the end).
 //
 // A row of n positions is cut into PST_LANES lanes of cp positions (K12: cp
 // = Cp of kernels.scan_geometry, one past n; K9: cp = ceil(n / 128), zero
@@ -245,11 +247,11 @@ __device__ Fe sub_pass(const Op &op, const ScanWarp &g, const uint32_t *__restri
     return carry;
 }
 
-// Exclusive scan of the team's totals: member s of thread t gets the
-// combination of members 0 .. s - 1 (op.identity() for s = 0), by warp
-// shuffles of width S, log2 S levels. Every thread of the warp calls it.
+// Inclusive scan of the team's totals: member s of thread t gets the
+// combination of members 0 .. s, by warp shuffles of width S, log2 S
+// levels. Every thread of the warp calls it.
 template <class Op>
-__device__ Fe team_excl(const Op &op, int team_log2, int t, const Fe &tot) {
+__device__ Fe team_incl(const Op &op, int team_log2, int t, const Fe &tot) {
     const int S = 1 << team_log2, s = t & (S - 1);
     Fe incl = tot;
 #pragma unroll 1
@@ -258,8 +260,23 @@ __device__ Fe team_excl(const Op &op, int team_log2, int t, const Fe &tot) {
         const Fe o = fe_shfl_up(incl, d, S);
         if (s >= d) incl = op.team(k, o, incl);
     }
+    return incl;
+}
+
+// The exclusive value from the inclusive one: member s - 1's (op.identity()
+// for s = 0). Every thread of the warp calls it.
+template <class Op>
+__device__ Fe team_shift(const Op &op, int team_log2, int t, const Fe &incl) {
+    const int S = 1 << team_log2;
     const Fe e = fe_shfl_up(incl, 1, S);
-    return s == 0 ? op.identity() : e;
+    return (t & (S - 1)) == 0 ? op.identity() : e;
+}
+
+// Exclusive scan of the team's totals: member s of thread t gets the
+// combination of members 0 .. s - 1 (op.identity() for s = 0).
+template <class Op>
+__device__ Fe team_excl(const Op &op, int team_log2, int t, const Fe &tot) {
+    return team_shift(op, team_log2, t, team_incl(op, team_log2, t, tot));
 }
 
 // K12 phase 1 for thread t of a warp: with a team (TEAM: S > 1), reduce the
@@ -326,6 +343,46 @@ __device__ Fe lane_excl(const Op &op, int t, Fe v, uint32_t *sh) {
     fe_store(buf, PST_LANES, t, v);
     __syncthreads();
     return t > 0 ? fe_load(buf, PST_LANES, t - 1) : op.identity();
+}
+
+// ---------------------------------------------------------------------------
+// K5: one row in one block
+// ---------------------------------------------------------------------------
+
+// K5 for thread t of the block of row `row` of x (rows, n, limb stride rows
+// * n): 32 << warps_log2 threads, thread t owning positions [t sc, t sc +
+// sc) (op.pad() past n), warp w a ScanWarp of one 32 * sc lane with a team
+// of 32. Each thread reduces its sub-chunk; the warp scans its totals by
+// shuffles (lanes_log2 levels: 5, fewer where a lone warp's first lanes
+// hold the row); with more than one warp, warp 0 scans the warp totals
+// through sh (PST_NL * 32 words, limb-major), and each thread combines its
+// warp's offset with its own; then each thread rescans its sub-chunk from
+// that offset, writing the inclusive scan to o (rows, n). tile: the warp's
+// SCAN_TILE_WORDS. Every thread of the block calls it.
+template <class Op>
+__device__ void prefix_block_thread(const Op &op, const uint32_t *__restrict__ x,
+                                    uint32_t *__restrict__ o, int64_t rows, int64_t n,
+                                    int64_t sc, int warps_log2, int lanes_log2, int64_t row,
+                                    uint32_t *tile, uint32_t *sh, int t) {
+    const int w = t / 32, lane = t % 32;
+    const ScanWarp g{rows, n, 32 * sc, sc, row, w, 5};
+    const Fe tot = sub_pass<false>(op, g, x, nullptr, 0, tile, lane, op.identity());
+    const Fe incl = team_incl(op, lanes_log2, lane, tot);
+    Fe e = team_shift(op, lanes_log2, lane, incl);
+    if (warps_log2 > 0) {  // the same in every thread of the block
+        const int W = 1 << warps_log2;
+        if (lane == 31) fe_store(sh, 32, w, incl);
+        __syncthreads();
+        if (w == 0) {
+            Fe v = op.identity();
+            if (lane < W) v = fe_load(sh, 32, lane);
+            v = team_excl(op, warps_log2, lane, v);
+            if (lane < W) fe_store(sh, 32, lane, v);
+        }
+        __syncthreads();
+        if (w > 0) e = op.team(0, fe_load(sh, 32, w), e);
+    }
+    sub_pass<true>(op, g, x, o, n, tile, lane, e);
 }
 
 // K9 phase 3 at position i of the (rows, n) output: out = local + c^(j+1)

@@ -9,13 +9,13 @@ signature and the same results:
   K2 jacobian_add             (pallas_field.py:412)   csrc/curve_kernels.cu
   K3 jacobian_double          (pallas_field.py:439)   csrc/curve_kernels.cu
   K4 mont_pow                 (pallas_field.py:481)   csrc/field_kernels.cu, chain_field.cuh
-  K5 mont_prefix_scan         (pallas_field.py:1019)  csrc/field_kernels.cu
+  K5 mont_prefix_scan         (pallas_field.py:1019)  csrc/field_kernels.cu, scan_field.cuh
   K6 ec_prefix_scan_parts     (pallas_field.py:1333)  csrc/curve_kernels.cu
   K7 ec_prefix_scan_fused     (pallas_field.py:1410)  csrc/curve_kernels.cu
   K8 combine_windows          (pallas_field.py:560)   csrc/curve_kernels.cu, k8_combine.cuh
   K9 linear_scan              (pallas_field.py:1069)  csrc/field_kernels.cu, scan_field.cuh
   K10 sponge_squeeze2         (pallas_field.py:646)   csrc/field_kernels.cu, chain_field.cuh
-  K11 endo_inv                (pallas_field.py:742)   csrc/field_kernels.cu, chain_field.cuh
+  K11 endo_inv                (pallas_field.py:742)   csrc/field_kernels.cu, inv_field.cuh
   K12 mont_prefix_scan_parts  (pallas_field.py:956)   csrc/field_kernels.cu, scan_field.cuh
 
 and one kernel for a loop of them: the IPA fold step's endo ladder
@@ -144,12 +144,12 @@ _I64 = ctypes.c_int64
 def _bind_field(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.pst_mont_mul.argtypes = [_P, _P, _P, _P, _I64, _P]
     lib.pst_mont_pow.argtypes = [_P, ctypes.c_char_p, ctypes.c_int, _P, _P, _I64, _P]
-    lib.pst_mont_prefix.argtypes = [_P, _P, _P, _I64, _I64, _I64, _P]
+    lib.pst_mont_prefix.argtypes = [_P, _P, _P] + [_I64] * 3 + [ctypes.c_int] * 3 + [_P]
     lib.pst_mont_prefix_parts.argtypes = [_P] * 4 + [_I64] * 3 + [ctypes.c_int, _P]
     lib.pst_linear_scan.argtypes = [_P] * 3 + [_I64, _P, _P] + [_I64] * 3 + [ctypes.c_int, _P]
     lib.pst_scan_attrs.argtypes = [ctypes.c_int, _P]
     lib.pst_sponge_squeeze2.argtypes = [_P, _P, _P, _P, _P, ctypes.c_int, _P, _P, _P]
-    lib.pst_endo_inv.argtypes = [_P, _P, ctypes.c_char_p, ctypes.c_int, _P, _P, _P, _P]
+    lib.pst_endo_inv.argtypes = [_P] * 6
     lib.pst_chain_attrs.argtypes = [ctypes.c_int, _P]
     lib.pst_product_chain.argtypes = [_P, ctypes.c_int, _P, ctypes.c_int, _P, _P]
     for fn in (lib.pst_mont_mul, lib.pst_mont_pow, lib.pst_mont_prefix,
@@ -228,7 +228,7 @@ def _field_words(F) -> int:
 @functools.lru_cache(maxsize=None)
 def _pasta_shape(p: int) -> bool:
     """The shape that csrc/chain_field.cuh's product relies on (K4, K10,
-    K11): p's 32-bit word 0 is 1 (so -p^-1 mod 2^32 is 0xFFFFFFFF), words
+    K11, K5): p's 32-bit word 0 is 1 (so -p^-1 mod 2^32 is 0xFFFFFFFF), words
     4-6 are 0 and word 7 is 0x40000000."""
     w = _words(p)
     return w[0] == 1 and w[4:7] == [0, 0, 0] and w[7] == 0x40000000
@@ -739,16 +739,50 @@ def mont_prefix_scan_plain(F, x: torch.Tensor) -> torch.Tensor:
     return from16(out.reshape(16, rows, LANES * cp)[..., :n]).reshape(x.shape)
 
 
+# K5's block (csrc/scan_field.cuh prefix_block_thread): the most positions
+# a thread keeps, and the largest block.
+PREFIX_MAX_SUB = 8
+PREFIX_MAX_THREADS = 1024
+# K5's product: 0 field.cuh's fe_mul, 1 chain_field.cuh's fe_mul_lat (the
+# Pasta moduli only)
+PREFIX_PRODUCT = 1
+
+
+def prefix_geometry(n: int, threads: int | None = None) -> tuple[int, int, int]:
+    """(T, sc, lanes_log2) of K5 on a row of n: T threads a block (by
+    default the fewest, a power of two from 32 to PREFIX_MAX_THREADS, that
+    leave each at most PREFIX_MAX_SUB positions), sc = ceil(n / T)
+    positions a thread, and the levels of the warp scan: 5, fewer where a
+    block of one warp holds the row in its first lanes."""
+    t = threads or 32
+    while threads is None and t < PREFIX_MAX_THREADS and -(-n // t) > PREFIX_MAX_SUB:
+        t *= 2
+    sc = -(-n // t)
+    lanes_log2 = 5 if t > 32 else (-(-n // sc) - 1).bit_length()
+    return t, sc, lanes_log2
+
+
+def _mont_prefix_launch(F, x: torch.Tensor, threads: int, product: int) -> torch.Tensor:
+    """K5 on (8, ..., n) CUDA rows with `threads` threads a block (a power
+    of two from 32 to 1,024) and the given product; counts nothing."""
+    rows, n = _rows_n(x)
+    t, sc, lanes_log2 = prefix_geometry(n, threads)
+    out = torch.empty_like(x)
+    _launch(LIBRARY.load().field, "pst_mont_prefix", "pst_field_error_string", x.device,
+            _field_words(F), x.data_ptr(), out.data_ptr(), rows, n, sc, t.bit_length() - 6,
+            lanes_log2, product)
+    return out
+
+
 def mont_prefix_scan(F, x: torch.Tensor) -> torch.Tensor:
-    """Inclusive Montgomery prefix products along the last axis."""
+    """Inclusive Montgomery prefix products along the last axis (a Pasta
+    field): on the card one block a row, prefix_geometry's threads."""
     dev = _check(x)
+    if PREFIX_PRODUCT:
+        _require_pasta(F, "mont_prefix_scan")
     if dev.type == "cpu":
         return mont_prefix_scan_plain(F, x)
-    rows, n = _rows_n(x)
-    out = torch.empty_like(x)
-    lib = LIBRARY.load().field
-    _launch(lib, "pst_mont_prefix", "pst_field_error_string", dev,
-            _field_words(F), x.data_ptr(), out.data_ptr(), rows, n, scan_chunk(n))
+    out = _mont_prefix_launch(F, x, prefix_geometry(x.shape[-1])[0], PREFIX_PRODUCT)
     LAUNCHES["mont_prefix_scan"] += 1
     return out
 
@@ -913,12 +947,13 @@ def linear_scan(F, x: torch.Tensor, c: int) -> torch.Tensor:
 
 # K12's and K9's kernels, in the order of pst_scan_attrs
 FIELD_SCAN_KERNELS = ("K12 parts S 1", "K12 parts S > 1", "K12 lanes", "K9 parts S 1",
-                      "K9 parts S > 1", "K9 lanes", "K9 combine")
+                      "K9 parts S > 1", "K9 lanes", "K9 combine", "K5 fe_mul T <= 512",
+                      "K5 fe_mul T 1024", "K5 fe_mul_lat T <= 512", "K5 fe_mul_lat T 1024")
 
 
 def field_scan_attrs() -> dict[str, tuple[int, ...]]:
-    """(registers, local bytes, static and dynamic shared bytes) of each K12
-    and K9 kernel (FIELD_SCAN_KERNELS), from cudaFuncGetAttributes."""
+    """(registers, local bytes, static and dynamic shared bytes) of each K12,
+    K9 and K5 kernel (FIELD_SCAN_KERNELS), from cudaFuncGetAttributes."""
     lib = LIBRARY.load().field
     out = {}
     for which, name in enumerate(FIELD_SCAN_KERNELS):
@@ -1287,15 +1322,16 @@ def chain_attrs() -> dict[str, tuple[int, ...]]:
 
 
 # Kinds of pst_product_chain: a measurement of one product's latency, not a
-# kernel of the path.
+# kernel of the path; and the chain of K11's inverse (times R^3 mod p).
 PRODUCT_CHAINS = {"fe_mul (CIOS, any field)": 0, "fe_mul_lat": 1, "fe_sqr_lat": 2,
                   "fe_dot3_lat": 3}
+INVERSE_CHAIN = 4
 
 
 def product_chain(F, kind: int, x: torch.Tensor, steps: int) -> torch.Tensor:
     """One thread's chain of `steps` dependent products of one kind (on the
-    card): a = a * x1, a^2 or dot3(a, x1, a, x2, a, x3) from a = x0, x (8,
-    4) Montgomery. Returns a (8, 1)."""
+    card): a = a * x1, a^2, dot3(a, x1, a, x2, a, x3) or (INVERSE_CHAIN)
+    inv(a) * x1 from a = x0, x (8, 4). Returns a (8, 1)."""
     dev = _check(x)
     if dev.type != "cuda" or x.shape != (NL, 4):
         raise ValueError("product_chain takes (8, 4) operands on the card")
@@ -1340,23 +1376,32 @@ def endo_inv_plain(F, endo: int, bits):
     return from16(u.contiguous()), from16(pow16(P, u, F.p - 2).contiguous())
 
 
+@functools.lru_cache(maxsize=None)
+def _endo_consts(p: int, r_mod_p: int, endo: int):
+    """K11's host constants: the integers endo R^2, R^2 and R^3 mod p, as 24
+    words (csrc/inv_field.cuh EndoConsts)."""
+    r2 = r_mod_p * r_mod_p % p
+    words = _words(endo % p * r2 % p) + _words(r2) + _words(r2 * r_mod_p % p)
+    return (ctypes.c_uint32 * (3 * NL))(*words)
+
+
 def endo_inv(F, endo: int, bits):
     """ScalarChallenge.to_field of the 128 challenge bits (least significant
-    first) and the Fermat inverse of the result: (u, u^-1), (8, 1) each,
+    first) and the inverse of the result: (u, u^-1), (8, 1) each,
     Montgomery, over the scalar field F (a Pasta field). endo: the curve's
-    endo_r."""
+    endo_r. On the card the closed form of the recurrence and a binary-GCD
+    inverse (csrc/inv_field.cuh)."""
     dev = _endo_args(bits)
     _require_pasta(F, "endo_inv")
     if dev.type == "cpu":
         return endo_inv_plain(F, endo, bits)
-    digits = bytes(pow_digits(F.p - 2))
-    endo_words = (ctypes.c_uint32 * NL)(*_words(endo % F.p * F.r_mod_p % F.p))
+    consts = _endo_consts(F.p, F.r_mod_p, endo)
     u = torch.empty((NL, 1), dtype=torch.int32, device=dev)
     u_inv = torch.empty_like(u)
     lib = LIBRARY.load().field
     _launch(lib, "pst_endo_inv", "pst_field_error_string", dev,
-            _field_words(F), ctypes.addressof(endo_words), digits, len(digits),
-            bits.data_ptr(), u.data_ptr(), u_inv.data_ptr())
+            _field_words(F), ctypes.addressof(consts), bits.data_ptr(), u.data_ptr(),
+            u_inv.data_ptr())
     LAUNCHES["endo_inv"] += 1
     return u, u_inv
 

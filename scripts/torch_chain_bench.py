@@ -9,13 +9,16 @@ Builds the CUDA kernels and prints the card's name and power limit. Then
 times the public wrappers at the main path's shapes (K10 on one state, K4
 at 1 and 3 elements with e = p - 2, at one element with e = 21, and at
 24 x 65,537 with e = p - 2, K11 on 128 bits; CUDA events, mean of REPS
-calls after one) and checks each against its plain version limb for limb.
+calls after one), two ways: back to back, where a call that takes the
+device less time than the host takes to enqueue it runs at the host's
+pace, and behind a sleeping kernel, which hides the host and leaves the
+device's time; and checks each against its plain version limb for limb.
 
 Without --shapes-only it also prints chip_smoke.py's product latency: one
 thread's chain of dependent products of field.cuh's CIOS fe_mul and of
 chain_field.cuh's fe_mul_lat, fe_sqr_lat and fe_dot3_lat (us a step, from
-the difference of two chain lengths), and K10's, K4's and K11's registers
-and local (stack) bytes.
+the difference of two chain lengths), K10's, K4's and K11's registers and
+local (stack) bytes, and K11's inverse on edge values and its latency.
 
 --shapes-only times the public wrappers and nothing else, so that another
 checkout (given with --root) can be timed beside this one in the same call.
@@ -36,11 +39,20 @@ SEED = 20261019
 HERE = pathlib.Path(__file__).resolve().parent
 
 
-def timed_ms(fn, reps: int = REPS) -> float:
-    """Mean device time of `reps` calls after one (CUDA events)."""
+# Clock cycles of the sleeping kernel that the device-time calls queue
+# behind: about 25 ms, more than the host takes to enqueue REPS calls.
+SLEEP_CYCLES = 50_000_000
+
+
+def timed_ms(fn, reps: int = REPS, behind_sleep: bool = False) -> float:
+    """Mean time of `reps` calls after one on the stream (CUDA events); with
+    behind_sleep, the calls are enqueued while a sleeping kernel holds the
+    stream, so the interval holds the device's time alone."""
     fn()
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    if behind_sleep:
+        torch.cuda._sleep(SLEEP_CYCLES)
     start.record()
     for _ in range(reps):
         fn()
@@ -92,12 +104,13 @@ def time_wrappers(kernels, sponge, pows, endo, check: bool) -> bool:
     cases += [("K11 endo_inv", kernels.endo_inv, kernels.endo_inv_plain, endo)]
     for label, fn, plain, args in cases:
         ms = timed_ms(lambda: fn(*args))
+        dev_ms = timed_ms(lambda: fn(*args), behind_sleep=True)
         note = ""
         if check:
             equal = same(fn(*args), plain(*args))
             ok &= equal
             note = f"; = plain: {equal}"
-        print(f"{label:36s} {ms:.4f} ms{note}", flush=True)
+        print(f"{label:36s} back to back {ms:.4f} ms, device {dev_ms:.4f} ms{note}", flush=True)
     return ok
 
 

@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Time K12 (mont_prefix_scan_parts) and K9 (linear_scan) on the card, at
-the main path's shapes, with every team size.
+"""Time K12 (mont_prefix_scan_parts), K9 (linear_scan) and K5
+(mont_prefix_scan) on the card, at the main path's shapes, with every team
+or block size.
 
     python3 scripts/torch_scan_bench.py
     python3 scripts/torch_scan_bench.py --root DIR --shapes-only
@@ -14,12 +15,16 @@ leaves the device's time: K12 on one row of 65,536 (the batch inverse of
 the permutation's ratio and z's prefix product), of 32,768 and of 16,384
 (the batch inverses of the opening's first two fold steps), and on the
 smallest K12 row, 8,193; K9 on one row of 65,536 with c = 1 and c =
-omega^(n - 3) (the prover's two boundary divisions); each beside
+omega^(n - 3) (the prover's two boundary divisions); K5 on one row of
+8,192, 4,096 and 2,048 (the batch inverses of the opening's last three
+fold steps), 2 and 1 (L and R of a round); each beside
 chip_smoke.bound_ms.
 
-Without --shapes-only it also times every team size the kernels take
+Without --shapes-only it also times every team size K12 and K9 take
 (device time), through their launchers, at those shapes and at 24 rows
-of 65,537, marks the one kernels.field_scan_team picks, checks every
+of 65,537, and K5 at every block size from 32 to 1,024 threads with
+field.cuh's fe_mul and chain_field.cuh's fe_mul_lat; marks the ones
+kernels.field_scan_team and kernels.prefix_geometry pick, checks every
 result against the plain version limb for limb, and prints the kernels'
 registers and local (stack) bytes.
 
@@ -76,10 +81,11 @@ def rows_of(F, rows: int, n: int, dev, seed: int) -> torch.Tensor:
 
 def cases(dev):
     """(label, wrapper name, args) at the main path's shapes."""
-    from proof_systems_tpu_torch.fields import Fp
+    from proof_systems_tpu_torch.fields import Fp, Fq
     from proof_systems_tpu_torch.ops import limb
 
     F = limb.device_field(Fp)
+    Fb = limb.device_field(Fq)  # the opening's batch inverses: Vesta's base field
     n = 1 << 16
     omega = pow(Fp.root_of_unity(16), n - 3, Fp.p)
     out = [(f"K12 1x{m}", "mont_prefix_scan_parts", (F, rows_of(F, 1, m, dev, SEED + m)))
@@ -87,6 +93,8 @@ def cases(dev):
     x = rows_of(F, 1, n, dev, SEED)
     out += [(f"K9 1x{n} c = {name}", "linear_scan", (F, x, c))
             for name, c in (("1", 1), ("omega^(n-3)", omega))]
+    out += [(f"K5 1x{m}", "mont_prefix_scan", (Fb, rows_of(Fb, 1, m, dev, SEED + 3 + m)))
+            for m in (8192, 4096, 2048, 2, 1)]
     return out
 
 
@@ -113,7 +121,7 @@ def sweep(kernels, chip_smoke, dev) -> bool:
     sms = kernels._sm_count(dev)
     todo = cases(dev)
     F = todo[0][2][0]
-    omega = todo[-1][2][2]
+    omega = next(args[2] for label, _, args in todo if label.endswith("omega^(n-3)"))
     todo += [("K12 24x65537", "mont_prefix_scan_parts", (F, rows_of(F, 24, 65537, dev, SEED + 1))),
              ("K9 24x65537 c = omega^(n-3)", "linear_scan",
               (F, rows_of(F, 24, 65537, dev, SEED + 2), omega))]
@@ -122,6 +130,9 @@ def sweep(kernels, chip_smoke, dev) -> bool:
         rows, n = x[0].numel() // x.shape[-1], x.shape[-1]
         plain = getattr(kernels, name + "_plain")
         want = plain(*args)
+        if name == "mont_prefix_scan":
+            ok &= sweep_k5(kernels, label, F, x, want)
+            continue
         if name == "mont_prefix_scan_parts":
             cp = kernels.scan_geometry(n)[2]
             launch = lambda team: kernels._prefix_parts_launch(F, x, team)  # noqa: E731
@@ -139,6 +150,23 @@ def sweep(kernels, chip_smoke, dev) -> bool:
     attrs = kernels.field_scan_attrs()
     print("field scan kernels: " + "; ".join(f"{k}: {r} registers, {loc} B local"
                                              for k, (r, loc, *_) in attrs.items()), flush=True)
+    return ok
+
+
+def sweep_k5(kernels, label, F, x, want) -> bool:
+    """K5 at every block size with both products, through the launcher."""
+    ok = True
+    pick = kernels.prefix_geometry(x.shape[-1])[0]
+    for product, pname in ((0, "fe_mul"), (1, "fe_mul_lat")):
+        for threads in (32, 64, 128, 256, 512, 1024):
+            launch = lambda: kernels._mont_prefix_launch(F, x, threads, product)  # noqa: E731
+            equal = same(launch(), want)
+            ok &= equal
+            ms = timed_ms(launch, behind_sleep=True)
+            sc = kernels.prefix_geometry(x.shape[-1], threads)[1]
+            mark = "  <- the rule's" if threads == pick and product == kernels.PREFIX_PRODUCT else ""
+            print(f"{label:28s} {pname:10s} T {threads:4d} (sc {sc:3d}) device {ms:.4f} ms; "
+                  f"= plain: {equal}{mark}", flush=True)
     return ok
 
 

@@ -111,7 +111,7 @@ int main(int argc, char **argv) {
     const uint32_t m = in.word();
     const std::vector<Fe> xs = in.elems(m);
     const uint32_t k = in.word();
-    std::vector<uint32_t> tab(16 * PST_NL);  // the table, stride 1 as in K11
+    std::vector<uint32_t> tab(16 * PST_NL);  // the table, stride 1: one thread
     for (uint32_t j = 0; j < k; ++j) {
         const int nd = (int)in.word();
         if (nd < 0 || nd > 64) return 2;

@@ -9,7 +9,7 @@ tests/cuda_host/chain_host.cpp, in Fp and Fq, limb for limb:
 - the sponge's device function (K10's one-warp body) against the JAX
   package's host sponge, on the transcript of
   tests/test_torch_ipa_kernels.py, with L or R at infinity as (0, 0);
-- fe_pow_lat (K4's and K11's exponentiation) against pow(a, e, p) for
+- fe_pow_lat (K4's exponentiation) against pow(a, e, p) for
   e = p - 2, 0, 1, 2, 15, 16 and the permutation's alpha exponents.
 
 nvcc has the last word: g++ accepts code that nvcc may refuse, and the card
@@ -167,7 +167,8 @@ def test_pow_matches_python(exe, tmp_path, name):
     assert got == want, log
 
 
-@pytest.mark.parametrize("wrapper", ["mont_pow", "sponge_squeeze2", "endo_inv"])
+@pytest.mark.parametrize("wrapper", ["mont_pow", "sponge_squeeze2", "endo_inv",
+                                     "mont_prefix_scan"])
 def test_wrappers_reject_other_fields(wrapper):
     """The wrappers of the kernels on this product raise for a modulus of
     another shape (BN254's scalar field), on the CPU as on the card."""
@@ -183,6 +184,7 @@ def test_wrappers_reject_other_fields(wrapper):
             F, fq_kimchi.rounds_full, F.pack_mont([1, 2, 3], device="cpu"), two, two,
             kernels.sponge_consts(fq_kimchi, "cpu")),
         "endo_inv": lambda: kernels.endo_inv(F, 2, torch.zeros(128, dtype=torch.int32)),
+        "mont_prefix_scan": lambda: kernels.mont_prefix_scan(F, two[:, None, :].contiguous()),
     }
     with pytest.raises(ValueError, match="Pasta"):
         calls[wrapper]()

@@ -616,7 +616,7 @@ def test_mont_pow_shapes_match_plain(dev, field, n, e):
 
 @pytest.mark.parametrize("curve", [Vesta, Pallas], ids=["Vesta", "Pallas"])
 def test_endo_inv_both_scalar_fields(dev, curve):
-    """K11 on the fe_pow of chain_field.cuh, over both scalar fields."""
+    """K11 over both scalar fields."""
     rng = random.Random(611)
     F = limb.device_field(curve.scalar)
     t = torch.tensor([rng.randrange(2) for _ in range(128)], dtype=torch.int32, device=dev)
@@ -628,11 +628,84 @@ def test_endo_inv_both_scalar_fields(dev, curve):
 
 def test_chain_kernels_have_no_stack(dev):
     attrs = kernels.chain_attrs()
-    assert attrs["k_sponge_squeeze2"][1] == 0 and attrs["k_mont_pow"][1] == 0, attrs
+    for name in ("k_sponge_squeeze2", "k_mont_pow", "k_endo_inv"):
+        assert attrs[name][1] == 0, attrs
+
+
+@pytest.mark.parametrize("seed", [1, 2, 3, 4])
+@pytest.mark.parametrize("curve", [Vesta, Pallas], ids=["Vesta", "Pallas"])
+def test_endo_inv_seeded_bits(dev, curve, seed):
+    """K11 (closed form, binary-GCD inverse) against its plain version on
+    numpy-seeded challenge bits, one launch a call."""
+    import numpy as np
+
+    bits = np.random.default_rng(1200 + seed).integers(0, 2, 128).tolist()
+    F = limb.device_field(curve.scalar)
+    t = torch.tensor(bits, dtype=torch.int32, device=dev)
+    before = kernels.launch_counts()["endo_inv"]
+    (u, u_inv), (u_p, u_inv_p) = _pair("endo_inv", F, curve.endos[1], t)
+    assert kernels.launch_counts()["endo_inv"] == before + 1
+    assert torch.equal(u, u_p) and torch.equal(u_inv, u_inv_p)
+
+
+@pytest.mark.parametrize("field", [Fp, Fq], ids=["Fp", "Fq"])
+def test_inverse_chain_edge_values(dev, field):
+    """K11's inverse on the card (product_chain's INVERSE_CHAIN: inv(x) R^3
+    in Montgomery form) on 0, 1, 2, p - 1, p - 2, R, R^2 and 2^255 mod p as
+    integers, and on seeded values; twice gives x back."""
+    p = field.p
+    r = (1 << 256) % p
+    F = limb.device_field(field)
+    rng = random.Random(1210)
+    xs = [0, 1, 2, p - 1, p - 2, r, r * r % p, (1 << 255) % p] + [rng.randrange(p)
+                                                                   for _ in range(8)]
+    for x in xs:
+        ops = F.pack([x, r * r % p * r % p, 0, 0], device=dev)  # x, R^3 as integers
+        [once] = F.unpack(kernels.product_chain(F, kernels.INVERSE_CHAIN, ops, 1))
+        assert once == (pow(x, -1, p) * r * r % p if x else 0), x
+        [twice] = F.unpack(kernels.product_chain(F, kernels.INVERSE_CHAIN, ops, 2))
+        assert twice == x, x
+
+
+# K5 (limb.prefix_mul's rows of at most 64 chunks): the opening's calls (L
+# and R: 1 and 2; g2's to_affine: 2,048, 4,096 and 8,192), and the edge
+# rows around a warp, a block of 128 and the longest row
+K5_ROWS = [1, 2, 2048, 4096, 8192, 3, 31, 32, 33, 127, 128, 129, 2047, 8191]
+
+
+@pytest.mark.parametrize("n", K5_ROWS)
+def test_mont_prefix_scan_shapes(dev, n):
+    """One row and two (a zero in the second), both fields, one launch a
+    call, limb for limb."""
+    rng = random.Random(1220 + n)
+    for field in (Fp, Fq):
+        F = limb.device_field(field)
+        for rows, zero in ((1, None), (2, n + n // 2)):
+            x = _field_row(rng, F, rows, n, dev, zero_at=zero)
+            before = kernels.launch_counts()["mont_prefix_scan"]
+            got, want = _pair("mont_prefix_scan", F, x)
+            assert kernels.launch_counts()["mont_prefix_scan"] == before + 1
+            assert torch.equal(got, want), (field.name, rows)
+
+
+@pytest.mark.parametrize("n", [1, 2, 33, 2047, 4096, 8192])
+def test_mont_prefix_scan_block_sizes(dev, n):
+    """Every block size and both products through the launcher (which
+    counts nothing) against the plain version."""
+    rng = random.Random(1230 + n)
+    F = limb.device_field(Fq)
+    x = _field_row(rng, F, 2, n, dev)
+    want = kernels.mont_prefix_scan_plain(F, x)
+    before = kernels.launch_counts()
+    for threads in (32, 64, 128, 256, 512, 1024):
+        for product in (0, 1):
+            got = kernels._mont_prefix_launch(F, x, threads, product)
+            assert torch.equal(got, want), (threads, product)
+    assert kernels.launch_counts() == before
 
 
 def test_chain_wrappers_reject_other_fields(dev):
-    """K4, K10 and K11 run the Pasta moduli's product: another modulus
+    """K4, K10, K11 and K5 run the Pasta moduli's product: another modulus
     raises before anything is launched."""
     from proof_systems_tpu_torch.fields import FieldParams
     from proof_systems_tpu_torch.poseidon import fq_kimchi
@@ -644,8 +717,10 @@ def test_chain_wrappers_reject_other_fields(dev):
     three = F.pack_mont([1, 2, 3], device=dev)
     consts = kernels.sponge_consts(fq_kimchi, dev)
     bits = torch.zeros(128, dtype=torch.int32, device=dev)
-    names = ("mont_pow", "sponge_squeeze2", "endo_inv")
+    names = ("mont_pow", "sponge_squeeze2", "endo_inv", "mont_prefix_scan")
     before = {k: kernels.launch_counts()[k] for k in names}
+    with pytest.raises(ValueError, match="Pasta"):
+        kernels.mont_prefix_scan(F, two[:, None, :].contiguous())
     with pytest.raises(ValueError, match="Pasta"):
         kernels.mont_pow(F, two, 7)
     with pytest.raises(ValueError, match="Pasta"):

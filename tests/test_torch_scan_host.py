@@ -1,9 +1,9 @@
-"""K12's and K9's CUDA source run on the CPU: csrc/scan_field.cuh compiled
-with the host C++ compiler against the stand-in cuda_runtime.h
-(tests/cuda_host/: a warp as 32 threads, a block as 128), through
-tests/cuda_host/scan_host.cpp, which runs the kernels' phases in order over
-every warp, lane and team member. Held limb for limb against Python
-integers in Fp and Fq:
+"""K12's, K9's and K5's CUDA source run on the CPU: csrc/scan_field.cuh
+compiled with the host C++ compiler against the stand-in cuda_runtime.h
+(tests/cuda_host/: a warp as 32 threads, a block as 128, K5's block as T),
+through tests/cuda_host/scan_host.cpp, which runs the kernels' phases in
+order over every warp, lane and team member. Held limb for limb against
+Python integers in Fp and Fq:
 
 - K12's partial products and exclusive lane products on the smallest K12
   row (n = 8,193: C = Cp = 65), on rows with padded lanes (n = 8,321: Cp =
@@ -14,6 +14,10 @@ integers in Fp and Fq:
   65,537 for c = 0, 1, p - 1, a random c and omega^(n - 3), teams of 1, 2,
   16 and 32;
 - the team scan and the lane scan alone, on random totals;
+- K5's block scan on 2 rows of n = 1, 2, 3, 31, 32, 33, 127, 128, 129,
+  2,047, 2,048, 8,191 and 8,192 at the threads kernels.prefix_geometry
+  picks, and at every block size from 32 to 1,024 threads on rows that
+  leave a block's last threads or warps past n, with a zero in the row;
 - kernels.field_scan_team's rule, and the K9 kernel's constant table
   against pow.
 
@@ -247,6 +251,57 @@ def test_lane_scan_matches_python(exe, tmp_path, op):
             v = vals[r * LANES + lane]
             acc = acc * v % p if op == "product" else (v + pow(c, cp, p) * acc) % p
     assert got == _mont(field, want)
+
+
+# ---------------------------------------------------------------------------
+# K5
+# ---------------------------------------------------------------------------
+
+
+def _k5_check(exe, tmp_path, field, rows: int, n: int, threads=None, zero_at=None):
+    t, sc, lanes_log2 = kernels.prefix_geometry(n, threads)
+    xs = _random(field, 60 * n + t, rows * n)
+    if zero_at is not None:
+        xs[zero_at] = 0
+    words = ([5, kernels.PREFIX_PRODUCT, rows, n, sc, t.bit_length() - 6, lanes_log2]
+             + list(_pack(_mont(field, xs)).ravel()))
+    got = _unpack(_run(exe, tmp_path, field, words), rows * n)
+    want = []
+    for r in range(rows):
+        acc = 1
+        for x in xs[r * n:(r + 1) * n]:
+            acc = acc * x % field.p
+            want.append(acc)
+    assert got == _mont(field, want), (n, t)
+
+
+# the opening's rows (1, 2, 2,048 ... 8,192), around a warp, a block of 128
+# and K5's longest row
+K5_ROWS = [1, 2, 3, 31, 32, 33, 127, 128, 129, 2047, 2048, 8191, 8192]
+
+
+@pytest.mark.parametrize("n", K5_ROWS)
+def test_k5_device_code_matches_python(exe, tmp_path, n):
+    """Two rows at the rule's block (Fp; Fq at the longest rows)."""
+    for name in ("Fp", "Fq") if n >= 8191 else ("Fp",):
+        _k5_check(exe, tmp_path, FIELDS[name], 2, n, zero_at=n + n // 2)
+
+
+@pytest.mark.parametrize("threads", [32, 64, 128, 256, 512, 1024])
+def test_k5_every_block_size(exe, tmp_path, threads):
+    """Every block size on rows that a block covers with room to spare: n =
+    33 (sc = 1 or 2: most threads past n), 700 and 2,047."""
+    for n in (33, 700, 2047):
+        _k5_check(exe, tmp_path, Fq, 2, n, threads, zero_at=n - 1)
+
+
+@pytest.mark.parametrize("n,want", [
+    (1, (32, 1, 0)), (2, (32, 1, 1)), (3, (32, 1, 2)), (33, (32, 2, 5)),
+    (256, (32, 8, 5)), (257, (64, 5, 5)), (2048, (256, 8, 5)), (4096, (512, 8, 5)),
+    (8192, (1024, 8, 5)), (8193, (1024, 9, 5)),
+])
+def test_prefix_geometry(n, want):
+    assert kernels.prefix_geometry(n) == want
 
 
 # ---------------------------------------------------------------------------

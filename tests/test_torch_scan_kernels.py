@@ -106,13 +106,17 @@ def test_prefix_scan_parts_plain_matches_jax_prefix_mul():
     assert F.unpack_mont(combined[:, 3999:4001])[1] == 0
 
 
-@pytest.mark.parametrize("n", [8192, 8321], ids=["C=64_K5", "C=66_K12"])
+# the opening's rows of L and R (1 and 2 points) and both sides of the
+# dispatch; the zero at position 17, or at the last of a shorter row
+@pytest.mark.parametrize("n", [8192, 8321, 1, 2],
+                         ids=["C=64_K5", "C=66_K12", "n=1_K5", "n=2_K5"])
 def test_prefix_mul_and_batch_inverse_match_jax(n):
-    xs = _row(8 + n, 1, n, zero_at=17)
+    zero = min(17, n - 1)
+    xs = _row(8 + n, 1, n, zero_at=zero)
     x = F.pack_mont(xs, shape=(n,), device="cpu")
     jx = _to_jax(x)
     assert torch.equal(limb.prefix_mul(F, x), _from_jax(jlimb.prefix_mul(JF, jx)))
     inv = limb.batch_inverse(F, x)
     assert torch.equal(inv, _from_jax(jlimb.batch_inverse(JF, jx)))
     got = F.unpack_mont(inv)
-    assert got[17] == 0 and all(v * g % Fp.p == 1 for v, g in zip(xs, got) if v)
+    assert got[zero] == 0 and all(v * g % Fp.p == 1 for v, g in zip(xs, got) if v)
