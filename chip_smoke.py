@@ -684,8 +684,8 @@ def edge_cases(device, curve_params):
 
 
 # K5 edge rows, two each: around a warp, a block of 128, the rule's blocks
-# of 256 and 1,024 threads, and the longest row (n = 1, 2 and 2,048-8,192
-# are main-path shapes, checked there)
+# of 256 and 512 threads, and the longest row (n = 1, 2 and 2,048-8,192
+# are main-path shapes, checked there too)
 K5_EDGE_ROWS = [1, 2, 3, 31, 32, 33, 127, 128, 129, 2047, 2048, 8191, 8192]
 # K12 edge rows (rows, n) with the wrapper's team of 32: the smallest K12
 # row (C = Cp = 65: 3 positions a member, the 22nd 2, the last ten none),
@@ -806,9 +806,9 @@ def chain_note(name: str, args, ms: float) -> str:
                 f"{ms * 1e3 / levels:.4f} us a level")
     if name == "endo_inv":  # u's reduction, the binary GCD, the product by R^3
         steps = INV_BATCHES * INV_STEPS
-        return (f"; chain 1 product, {INV_BATCHES} batches of {INV_STEPS} binary-GCD steps "
-                f"({steps}) each with its update of a, b, u, v, then 1 product: "
-                f"{ms * 1e3 / steps:.4f} us a step")
+        return (f"; chain u (2 products, one reduction), {INV_BATCHES} batches of {INV_STEPS} "
+                f"binary-GCD steps ({steps}) each ending in its update of a, b, u, v, then "
+                f"1 product: {ms * 1e3 / steps:.4f} us a step")
     if name == "ec_prefix_scan_fused":  # a team reduces, scans its totals, rescans
         team, cp = scan_team(args[1])[0], scan_chunk(args[1].shape[-1])
         sc = -(-cp // team)

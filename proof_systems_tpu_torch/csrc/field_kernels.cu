@@ -43,15 +43,17 @@
 // integer-multiply bound (329 products an element); K5, K12 and K9 are
 // latency bound at the main path's shapes (one row): a chain of dependent
 // products. K5 runs a row (at most 8,192 positions) in one block of T
-// threads, T the fewest from 32 to 1,024 that leave each at most 8
-// positions (kernels.prefix_geometry), on chain_field.cuh's product: each
-// thread reduces its sub-chunk of sc positions, loaded through its warp's
-// tile (coalesced); the warp scans its 32 totals by shuffles (5 levels,
-// fewer where a lone warp holds the row in its first lanes); warp 0 scans
-// the block's warp totals (log2 of the warps); each thread rescans from its
-// offset: sc + 5 + log2 W + 1 + sc products (8 + 5 + 5 + 1 + 8 at 8,192,
-// against 64 + 7 and a strided fold of the one-block-of-128 design it
-// replaces; 1 + 1 + 1 on a row of 2, in one warp without a barrier). K12
+// threads, T the fewest from 32 to 512 that leave each at most 8 positions
+// (kernels.prefix_geometry; 16 at 8,192), on chain_field.cuh's product:
+// each thread reduces its sub-chunk of sc positions, loaded through its
+// warp's tile (coalesced); the warp scans its 32 totals by shuffles (5
+// levels, fewer where a lone warp holds the row in its first lanes); warp 0
+// scans the block's warp totals (log2 of the warps); each thread rescans
+// from its offset: sc + 5 + log2 W + 1 + sc products (16 + 5 + 4 + 1 + 16
+// at 8,192, against 64 + 7 and a strided fold of the one-block-of-128
+// design it replaces; 1 + 1 + 1 on a row of 2, in one warp without a
+// barrier). A long row's 2n products then bind on the one SM's integer
+// issue rate rather than on the chain (PERF.md section 6). K12
 // and K9 spread a row's lanes over teams of threads (scan_field.cuh): sc +
 // log2 S + sc + 7 levels for K12 (16 + 5 + 16 + 7 at n = 2^16 with S = 32,
 // against 512 + 7 one thread a lane), sc + log2 S + 1 + 7 and then 2
@@ -94,18 +96,19 @@ __global__ void __launch_bounds__(POW_BLOCK)
     fe_store(o, n, i, fe_pow_lat(F, fe_load(a, n, i), e, tab + threadIdx.x, POW_BLOCK));
 }
 
-// K5 (prefix_block_thread, scan_field.cuh): one block of 32 << warps_log2
-// threads a row of x (rows, n), thread t owning positions [t sc, t sc + sc);
-// the warps' tiles in dynamic shared memory. MAXT: the largest block it
-// takes (the registers a thread may hold follow from it).
-template <class Op, int MAXT>
-__global__ void __launch_bounds__(MAXT)
+// K5 (prefix_block_thread, scan_field.cuh, on chain_field.cuh's product):
+// one block of 32 << warps_log2 threads a row of x (rows, n), thread t
+// owning positions [t sc, t sc + sc); the warps' tiles in dynamic shared
+// memory. At most PREFIX_THREADS threads: at 1,024 (64 registers a thread)
+// the product spilled to the stack.
+#define PREFIX_THREADS 512
+__global__ void __launch_bounds__(PREFIX_THREADS)
     k_mont_prefix(FieldParams F, const uint32_t *__restrict__ x, uint32_t *__restrict__ o,
                   int64_t rows, int64_t n, int64_t sc, int warps_log2, int lanes_log2) {
     extern __shared__ uint32_t tiles[];
     __shared__ uint32_t sh[PST_NL * 32];
     const int t = threadIdx.x;
-    prefix_block_thread(Op{F}, x, o, rows, n, sc, warps_log2, lanes_log2, blockIdx.x,
+    prefix_block_thread(ProdLatOp{F}, x, o, rows, n, sc, warps_log2, lanes_log2, blockIdx.x,
                         tiles + (t / 32) * SCAN_TILE_WORDS, sh, t);
 }
 
@@ -235,31 +238,17 @@ static int pow_digits(PowDigits &e, const uint8_t *digits, int nd) {
     return pst_pow_digits(e, digits, nd) ? 0 : (int)cudaErrorInvalidValue;
 }
 
-// Lets k_mont_prefix<Op, MAXT> take the dynamic shared memory of MAXT
+// Lets k_mont_prefix take the dynamic shared memory of PREFIX_THREADS
 // threads' tiles, once a device.
-template <class Op, int MAXT>
 static cudaError_t mont_prefix_ready() {
     static bool done[64] = {};
     int dev = 0;
     cudaError_t e = cudaGetDevice(&dev);
     if (e != cudaSuccess || dev < 0 || dev >= 64 || done[dev]) return e;
-    e = cudaFuncSetAttribute(k_mont_prefix<Op, MAXT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             SCAN_TILE_WORDS * 4 * (MAXT / 32));
+    e = cudaFuncSetAttribute(k_mont_prefix, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             SCAN_TILE_WORDS * 4 * (PREFIX_THREADS / 32));
     done[dev] = e == cudaSuccess;
     return e;
-}
-
-template <class Op>
-static int mont_prefix_launch(const FieldParams &F, const uint32_t *x, uint32_t *o,
-                              int64_t rows, int64_t n, int64_t sc, int warps_log2,
-                              int lanes_log2, cudaStream_t s) {
-    const bool wide = warps_log2 == 5;
-    const cudaError_t e = wide ? mont_prefix_ready<Op, 1024>() : mont_prefix_ready<Op, 512>();
-    if (e != cudaSuccess) return (int)e;
-    const auto kern = wide ? k_mont_prefix<Op, 1024> : k_mont_prefix<Op, 512>;
-    kern<<<(unsigned)rows, 32 << warps_log2, (SCAN_TILE_WORDS * 4) << warps_log2, s>>>(
-        F, x, o, rows, n, sc, warps_log2, lanes_log2);
-    return (int)cudaGetLastError();
 }
 
 extern "C" {
@@ -287,22 +276,22 @@ int pst_mont_pow(const uint32_t *fp, const uint8_t *digits, int nd, const uint32
     return (int)cudaGetLastError();
 }
 
-// K5 with 32 << warps_log2 threads a block (warps_log2 in [0, 5]), sc
+// K5 with 32 << warps_log2 threads a block (warps_log2 in [0, 4]), sc
 // positions a thread, lanes_log2 levels of the warp scan (5 with more than
-// one warp); product 0 field.cuh's fe_mul, 1 chain_field.cuh's fe_mul_lat
-// (the Pasta moduli only).
+// one warp); the Pasta moduli only.
 int pst_mont_prefix(const uint32_t *fp, const uint32_t *x, uint32_t *o, int64_t rows,
-                    int64_t n, int64_t sc, int warps_log2, int lanes_log2, int product,
-                    void *stream) {
+                    int64_t n, int64_t sc, int warps_log2, int lanes_log2, void *stream) {
     const FieldParams F = pst_field_params(fp);
-    if (warps_log2 < 0 || warps_log2 > 5 || lanes_log2 < 0 || lanes_log2 > 5 ||
-        (warps_log2 > 0 && lanes_log2 != 5) || sc < 1 || (sc << (5 + warps_log2)) < n ||
-        product < 0 || product > 1 || (product == 1 && !pst_pasta_shape(F)))
+    if (!pst_pasta_shape(F) || (32 << warps_log2) > PREFIX_THREADS || warps_log2 < 0 ||
+        lanes_log2 < 0 || lanes_log2 > 5 || (warps_log2 > 0 && lanes_log2 != 5) || sc < 1 ||
+        (sc << (5 + warps_log2)) < n)
         return (int)cudaErrorInvalidValue;
     if (rows <= 0 || n <= 0) return 0;
-    const cudaStream_t s = (cudaStream_t)stream;
-    return product ? mont_prefix_launch<ProdLatOp>(F, x, o, rows, n, sc, warps_log2, lanes_log2, s)
-                   : mont_prefix_launch<ProdOp>(F, x, o, rows, n, sc, warps_log2, lanes_log2, s);
+    const cudaError_t e = mont_prefix_ready();
+    if (e != cudaSuccess) return (int)e;
+    k_mont_prefix<<<(unsigned)rows, 32 << warps_log2, (SCAN_TILE_WORDS * 4) << warps_log2,
+                    (cudaStream_t)stream>>>(F, x, o, rows, n, sc, warps_log2, lanes_log2);
+    return (int)cudaGetLastError();
 }
 
 // K12: the partial products into part (rows, PST_LANES * cp), the
@@ -404,17 +393,12 @@ int pst_chain_attrs(int which, int *out) {
 // Registers, local (stack) bytes, static and dynamic shared memory of K12's,
 // K9's and K5's kernels: k_prod_parts<false> (which 0), k_prod_parts<true>
 // (1), k_prod_lanes (2), k_lin_parts<false> (3), k_lin_parts<true> (4),
-// k_lin_lanes (5), k_lin_combine (6), k_mont_prefix<ProdOp, 512> (7), <ProdOp,
-// 1024> (8), <ProdLatOp, 512> (9), <ProdLatOp, 1024> (10).
+// k_lin_lanes (5), k_lin_combine (6), k_mont_prefix (7).
 int pst_scan_attrs(int which, int *out) {
     const void *fns[] = {(const void *)k_prod_parts<false>, (const void *)k_prod_parts<true>,
                          (const void *)k_prod_lanes,        (const void *)k_lin_parts<false>,
                          (const void *)k_lin_parts<true>,   (const void *)k_lin_lanes,
-                         (const void *)k_lin_combine,
-                         (const void *)k_mont_prefix<ProdOp, 512>,
-                         (const void *)k_mont_prefix<ProdOp, 1024>,
-                         (const void *)k_mont_prefix<ProdLatOp, 512>,
-                         (const void *)k_mont_prefix<ProdLatOp, 1024>};
+                         (const void *)k_lin_combine,       (const void *)k_mont_prefix};
     if (which < 0 || which >= (int)(sizeof(fns) / sizeof(fns[0])))
         return (int)cudaErrorInvalidValue;
     cudaFuncAttributes a;

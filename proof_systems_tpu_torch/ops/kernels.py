@@ -144,7 +144,7 @@ _I64 = ctypes.c_int64
 def _bind_field(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.pst_mont_mul.argtypes = [_P, _P, _P, _P, _I64, _P]
     lib.pst_mont_pow.argtypes = [_P, ctypes.c_char_p, ctypes.c_int, _P, _P, _I64, _P]
-    lib.pst_mont_prefix.argtypes = [_P, _P, _P] + [_I64] * 3 + [ctypes.c_int] * 3 + [_P]
+    lib.pst_mont_prefix.argtypes = [_P, _P, _P] + [_I64] * 3 + [ctypes.c_int] * 2 + [_P]
     lib.pst_mont_prefix_parts.argtypes = [_P] * 4 + [_I64] * 3 + [ctypes.c_int, _P]
     lib.pst_linear_scan.argtypes = [_P] * 3 + [_I64, _P, _P] + [_I64] * 3 + [ctypes.c_int, _P]
     lib.pst_scan_attrs.argtypes = [ctypes.c_int, _P]
@@ -740,12 +740,10 @@ def mont_prefix_scan_plain(F, x: torch.Tensor) -> torch.Tensor:
 
 
 # K5's block (csrc/scan_field.cuh prefix_block_thread): the most positions
-# a thread keeps, and the largest block.
+# a thread keeps where the block can grow, and the largest block (at 1,024
+# threads the product spilled; PERF.md section 6).
 PREFIX_MAX_SUB = 8
-PREFIX_MAX_THREADS = 1024
-# K5's product: 0 field.cuh's fe_mul, 1 chain_field.cuh's fe_mul_lat (the
-# Pasta moduli only)
-PREFIX_PRODUCT = 1
+PREFIX_MAX_THREADS = 512
 
 
 def prefix_geometry(n: int, threads: int | None = None) -> tuple[int, int, int]:
@@ -762,15 +760,15 @@ def prefix_geometry(n: int, threads: int | None = None) -> tuple[int, int, int]:
     return t, sc, lanes_log2
 
 
-def _mont_prefix_launch(F, x: torch.Tensor, threads: int, product: int) -> torch.Tensor:
+def _mont_prefix_launch(F, x: torch.Tensor, threads: int) -> torch.Tensor:
     """K5 on (8, ..., n) CUDA rows with `threads` threads a block (a power
-    of two from 32 to 1,024) and the given product; counts nothing."""
+    of two from 32 to PREFIX_MAX_THREADS); counts nothing."""
     rows, n = _rows_n(x)
     t, sc, lanes_log2 = prefix_geometry(n, threads)
     out = torch.empty_like(x)
     _launch(LIBRARY.load().field, "pst_mont_prefix", "pst_field_error_string", x.device,
             _field_words(F), x.data_ptr(), out.data_ptr(), rows, n, sc, t.bit_length() - 6,
-            lanes_log2, product)
+            lanes_log2)
     return out
 
 
@@ -778,11 +776,10 @@ def mont_prefix_scan(F, x: torch.Tensor) -> torch.Tensor:
     """Inclusive Montgomery prefix products along the last axis (a Pasta
     field): on the card one block a row, prefix_geometry's threads."""
     dev = _check(x)
-    if PREFIX_PRODUCT:
-        _require_pasta(F, "mont_prefix_scan")
+    _require_pasta(F, "mont_prefix_scan")
     if dev.type == "cpu":
         return mont_prefix_scan_plain(F, x)
-    out = _mont_prefix_launch(F, x, prefix_geometry(x.shape[-1])[0], PREFIX_PRODUCT)
+    out = _mont_prefix_launch(F, x, prefix_geometry(x.shape[-1])[0])
     LAUNCHES["mont_prefix_scan"] += 1
     return out
 
@@ -945,10 +942,9 @@ def linear_scan(F, x: torch.Tensor, c: int) -> torch.Tensor:
     return out
 
 
-# K12's and K9's kernels, in the order of pst_scan_attrs
+# K12's, K9's and K5's kernels, in the order of pst_scan_attrs
 FIELD_SCAN_KERNELS = ("K12 parts S 1", "K12 parts S > 1", "K12 lanes", "K9 parts S 1",
-                      "K9 parts S > 1", "K9 lanes", "K9 combine", "K5 fe_mul T <= 512",
-                      "K5 fe_mul T 1024", "K5 fe_mul_lat T <= 512", "K5 fe_mul_lat T 1024")
+                      "K9 parts S > 1", "K9 lanes", "K9 combine", "K5")
 
 
 def field_scan_attrs() -> dict[str, tuple[int, ...]]:

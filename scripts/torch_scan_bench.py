@@ -22,8 +22,8 @@ chip_smoke.bound_ms.
 
 Without --shapes-only it also times every team size K12 and K9 take
 (device time), through their launchers, at those shapes and at 24 rows
-of 65,537, and K5 at every block size from 32 to 1,024 threads with
-field.cuh's fe_mul and chain_field.cuh's fe_mul_lat; marks the ones
+of 65,537, and K5 at every block size from 32 to 512 threads; marks the
+ones
 kernels.field_scan_team and kernels.prefix_geometry pick, checks every
 result against the plain version limb for limb, and prints the kernels'
 registers and local (stack) bytes.
@@ -154,19 +154,18 @@ def sweep(kernels, chip_smoke, dev) -> bool:
 
 
 def sweep_k5(kernels, label, F, x, want) -> bool:
-    """K5 at every block size with both products, through the launcher."""
+    """K5 at every block size, through the launcher."""
     ok = True
     pick = kernels.prefix_geometry(x.shape[-1])[0]
-    for product, pname in ((0, "fe_mul"), (1, "fe_mul_lat")):
-        for threads in (32, 64, 128, 256, 512, 1024):
-            launch = lambda: kernels._mont_prefix_launch(F, x, threads, product)  # noqa: E731
-            equal = same(launch(), want)
-            ok &= equal
-            ms = timed_ms(launch, behind_sleep=True)
-            sc = kernels.prefix_geometry(x.shape[-1], threads)[1]
-            mark = "  <- the rule's" if threads == pick and product == kernels.PREFIX_PRODUCT else ""
-            print(f"{label:28s} {pname:10s} T {threads:4d} (sc {sc:3d}) device {ms:.4f} ms; "
-                  f"= plain: {equal}{mark}", flush=True)
+    for threads in (32, 64, 128, 256, 512):
+        launch = lambda: kernels._mont_prefix_launch(F, x, threads)  # noqa: E731
+        equal = same(launch(), want)
+        ok &= equal
+        ms = timed_ms(launch, behind_sleep=True)
+        sc = kernels.prefix_geometry(x.shape[-1], threads)[1]
+        mark = "  <- the rule's" if threads == pick else ""
+        print(f"{label:28s} T {threads:4d} (sc {sc:3d}) device {ms:.4f} ms; = plain: {equal}{mark}",
+              flush=True)
     return ok
 
 

@@ -18,7 +18,7 @@
 //     OUTPUT: each thread's exclusive value (8, 32);
 //   4 (the lane scan alone): op, cp, tlen, the table (op 1), rows, the lane
 //     values (8, rows, 128); OUTPUT: the exclusive values (8, rows, 128);
-//   5 (K5): product (0 fe_mul, 1 fe_mul_lat), rows, n, sc, warps_log2,
+//   5 (K5, on chain_field.cuh's product): rows, n, sc, warps_log2,
 //     lanes_log2, x (8, rows, n); OUTPUT: the inclusive scan (8, rows, n).
 // Positions the kernels leave unwritten keep 0xFFFFFFFF, which no canonical
 // limb of the Pasta moduli equals. Exits 2 on a malformed input.
@@ -154,17 +154,16 @@ static void team_alone(const Op &op, int tl, Reader &in, FILE *out) {
     std::fwrite(res.data(), 4, res.size(), out);
 }
 
-template <class Op>
-static void k5(const Op &op, Reader &in, FILE *out) {
+static void k5(Reader &in, FILE *out) {
     const int64_t rows = in.word(), n = in.word(), sc = in.word();
     const int wl = (int)in.word(), ll = (int)in.word();
-    if (wl < 0 || wl > 5 || ll < 0 || ll > 5 || sc < 1 || (sc << (5 + wl)) < n) std::exit(2);
+    if (wl < 0 || wl > 4 || ll < 0 || ll > 5 || sc < 1 || (sc << (5 + wl)) < n) std::exit(2);
     const std::vector<uint32_t> x = in.words(PST_NL * rows * n);
     std::vector<uint32_t> o(PST_NL * rows * n, 0xFFFFFFFFu);
     std::vector<uint32_t> tiles(SCAN_TILE_WORDS << wl), sh(PST_NL * 32);
     for (int64_t row = 0; row < rows; ++row)
         run_threads(32 << wl, [&](int t) {
-            prefix_block_thread(op, x.data(), o.data(), rows, n, sc, wl, ll, row,
+            prefix_block_thread(ProdLatOp{F}, x.data(), o.data(), rows, n, sc, wl, ll, row,
                                 tiles.data() + (t / 32) * SCAN_TILE_WORDS, sh.data(), t);
         });
     std::fwrite(o.data(), 4, o.size(), out);
@@ -196,9 +195,8 @@ int main(int argc, char **argv) {
             std::fwrite(v.data(), 4, v.size(), out);
         }
     } else if (kind == 5) {
-        const uint32_t product = in.word();
-        if (product > 1 || (product == 1 && !pst_pasta_shape(F))) return 2;
-        product ? k5(ProdLatOp{F}, in, out) : k5(ProdOp{F}, in, out);
+        if (!pst_pasta_shape(F)) return 2;
+        k5(in, out);
     } else {
         return 2;
     }

@@ -522,7 +522,7 @@ def test_mont_prefix_scan_parts_teams_match_plain(dev, rows, n):
 
 
 def test_field_scan_kernels_have_no_local_memory(dev):
-    """K12's and K9's kernels keep nothing on a stack."""
+    """K12's, K9's and K5's kernels keep nothing on a stack."""
     for name, (regs, local, _, _) in kernels.field_scan_attrs().items():
         assert local == 0 and 0 < regs <= 255, name
 
@@ -690,17 +690,15 @@ def test_mont_prefix_scan_shapes(dev, n):
 
 @pytest.mark.parametrize("n", [1, 2, 33, 2047, 4096, 8192])
 def test_mont_prefix_scan_block_sizes(dev, n):
-    """Every block size and both products through the launcher (which
-    counts nothing) against the plain version."""
+    """Every block size through the launcher (which counts nothing) against
+    the plain version."""
     rng = random.Random(1230 + n)
     F = limb.device_field(Fq)
     x = _field_row(rng, F, 2, n, dev)
     want = kernels.mont_prefix_scan_plain(F, x)
     before = kernels.launch_counts()
-    for threads in (32, 64, 128, 256, 512, 1024):
-        for product in (0, 1):
-            got = kernels._mont_prefix_launch(F, x, threads, product)
-            assert torch.equal(got, want), (threads, product)
+    for threads in (32, 64, 128, 256, 512):
+        assert torch.equal(kernels._mont_prefix_launch(F, x, threads), want), threads
     assert kernels.launch_counts() == before
 
 

@@ -16,7 +16,7 @@ Python integers in Fp and Fq:
 - the team scan and the lane scan alone, on random totals;
 - K5's block scan on 2 rows of n = 1, 2, 3, 31, 32, 33, 127, 128, 129,
   2,047, 2,048, 8,191 and 8,192 at the threads kernels.prefix_geometry
-  picks, and at every block size from 32 to 1,024 threads on rows that
+  picks, and at every block size from 32 to 512 threads on rows that
   leave a block's last threads or warps past n, with a zero in the row;
 - kernels.field_scan_team's rule, and the K9 kernel's constant table
   against pow.
@@ -263,7 +263,7 @@ def _k5_check(exe, tmp_path, field, rows: int, n: int, threads=None, zero_at=Non
     xs = _random(field, 60 * n + t, rows * n)
     if zero_at is not None:
         xs[zero_at] = 0
-    words = ([5, kernels.PREFIX_PRODUCT, rows, n, sc, t.bit_length() - 6, lanes_log2]
+    words = ([5, rows, n, sc, t.bit_length() - 6, lanes_log2]
              + list(_pack(_mont(field, xs)).ravel()))
     got = _unpack(_run(exe, tmp_path, field, words), rows * n)
     want = []
@@ -287,7 +287,7 @@ def test_k5_device_code_matches_python(exe, tmp_path, n):
         _k5_check(exe, tmp_path, FIELDS[name], 2, n, zero_at=n + n // 2)
 
 
-@pytest.mark.parametrize("threads", [32, 64, 128, 256, 512, 1024])
+@pytest.mark.parametrize("threads", [32, 64, 128, 256, 512])
 def test_k5_every_block_size(exe, tmp_path, threads):
     """Every block size on rows that a block covers with room to spare: n =
     33 (sc = 1 or 2: most threads past n), 700 and 2,047."""
@@ -298,7 +298,7 @@ def test_k5_every_block_size(exe, tmp_path, threads):
 @pytest.mark.parametrize("n,want", [
     (1, (32, 1, 0)), (2, (32, 1, 1)), (3, (32, 1, 2)), (33, (32, 2, 5)),
     (256, (32, 8, 5)), (257, (64, 5, 5)), (2048, (256, 8, 5)), (4096, (512, 8, 5)),
-    (8192, (1024, 8, 5)), (8193, (1024, 9, 5)),
+    (4097, (512, 9, 5)), (8192, (512, 16, 5)),
 ])
 def test_prefix_geometry(n, want):
     assert kernels.prefix_geometry(n) == want

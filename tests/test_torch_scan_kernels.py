@@ -106,8 +106,8 @@ def test_prefix_scan_parts_plain_matches_jax_prefix_mul():
     assert F.unpack_mont(combined[:, 3999:4001])[1] == 0
 
 
-# the opening's rows of L and R (1 and 2 points) and both sides of the
-# dispatch; the zero at position 17, or at the last of a shorter row
+# both sides of the dispatch and the opening's short rows (1 point; L and
+# R, 2); the zero at position 17, or at the last of a shorter row
 @pytest.mark.parametrize("n", [8192, 8321, 1, 2],
                          ids=["C=64_K5", "C=66_K12", "n=1_K5", "n=2_K5"])
 def test_prefix_mul_and_batch_inverse_match_jax(n):
