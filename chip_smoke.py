@@ -18,7 +18,10 @@ Phases, each fatal on failure:
   3. warm-up run of the main path, recording every kernel's largest call
      (K2's, K5's, K7's, K12's and the endo ladder's at every call shape,
      K4's at every shape and exponent length, K9's at every shape and
-     length of c);
+     length of c), and of the public-input path and the k = 11 bench path
+     (phase 4) and of the Lagrange commitments alone, whose calls are
+     recorded apart and checked as well where their shape is new (K6, K2,
+     K7 and K8 at b = 5 over 2^16, K4 on 5 points, the k = 11 tail);
      then each
      kernel against its plain PyTorch version on those inputs and on edge
      cases (field and transcript kernels, K2, K3, K8 and the ladder exact,
@@ -53,7 +56,17 @@ Phases, each fatal on failure:
      in a separate, synchronised proof); then each kernel's device time
      and launches over one more proof and one more verification (CUDA
      events around every wrapper call), and the time of K6, K7, K8, K2, K4
-     and the endo ladder at each call shape;
+     and the endo ladder at each call shape; then, each with the counts
+     zeroed just before and read just after, the public-input path at
+     k = 16 (5 public generic gates in rows 0-4, then Const(1) gates:
+     ConstraintSystem.create, ProverIndex, SRS.lagrange_commitments at
+     b = 5 into an empty cache directory, from memory and from disk,
+     create_proof of a host witness with seeded public values, verify;
+     every kernel but K3 must launch: K3 builds the scaled basis, once per
+     SRS), and bench_torch's own set-up and proof at
+     k = 11, where n = IPA_FOLD_TAIL and the opening has no fold step (the
+     endo ladder must not launch, every kernel of the tail rounds must),
+     verified, its size 4,949 bytes;
   5. every commitment against the native host MSM over g ++ [h], the iNTT
      against the CPU plain path, one b = 1 MSM at c = 10; the evaluations
      against host Horner; every round's L and R, sg, a0 and b0 against the
@@ -63,7 +76,10 @@ Phases, each fatal on failure:
      MSM, its zero quotient remainder, its 5,306 bytes at k = 16, the
      verifier's rejection of ft_eval1 + 1 and of a changed witness
      evaluation, and the fixed 2^5 circuit's proof on the card
-     byte-identical to tests/vectors/proof_2^5.bin;
+     byte-identical to tests/vectors/proof_2^5.bin; the public-input
+     proof's rejection with a public value + 1, the prover's public
+     commitment equal to the verifier's masked -sum p_i L_i, and the 5
+     Lagrange commitments equal to the native host MSM over g;
   6. the kernels' JSON line, the card line, and the result line.
 
 Exits non-zero without a CUDA device. Imports nothing of JAX.
@@ -1106,6 +1122,157 @@ def verify_proof(run, proof, seed=SEED + 1) -> bool:
     return kimchi_verify(run["vk"], proof, [], TestRng(seed))
 
 
+# The public-input path: m public generic gates in rows 0..m-1. Five makes the
+# Lagrange commitments a b >= 2 MSM whose to_affine batch is not a power of
+# two (K4's elementwise inverse).
+PUBLIC_M = 5
+# The bench path's k: n = 2,048 = IPA_FOLD_TAIL, an opening without a fold step.
+BENCH_K = 11
+# The kernels of an opening's tail rounds, which a k = 11 proof must launch.
+TAIL_KERNELS = ("mont_mul", "jacobian_add", "mont_pow", "mont_prefix_scan",
+                "ec_prefix_scan_parts", "ec_prefix_scan_fused", "combine_windows",
+                "sponge_squeeze2", "endo_inv")
+
+
+def lagrange_once(run, log_n: int, device) -> list:
+    """The public path's Lagrange commitments alone, on a new SRS over the
+    path's points with no disk cache (so that the b = PUBLIC_M MSM runs and
+    its calls are recorded apart from the proof's larger ones)."""
+    from proof_systems_tpu_torch.fields import Fp
+    from proof_systems_tpu_torch.ops import ntt
+    from proof_systems_tpu_torch.poly_commitment.srs import SRS
+
+    srs = run["srs"]
+    fresh = SRS(srs.curve, srs.g, srs.h, device)
+    return fresh.lagrange_commitments(ntt.ntt_plan(Fp, log_n, device=device), PUBLIC_M)
+
+
+def public_path(run, log_n: int, device) -> dict:
+    """The public-input circuit over the path's SRS: PUBLIC_M public generic
+    gates, then Const(1) gates up to 2^k - 10 rows, through
+    ConstraintSystem.create and ProverIndex; the Lagrange commitments of
+    the public rows (a first call into an empty cache directory, a call
+    from memory, and one from disk on a new SRS over the same points); a
+    proof of a host witness with seeded public values in column 0, its
+    verification, and the prover's public commitment (spied on the SRS)."""
+    import pathlib
+    import tempfile
+
+    from proof_systems_tpu_torch.circuits.builders import GenericGateSpec, create_generic_gadget
+    from proof_systems_tpu_torch.circuits.constraints import ConstraintSystem
+    from proof_systems_tpu_torch.curves import Vesta
+    from proof_systems_tpu_torch.fields import Fp
+    from proof_systems_tpu_torch.poly_commitment.srs import SRS
+    from proof_systems_tpu_torch.prover import create_proof
+    from proof_systems_tpu_torch.prover_index import ProverIndex
+    from proof_systems_tpu_torch.utils.rng import TestRng
+    from proof_systems_tpu_torch.verifier import verify as kimchi_verify
+
+    n, m, srs, times = 1 << log_n, PUBLIC_M, run["srs"], run["times"]
+    gates = [create_generic_gadget(Fp, r, GenericGateSpec.pub(Fp)) for r in range(m)] + [
+        create_generic_gadget(Fp, r, GenericGateSpec.const(Fp, 1)) for r in range(m, n - 10)]
+
+    def build():
+        cs = ConstraintSystem.create(Fp, gates, public=m, max_poly_size=n, device=device)
+        return ProverIndex(cs, Vesta, srs)
+
+    index, times["index_pub_s"] = wall(build, device)
+    vk = index.verifier_index()
+    rng = random.Random(SEED + 7)
+    public = [rng.randrange(Fp.p) for _ in range(m)]
+    witness = [[0] * (n - 10) for _ in range(COLUMNS)]
+    witness[0] = public + [1] * (n - 10 - m)
+
+    saved_dir = srs.cache_dir
+    with tempfile.TemporaryDirectory() as tmp:
+        srs.cache_dir = pathlib.Path(tmp)
+        lag, times["lagrange_first_s"] = wall(
+            lambda: srs.lagrange_commitments(vk.domain, m), device)
+        again, times["lagrange_cached_s"] = wall(
+            lambda: srs.lagrange_commitments(vk.domain, m), device)
+        fresh = SRS(srs.curve, srs.g, srs.h, device, cache_dir=tmp)
+        from_disk, times["lagrange_disk_s"] = wall(
+            lambda: fresh.lagrange_commitments(vk.domain, m), device)
+    srs.cache_dir = saved_dir
+    if not lag == again == from_disk:
+        raise AssertionError("the cached Lagrange commitments differ from the first call's")
+
+    calls = []
+    commit = srs.commit_coeffs_dev
+
+    def spy(coeffs, num_chunks=1, blinders=None):
+        out = commit(coeffs, num_chunks, blinders)
+        calls.append(out)
+        return out
+
+    srs.commit_coeffs_dev = spy  # an instance attribute over the method
+    proof, prove_s = wall(lambda: create_proof(index, witness, TestRng(SEED + 8)), device)
+    del srs.commit_coeffs_dev
+    times["prove_pub_ms"] = prove_s * 1e3
+    ok, verify_s = wall(lambda: kimchi_verify(vk, proof, public, TestRng(SEED + 9)), device)
+    times["verify_pub_ms"] = verify_s * 1e3
+    if not ok:
+        raise AssertionError(f"verify rejected the honest public-input proof at k = {log_n}")
+    return dict(pub_vk=vk, public=public, pub_proof=proof, lagrange=lag, pub_comm=calls[0][0])
+
+
+def public_checks(pub, nat) -> None:
+    """The public-input proof: rejected with a public value + 1; the
+    prover's public commitment (iNTT, then a b = 1 commit with H) equals the
+    verifier's masked -sum p_i L_i; the Lagrange commitments equal the
+    native host MSM of their coefficients n^-1 omega^(-ij) over g."""
+    from proof_systems_tpu_torch.fields import Fp
+    from proof_systems_tpu_torch.utils.rng import TestRng
+    from proof_systems_tpu_torch.verifier import to_batch
+    from proof_systems_tpu_torch.verifier import verify as kimchi_verify
+
+    vk, proof, public = pub["pub_vk"], pub["pub_proof"], pub["public"]
+    changed = [(public[0] + 1) % Fp.p] + public[1:]
+    if kimchi_verify(vk, proof, changed, TestRng(SEED + 10)):
+        raise AssertionError("verify accepted the public-input proof with a changed public value")
+    verifier_comm = to_batch(vk, proof, public).evaluations[0].commitment
+    if pub["pub_comm"].chunks != verifier_comm.chunks:
+        raise AssertionError("the prover's public commitment differs from the verifier's")
+    log(f"check: the k = {vk.domain.log_n} proof with {len(public)} public inputs verifies and is "
+        "rejected with a public value + 1; the prover's public commitment equals the verifier's "
+        "-sum p_i L_i + H")
+
+    t0 = time.perf_counter()
+    p, n = Fp.p, vk.domain.n
+    w_inv, n_inv = pow(vk.domain.group_gen, -1, p), pow(n, -1, p)
+    jobs = []
+    for i in range(len(public)):
+        w, c, row = pow(w_inv, i, p), n_inv, []
+        for _ in range(n):
+            row.append(c)
+            c = c * w % p
+        jobs.append(row)
+    g = vk.srs.g
+    with concurrent.futures.ThreadPoolExecutor(8) as pool:
+        want = list(pool.map(lambda sc: nat.msm(sc, g), jobs))
+    if pub["lagrange"] != want:
+        raise AssertionError("the Lagrange commitments differ from the host MSM")
+    log(f"check: the {len(public)} Lagrange commitments equal the host MSM over g "
+        f"({time.perf_counter() - t0:.1f} s on the host)")
+
+
+def bench_path(device, cache_dir=None) -> dict:
+    """bench_torch's own set-up and proof at k = BENCH_K, the proof's launch
+    counts (zeroed just before it), its verification and its size."""
+    import bench_torch
+    from proof_systems_tpu_torch.ops import kernels
+    from proof_systems_tpu_torch.serialization import serialize_proof
+    from proof_systems_tpu_torch.utils.rng import TestRng
+
+    index, witness = bench_torch.setup(BENCH_K, device, cache_dir)
+    kernels.reset_launch_counts()
+    proof, seconds = bench_torch.prove_once(index, witness, TestRng(SEED + 11))
+    counts = kernels.launch_counts()
+    verify_s = bench_torch.verify_once(index, proof, TestRng(SEED + 12))
+    return dict(counts=counts, prove_ms=seconds * 1e3, verify_ms=verify_s * 1e3,
+                proof_bytes=len(serialize_proof(index.curve, proof)), rounds=len(proof.proof.lr))
+
+
 def ipa_inputs(log_n: int) -> dict:
     """The evaluation points (zeta, zeta*omega), polyscale and evalscale."""
     from proof_systems_tpu_torch.fields import Fp
@@ -1319,6 +1486,7 @@ def golden_checks(run, device, log_n: int) -> None:
     polys = [job[:n] for job in jobs]
     ipa_checks(run, polys, nat)
     proof_checks(run, device, log_n, nat)
+    public_checks(run, nat)
 
 
 def horner(p: int, coeffs: list[int], x: int) -> int:
@@ -1566,12 +1734,26 @@ def run(device, log_n: int = LOG_N, cache_dir=None) -> list[dict]:
 
     log(f"== warm-up main path, k = {log_n}, recording kernel inputs")
     with Recorder(kernels) as rec:
-        _, warm_s = wall(lambda: main_path(log_n, device, cache_dir), device)
+        warm, warm_s = wall(lambda: main_path(log_n, device, cache_dir), device)
     log(f"warm-up main path: {warm_s:.2f} s (includes SRS derivation or cache read)")
+    # the other paths' calls are recorded apart, so that their own shapes
+    # (K6, K2, K7 and K8 at b = PUBLIC_M, K4 on PUBLIC_M points; the k = 11
+    # tail) are held against the plain versions too
+    # (a call shape that the main path recorded already is checked once)
+    recorded = dict(rec.calls)
+    for tag, fn in (("lagrange", lambda: lagrange_once(warm, log_n, device)),
+                    ("public", lambda: public_path(warm, log_n, device)),
+                    (f"k{BENCH_K}", lambda: bench_path(device, cache_dir))):
+        with Recorder(kernels) as rec:
+            _, secs = wall(fn, device)
+        log(f"warm-up {tag} path: {secs:.2f} s")
+        recorded.update({f"{key}[{tag}]": call for key, call in rec.calls.items()
+                         if not (key in recorded and key.split("[")[0] in BY_SHAPE)})
+    del warm, rec
 
     log("== kernels against their plain versions")
-    table = check_kernels(kernels, rec.calls, device, Vesta)
-    del rec
+    table = check_kernels(kernels, recorded, device, Vesta)
+    del recorded
 
     log(f"== main path, k = {log_n}, Vesta, counted")
     if device.type == "cuda":
@@ -1591,6 +1773,37 @@ def run(device, log_n: int = LOG_N, cache_dir=None) -> list[dict]:
         raise AssertionError(f"kernels not launched on the main path: {zero}")
     for row in table:
         row["launches"] = counts[row["name"]]
+
+    log(f"== public-input path, k = {log_n}, m = {PUBLIC_M}, counted")
+    kernels.reset_launch_counts()
+    result.update(public_path(result, log_n, device))
+    sync(device)
+    counts = kernels.launch_counts()
+    log(f"public path launches: {json.dumps(counts)}")
+    for k in ("index_pub_s", "lagrange_first_s", "lagrange_cached_s", "lagrange_disk_s",
+              "prove_pub_ms", "verify_pub_ms"):
+        log(f"public path {k}: {result['times'][k]:.4f}")
+    zero = [k for k, v in counts.items() if v == 0 and k != "jacobian_double"]
+    if zero and device.type == "cuda":  # K3 builds the scaled basis, made once per SRS
+        raise AssertionError(f"kernels not launched on the public-input path: {zero}")
+
+    log(f"== bench path, k = {BENCH_K} (bench_torch.setup, prove_once), counted")
+    bench = bench_path(device, cache_dir)
+    log(f"bench path launches per proof: {json.dumps(bench['counts'])}")
+    log(f"bench path k = {BENCH_K}: prove_ms {bench['prove_ms']:.3f}  verify_ms "
+        f"{bench['verify_ms']:.3f}  proof_bytes {bench['proof_bytes']}  rounds {bench['rounds']}")
+    if bench["counts"]["endo_ladder"] != 0:
+        raise AssertionError(f"the k = {BENCH_K} opening ran a fold step (endo ladder launched)")
+    missing = [k for k in TAIL_KERNELS if bench["counts"][k] == 0]
+    if missing and device.type == "cuda":
+        raise AssertionError(f"kernels of the tail not launched at k = {BENCH_K}: {missing}")
+    if bench["proof_bytes"] != proof_size(BENCH_K) or bench["rounds"] != BENCH_K:
+        raise AssertionError(
+            f"the k = {BENCH_K} proof is {bench['proof_bytes']} bytes with {bench['rounds']} "
+            f"rounds, expected {proof_size(BENCH_K)} and {BENCH_K}")
+    log(f"check: the k = {BENCH_K} proof verifies with no fold step (0 endo ladder launches, "
+        f"{BENCH_K} tail rounds) and serializes to {bench['proof_bytes']} bytes")
+
     kernels.reset_launch_counts()
     result["srs"].commit_coeffs_dev(result["w_coeffs"], 1, result["blinders"])
     log(f"launches per 15-column commit: {json.dumps(kernels.launch_counts())}")

@@ -109,6 +109,38 @@ class DeviceCurve:
         q = map_points(torch.Tensor.contiguous, q)
         return JPoint(*kernels.jacobian_add(self.F, *p, *q))
 
+    def add_mixed(self, p: JPoint, q: APoint) -> JPoint:
+        """p + affine q (madd-2007-bl), complete through selects: the
+        doubling lanes take K3, infinity on either side the other operand."""
+        F = self.F
+        p_inf = limb.is_zero(F, p.z)
+        z1z1 = limb.mont_sqr(F, p.z)
+        u2 = limb.mont_mul(F, q.x, z1z1)
+        s2 = limb.mont_mul(F, q.y, limb.mont_mul(F, p.z, z1z1))
+        h = limb.sub(F, u2, p.x)
+        rr = limb.sub(F, s2, p.y)
+        r2 = limb.add(F, rr, rr)
+        h_zero = limb.is_zero(F, h)
+        r_zero = limb.is_zero(F, r2)
+
+        i = limb.mont_sqr(F, limb.add(F, h, h))
+        j = limb.mont_mul(F, h, i)
+        v = limb.mont_mul(F, p.x, i)
+        x3 = limb.sub(F, limb.sub(F, limb.mont_sqr(F, r2), j), limb.add(F, v, v))
+        s1j = limb.mont_mul(F, p.y, j)
+        y3 = limb.sub(F, limb.mont_mul(F, r2, limb.sub(F, v, x3)), limb.add(F, s1j, s1j))
+        zh = limb.mont_mul(F, p.z, h)
+        z3 = limb.add(F, zh, zh)  # Z3 = (Z1+H)^2 - Z1Z1 - H^2 = 2 Z1 H
+        dbl = self.double(p)
+        use_dbl = h_zero & r_zero
+        to_inf = h_zero & ~r_zero
+        out = self.select(use_dbl, dbl, JPoint(x3, y3, z3))
+        out = JPoint(out.x, out.y, limb.select(to_inf & ~p_inf, torch.zeros_like(z3), out.z))
+        # p at infinity -> q (z = 1); q at infinity -> p
+        one = F.one_mont(q.inf.shape, device=q.x.device)
+        out = self.select(p_inf, JPoint(q.x, q.y, one), out)
+        return self.select(q.inf, p, out)
+
     def endo_ladder(self, p: JPoint, bits: torch.Tensor) -> JPoint:
         """[u] p for the scalar challenge u of the 128 bits `bits` (the IPA
         fold step's 64-step endo ladder, one kernel); p has z in {0, R}."""
@@ -127,8 +159,39 @@ class DeviceCurve:
         one = F.one_mont(batch_shape, device=device)
         return JPoint(one.clone(), one.clone(), F.zeros(batch_shape, device=device))
 
+    # -- reductions --------------------------------------------------------
+
+    def sum_points(self, p: JPoint) -> JPoint:
+        """Tree-sum along the last batch axis (K2), padded with infinity to
+        a power of two; the last axis keeps length 1."""
+        n = p.x.shape[-1]
+        m = 1 << max(n - 1, 0).bit_length()
+        if m != n:
+            pad = self.inf_jacobian((*p.x.shape[1:-1], m - n), device=p.x.device)
+            p = JPoint(*(torch.cat([a, b], dim=-1) for a, b in zip(p, pad)))
+        while m > 1:
+            m //= 2
+            p = self.add(JPoint(*(t[..., :m] for t in p)), JPoint(*(t[..., m:] for t in p)))
+        return p
+
 
 @functools.lru_cache(maxsize=None)
 def device_curve(curve: CurveParams) -> DeviceCurve:
     return DeviceCurve(curve)
 
+
+def scalar_mul_const(curve: DeviceCurve, scalar_std: torch.Tensor, p: JPoint) -> JPoint:
+    """[k]P for ONE shared scalar across a batch of points.
+
+    scalar_std: (8,) canonical standard-form limbs (not Montgomery) on the
+    points' device, the port's 32-bit limbs where the JAX package takes 16
+    of 16 bits. MSB-first double-and-add over a fixed 256 steps (K3, K2),
+    the bit chosen by a select on the device, so the host never reads k."""
+    words = scalar_std.to(torch.int64) & 0xFFFFFFFF
+    shifts = torch.arange(limb.LIMB_BITS, device=words.device)
+    bits = ((words[:, None] >> shifts) & 1).reshape(limb.NBITS) == 1  # LSB first
+    acc = curve.inf_jacobian(p.x.shape[1:], device=p.x.device)
+    for i in range(limb.NBITS - 1, -1, -1):
+        acc = curve.double(acc)
+        acc = curve.select(bits[i], curve.add(acc, p), acc)
+    return acc

@@ -5,10 +5,15 @@ Counterpart of proof_systems_tpu/poly_commitment/srs.py:
     blinder h from b"srs_misc" || be32(0) (poly-commitment/src/ipa.rs),
     exact on the host and cached on disk in the port's own format;
   - commitments are MSMs over the pre-scaled windows of g ++ [h] on the
-    device, the hiding term w*H fused in as one more (h, w) pair per chunk.
+    device, the hiding term w*H fused in as one more (h, w) pair per chunk;
+  - the commitments to the first m Lagrange basis polynomials of a domain
+    (the verifier's public-input commitment) are one unscaled b = m MSM
+    over g, cached in memory and on disk;
+  - load_reference_srs reads the reference's `srs/*.srs` files.
 
-The cache is a plain uint8 array (depth, 64): x || y, 32 bytes little-endian
-each, under the repo's gitignored build directory by default.
+The caches are plain uint8 arrays (count, 64): x || y, 32 bytes
+little-endian each (all zero for infinity in the Lagrange cache), under the
+repo's gitignored build directory by default.
 """
 
 from __future__ import annotations
@@ -24,7 +29,7 @@ import torch
 
 from .. import BUILD_DIR
 from ..curves import CurveParams
-from ..ops import limb, msm
+from ..ops import limb, msm, poly
 from ..ops.curve_ops import APoint, JPoint, device_curve
 from ..runtime import check_device, resolve_device
 from .commitment import PolyComm
@@ -93,37 +98,47 @@ def _points_from_bytes(arr: np.ndarray) -> list[tuple[int, int]]:
     ]
 
 
+def _save_points(path: pathlib.Path, pts) -> None:
+    """Write points ((x, y) | None, infinity as (0, 0), which is not on the
+    curve) through a temporary file, so a reader never sees half a file."""
+    path.parent.mkdir(parents=True, exist_ok=True)
+    tmp = path.with_suffix(f".{os.getpid()}.tmp.npy")
+    np.save(tmp, _points_to_bytes([(0, 0) if pt is None else pt for pt in pts]))
+    os.replace(tmp, path)
+
+
 class SRS:
     """The universal IPA structured reference string for one curve, with
     its device bases on one device."""
 
-    def __init__(self, curve: CurveParams, g, h, device: torch.device):
+    def __init__(self, curve: CurveParams, g, h, device: torch.device, cache_dir=None):
+        """cache_dir: where lagrange_commitments keeps its results on disk
+        (SRS.create passes its own); None keeps them in memory only."""
         self.curve = curve
         self.g = list(g)
         self.h = h
         self.device = device
+        self.cache_dir = None if cache_dir is None else pathlib.Path(cache_dir)
         self._g_dev: APoint | None = None
         self._gh_dev: APoint | None = None
         self._hg_dev: APoint | None = None
         self._scaled: dict[int, JPoint] = {}
+        # domain size -> affine commit(L_i) of its first rows
+        self._lagrange: dict[int, list] = {}
 
     @classmethod
     def create(cls, curve: CurveParams, depth: int, device=None, cache_dir=None) -> "SRS":
         """Deterministic SRS, the same points as ipa.rs create_parallel.
         Derived on the host once, then read from `cache_dir`."""
         dev = resolve_device(device)
-        path = pathlib.Path(cache_dir or DEFAULT_CACHE_DIR) / (
-            f"srs_{curve.name.lower()}_{depth}.npy"
-        )
+        cache_dir = pathlib.Path(cache_dir or DEFAULT_CACHE_DIR)
+        path = cache_dir / f"srs_{curve.name.lower()}_{depth}.npy"
         if path.exists():
             g = _points_from_bytes(np.load(path))
         else:
             g = derive_points(curve, depth)
-            path.parent.mkdir(parents=True, exist_ok=True)
-            tmp = path.with_suffix(f".{os.getpid()}.tmp.npy")
-            np.save(tmp, _points_to_bytes(g))
-            os.replace(tmp, path)
-        return cls(curve, g, derive_h(curve), dev)
+            _save_points(path, g)
+        return cls(curve, g, derive_h(curve), dev, cache_dir)
 
     def __len__(self) -> int:
         return len(self.g)
@@ -162,6 +177,42 @@ class SRS:
         return self._scaled[c]
 
     # -- committing --------------------------------------------------------
+
+    def lagrange_commitments(self, domain, m: int) -> list:
+        """Commitments to the first m Lagrange basis polynomials of `domain`
+        (ipa.rs:648-660 get_lagrange_basis, restricted to the public rows,
+        which is all the verifier reads): L_i has the coefficients
+        n^-1 * omega^(-ij), so the m rows are one gather of the power vector
+        of omega^-1, scaled by n^-1 on the device, and commit(L_i) is one
+        unscaled MSM with b = m over g. Cached in memory per domain size and
+        on disk in cache_dir, so the verifier's public commitment costs m
+        host scalar multiplications (verifier.rs:833)."""
+        n = domain.n
+        if n != len(self.g):
+            raise NotImplementedError(
+                f"Lagrange commitments of a {n}-point domain over a {len(self.g)}-point "
+                "SRS (num_chunks > 1: ROADMAP Queue 1 item 10)")
+        have = self._lagrange.get(n)
+        if have is not None and len(have) >= m:
+            return have[:m]
+        path = None
+        if self.cache_dir is not None:
+            path = self.cache_dir / f"lagrange_{self.curve.name.lower()}_{n}_{m}.npy"
+        if path is not None and path.exists():
+            pts = [None if pt == (0, 0) else pt for pt in _points_from_bytes(np.load(path))]
+        else:
+            F = limb.device_field(self.curve.scalar)
+            pw = poly.powers_dev(F, domain.group_gen_inv, n, device=self.device)
+            i = torch.arange(m, device=self.device)
+            j = torch.arange(n, device=self.device)
+            rows = limb.mont_mul(F, pw[:, (i[:, None] * j) % n],
+                                 F.const_mont(domain.n_inv, (1, 1), device=self.device))
+            pts = msm.msm(self.curve, limb.from_mont(F, rows), points=self.g_dev,
+                          device=self.device)
+            if path is not None:
+                _save_points(path, pts)
+        self._lagrange[n] = pts
+        return pts[:m]
 
     def mask(self, comm: PolyComm, blinders: list[int]) -> PolyComm:
         """Hiding on the host: chunk_i + blinders_i * H (ipa.rs mask_custom)."""
@@ -220,3 +271,34 @@ class SRS:
         wb = torch.from_numpy(limb.ints_to_limbs(flat, shape=(b * nchunks, 1))).to(self.device)
         results = self._commit_rows(torch.cat([rows, wb], dim=-1))
         return [PolyComm(results[i * nchunks : (i + 1) * nchunks]) for i in range(b)]
+
+
+def load_reference_srs(path, curve: CurveParams, limit: int | None = None):
+    """Parse a reference `srs/*.srs` file (rmp-serde of [Vec<G>, G] with
+    33-byte arkworks compressed points) into host affine points (g, h).
+
+    Flag byte (arkworks SWFlags): 0x40 = infinity, 0x80 = y is the
+    lexicographically larger root, 0x00 = the smaller one."""
+    data = pathlib.Path(path).read_bytes()
+    if data[:2] != b"\x92\xdd":
+        raise ValueError(f"{path}: not an rmp [Vec<G>, G] SRS file")
+    n = int.from_bytes(data[2:6], "big")
+    f = curve.base
+
+    def read_point(off):
+        if data[off : off + 2] != b"\xc4\x21":
+            raise ValueError(f"{path}: no 33-byte point at offset {off}")
+        raw = data[off + 2 : off + 35]
+        flag = raw[32]
+        if flag & 0x40:
+            return None
+        x = int.from_bytes(raw[:32], "little")
+        y = f.sqrt(curve.curve_eqn(x))
+        if y is None:
+            raise ValueError(f"{path}: x at offset {off} is not on {curve.name}")
+        big, small = max(y, f.p - y), min(y, f.p - y)
+        return (x, big) if flag & 0x80 else (x, small)
+
+    count = n if limit is None else min(limit, n)
+    g = [read_point(6 + 35 * i) for i in range(count)]
+    return g, read_point(6 + 35 * n)  # fixed 35-byte stride per point

@@ -9,9 +9,10 @@ verify() hands the one batched check to the IPA
 The linearization constant term is evaluated at zeta by walking the same
 constraint AST the prover used (circuits/expr.eval_host); the berkeley
 linearization has no index terms, so f_comm is perm_scalars * sigma_6
-(verifier.rs:897-958). Not ported yet: lookups (ROADMAP Queue 1 item 8),
-public inputs, whose commitment needs SRS.lagrange_commitments (item 1), and
-batch_verify over several proofs (item 10).
+(verifier.rs:897-958). Public inputs are evaluated at zeta and zeta*omega
+by the barycentric sum over the public rows, and committed from the SRS's
+cached Lagrange-basis commitments. Not ported yet: lookups (ROADMAP Queue 1
+item 8) and batch_verify over several proofs (item 10).
 """
 
 from __future__ import annotations
@@ -109,9 +110,21 @@ def oracles(
     if proof.evals.public is not None:
         public_evals = [proof.evals.public.zeta, proof.evals.public.zeta_omega]
     elif public_input is not None:
-        if public_input:
-            raise NotImplementedError("public inputs: ROADMAP Queue 1 item 1")
-        public_evals = [[0], [0]]
+        if not public_input:
+            public_evals = [[0], [0]]
+        else:
+            # the negated public polynomial sum_i -p_i L_i at zeta and zeta*omega,
+            # L_i(x) = w^i (x^n - 1) / (n (x - w^i))
+            ws = [pow(vk.domain.group_gen, i, p) for i in range(len(public_input))]
+            ev_z = ev_zw = 0
+            for pi, w in zip(public_input, ws):
+                ev_z = (ev_z - pow(zeta - w, -1, p) * pi * w) % p
+                ev_zw = (ev_zw - pow(zetaw - w, -1, p) * pi * w) % p
+            size_inv = pow(n, -1, p)
+            public_evals = [
+                [ev_z * (zeta1 - 1) * size_inv % p],
+                [ev_zw * (pow(zetaw, n, p) - 1) * size_inv % p],
+            ]
     else:
         raise ValueError("missing public input evaluation")
 
@@ -222,12 +235,17 @@ def to_batch(vk: VerifierIndex, proof: ProverProof, public_input: list[int]) -> 
     f = curve.scalar
     p = f.p
 
-    # A chunked proof commits the (zero) public polynomial with num_chunks
-    # chunks (verifier.rs:845): pad so the transcript matches.
+    # -sum_i p_i * commit(L_i) from the cached Lagrange-basis commitments
+    # (verifier.rs:833): m host scalar multiplications. A chunked proof
+    # commits the public polynomial with num_chunks chunks, zero beyond the
+    # first (verifier.rs:845): pad so the transcript matches.
     num_chunks = max(1, vk.domain.n // vk.max_poly_size)
+    acc = None
     if public_input:
-        raise NotImplementedError("public inputs: ROADMAP Queue 1 item 1")
-    comm = PolyComm([None] * num_chunks)
+        lag = vk.srs.lagrange_commitments(vk.domain, len(public_input))
+        for pi, li in zip(public_input, lag):
+            acc = curve.add(acc, curve.scalar_mul((-pi) % p, li))
+    comm = PolyComm([acc] + [None] * (num_chunks - 1))
     public_comm = vk.srs.mask(comm, [1] * len(comm))
 
     o = oracles(vk, proof, public_comm, public_input)

@@ -726,3 +726,77 @@ def test_chain_wrappers_reject_other_fields(dev):
     with pytest.raises(ValueError, match="Pasta"):
         kernels.endo_inv(F, 2, bits)
     assert {k: kernels.launch_counts()[k] for k in names} == before
+
+
+def test_lagrange_commitments_match_host_msm(dev, tmp_path):
+    """n = 2^12, m = 5: the b = 5 unscaled MSM over g (K6, K2, K7, K8) and
+    the to_affine of 5 points (K4's elementwise inverse), against the
+    native host MSM of the Lagrange coefficients; the cached call runs no
+    kernel."""
+    from proof_systems_tpu_torch.circuits.domains import EvaluationDomains
+    from proof_systems_tpu_torch.native import native_curve
+    from proof_systems_tpu_torch.poly_commitment.srs import SRS
+
+    n, m = 1 << 12, 5
+    srs = SRS.create(Vesta, n, device=dev, cache_dir=tmp_path)
+    domain = EvaluationDomains.create(Fp, n, device=dev).d1
+    before = kernels.launch_counts()
+    got = srs.lagrange_commitments(domain, m)
+    used = {k: v - before[k] for k, v in kernels.launch_counts().items()}
+    assert all(used[k] > 0 for k in ("ec_prefix_scan_parts", "jacobian_add",
+                                     "ec_prefix_scan_fused", "combine_windows", "mont_pow"))
+    p, n_inv = Fp.p, pow(n, -1, Fp.p)
+    w_inv = pow(domain.group_gen, -1, p)
+    nat = native_curve(Vesta)
+    for i, pt in enumerate(got):
+        w = pow(w_inv, i, p)
+        coeffs, c = [], n_inv
+        for _ in range(n):
+            coeffs.append(c)
+            c = c * w % p
+        assert pt == nat.msm(coeffs, srs.g), i
+    before = kernels.launch_counts()
+    assert srs.lagrange_commitments(domain, 3) == got[:3]
+    assert kernels.launch_counts() == before
+
+
+def test_curve_layer_ops_match_host(dev):
+    """add_mixed (equal, negated and infinite lanes), sum_points over 7 and
+    scalar_mul_const on the card, against the host curve."""
+    from proof_systems_tpu_torch.ops.curve_ops import scalar_mul_const
+
+    rng = random.Random(611)
+    dc = device_curve(Vesta)
+    g = Vesta.generator
+    ps = [Vesta.scalar_mul(rng.randrange(1, Vesta.scalar.p), g) for _ in range(7)]
+    qs = [Vesta.scalar_mul(rng.randrange(1, Vesta.scalar.p), g) for _ in range(7)]
+    qs[0], qs[1], ps[2], qs[3] = ps[0], Vesta.neg(ps[1]), None, None
+    P = dc.to_jacobian(dc.pack_affine(ps, device=dev))
+    got = dc.add_mixed(dc.double(P), dc.pack_affine(qs, device=dev))
+    assert dc.unpack_jacobian(got) == [Vesta.add(Vesta.double(p), q) for p, q in zip(ps, qs)]
+
+    total = dc.sum_points(JPoint(*(t[:, None, :] for t in P)))
+    want = None
+    for p in ps:
+        want = Vesta.add(want, p)
+    assert dc.unpack_jacobian(JPoint(*(t.reshape(8, 1) for t in total))) == [want]
+
+    k = rng.randrange(Vesta.scalar.p)
+    scal = torch.from_numpy(limb.ints_to_limbs([k])).reshape(limb.NLIMBS).to(dev)
+    assert dc.unpack_jacobian(scalar_mul_const(dc, scal, P)) == [Vesta.scalar_mul(k, p) for p in ps]
+
+
+def test_bench_proof_k11_has_no_fold_step(dev, tmp_path):
+    """bench_torch's k = 11 proof: n = 2,048 = IPA_FOLD_TAIL, so the opening
+    runs only tail rounds and the endo ladder never launches; it verifies."""
+    import bench_torch
+    from proof_systems_tpu_torch.utils.rng import TestRng
+    from proof_systems_tpu_torch.verifier import verify
+
+    index, witness = bench_torch.setup(11, dev, cache_dir=tmp_path)
+    kernels.reset_launch_counts()
+    proof, _ = bench_torch.prove_once(index, witness, TestRng(11))
+    counts = kernels.launch_counts()
+    assert counts["endo_ladder"] == 0
+    assert len(proof.proof.lr) == 11
+    assert verify(index.verifier_index(), proof, [], TestRng(12))

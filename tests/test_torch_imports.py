@@ -10,7 +10,8 @@ import pytest
 import torch
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
-PORT_FILES = sorted((ROOT / "proof_systems_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+PORT_FILES = sorted((ROOT / "proof_systems_tpu_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py", ROOT / "bench_torch.py"]
 
 
 def _forbidden(module: str) -> bool:
@@ -38,6 +39,7 @@ def test_importing_every_module_loads_no_jax():
         "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
         "import chip_smoke\n"
+        "import bench_torch\n"
         "tops = {k.split('.')[0] for k in sys.modules}\n"
         "bad = tops & {'jax', 'jaxlib', 'proof_systems_tpu'}\n"
         "assert not bad, bad\n"
