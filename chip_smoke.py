@@ -53,10 +53,12 @@ Phases, each fatal on failure:
      verify and serialize_proof; then the launches of one opening, one
      verification, one proof and one proof's verification, and the
      steady-state stage times (the proof split by the tracer's checkpoints
-     in a separate, synchronised proof); then each kernel's device time
+     in a separate, synchronised proof; the Python garbage collector's
+     passes inside the timed proofs); then each kernel's device time
      and launches over one more proof and one more verification (CUDA
-     events around every wrapper call), and the time of K6, K7, K8, K2, K4
-     and the endo ladder at each call shape; then, each with the counts
+     events around every wrapper call, the garbage collector held off),
+     and the time of K6, K7, K8, K2, K4 and the endo ladder at each call
+     shape; then, each with the counts
      zeroed just before and read just after, the public-input path at
      k = 16 (5 public generic gates in rows 0-4, then Const(1) gates:
      ConstraintSystem.create, ProverIndex, SRS.lagrange_commitments at
@@ -66,7 +68,27 @@ Phases, each fatal on failure:
      SRS), and bench_torch's own set-up and proof at
      k = 11, where n = IPA_FOLD_TAIL and the opening has no fold step (the
      endo ladder must not launch, every kernel of the tail rounds must),
-     verified, its size 4,949 bytes;
+     verified, its size 4,949 bytes; then five more phases, each with the
+     counts zeroed just before and read just after (a proof's must launch
+     every kernel but K3, a verification's what one verification does) and
+     with each kernel's largest call on it held against the plain version
+     (a call shape of a kernel recorded by shape that was held before is not
+     held again, as for the public path): a k = 16 proof of the bench
+     circuit carrying 2 recursion challenges of 16 seeded scalars (their
+     commitments against the native host MSM; rejected when a challenge
+     changes); a chunked proof of 2^17 - 10 Const(1) gates over the same
+     2^16 points (2 chunks, zk_rows 5, 14 t chunks; rejected at ft_eval1 + 1;
+     its index_s, and prove_ms and peak device memory of one more proof);
+     the lookup circuit at k = 16 (32,768 Lookup rows of three lookups into
+     the table (x, x^2) of 4,096 entries, then Const(1) gates) with a fixed
+     and with a runtime table, the host time of the lookup argument's
+     stages apart (rejected with a changed sorted evaluation; a value not
+     in the table, or a runtime table under another id, raises ValueError);
+     one batch_verify over the bench, public-input, recursion, lookup and
+     chunked proofs beside the five single verifications (rejected when one
+     has ft_eval1 + 1); and the bench, lookup and chunked verifier indexes
+     through to_file into build/vk/ and from_file (equal digests, each
+     verifies its proof);
   5. every commitment against the native host MSM over g ++ [h], the iNTT
      against the CPU plain path, one b = 1 MSM at c = 10; the evaluations
      against host Horner; every round's L and R, sg, a0 and b0 against the
@@ -89,6 +111,7 @@ from __future__ import annotations
 
 import collections
 import concurrent.futures
+import gc
 import json
 import random
 import subprocess
@@ -155,7 +178,14 @@ BY_SHAPE = ("jacobian_add", "ec_prefix_scan_fused", "endo_ladder", "mont_pow",
             "mont_prefix_scan", "mont_prefix_scan_parts", "linear_scan")
 
 
+T0 = time.perf_counter()
+
+
 def log(msg: str) -> None:
+    """Print a line; a phase's header ("== ...") also gets the seconds since
+    the script started."""
+    if msg.startswith("=="):
+        msg += f" (t = {time.perf_counter() - T0:.1f} s)"
     print(msg, flush=True)
 
 
@@ -288,6 +318,33 @@ class Clock:
         return dict(collections.Counter(label for label, _, _ in self.events))
 
 
+class GcPauses:
+    """The Python garbage collector's passes while entered, as (generation,
+    seconds) each: host time that a CUDA-event interval open at that moment
+    would count as its kernel's."""
+
+    def __enter__(self):
+        self.passes: list[tuple[int, float]] = []
+        gc.callbacks.append(self._callback)
+        return self
+
+    def __exit__(self, *exc):
+        gc.callbacks.remove(self._callback)
+
+    def _callback(self, phase, info):
+        if phase == "start":
+            self._t0 = time.perf_counter()
+        else:
+            self.passes.append((info["generation"], time.perf_counter() - self._t0))
+
+    def summary(self) -> str:
+        full = [s for g, s in self.passes if g == 2]
+        longest = max((s for _, s in self.passes), default=0.0)
+        return (f"{len(self.passes)} passes, {sum(s for _, s in self.passes) * 1e3:.1f} ms "
+                f"(generation 2: {len(full)}, {sum(full) * 1e3:.1f} ms); longest "
+                f"{longest * 1e3:.1f} ms")
+
+
 def k6_label(F, x, y, z, mixed=False) -> str:
     """A K6 call's label: its variant and shape."""
     return f"ec_prefix_scan_parts[{'mixed' if mixed else 'general'} {shape_of(x)}]"
@@ -345,7 +402,10 @@ SHAPE_LABELS = {"ec_prefix_scan_parts": ("K6", k6_label), "combine_windows": ("K
 def kernel_times(result, device) -> None:
     """Each kernel's device time and launches over one proof and over one
     verification of it, largest first, and the time of K6, K7, K8, K2, K4,
-    K5, K12, K9 and the endo ladder at each call shape."""
+    K5, K12, K9 and the endo ladder at each call shape. The garbage
+    collector runs before each and not during it: a pass inside a wrapper
+    call would count its host time as that kernel's (proof_times logs the
+    passes of the timed proofs)."""
     from proof_systems_tpu_torch.ops import kernels
 
     targets = [(kernels, name, SHAPE_LABELS[name][1] if name in SHAPE_LABELS else name)
@@ -354,8 +414,13 @@ def kernel_times(result, device) -> None:
                       ("proof verification", lambda: verify_proof(result, result["kproof"]))):
         sync(device)
         kernels.reset_launch_counts()
-        with Clock(targets) as clock:
-            fn()
+        gc.collect()
+        gc.disable()
+        try:
+            with Clock(targets) as clock:
+                fn()
+        finally:
+            gc.enable()
         counts = kernels.launch_counts()
         ms, calls = clock.totals(), clock.calls()
         per_kernel = {name: [sum(v for k, v in d.items() if k.split("[")[0] == name)
@@ -970,6 +1035,30 @@ def k8_note(kernels) -> str:
             f"{local} B local")
 
 
+def hold_against_plain(kernels, key: str, args, kw, device) -> tuple[dict, int]:
+    """One recorded call of a kernel against its plain version on the same
+    inputs (fatal if they differ), timed; returns its JSON row (launches 0)
+    and the repetitions it was timed over."""
+    name = key.split("[")[0]
+    kern, ref = kernels.WRAPPERS[name], getattr(kernels, name + "_plain")
+    got = kern(*args, **kw)
+    want, plain_s = wall(lambda: ref(*args, **kw), device)
+    err = outputs_err(name, args[0], got, want)
+    if err:
+        raise AssertionError(f"{key}: kernel != plain at a recorded path shape (max err {err})")
+    once = elapsed_ms(lambda: kern(*args, **kw), device)
+    reps = int(min(50, max(3, 200 / max(once, 1e-3))))
+    ms = elapsed_ms(lambda: kern(*args, **kw), device, reps)
+    b_ms, b_by = bound_ms(name, args, kw)
+    shape = "x".join(str(s) for s in next(a for a in args if torch.is_tensor(a)).shape)
+    log(f"kernel {key:28s} shape {shape:22s} {ms:10.4f} ms  plain {plain_s * 1e3:10.1f} ms  "
+        f"bound {b_ms:.3g} ms ({b_by})  max_abs_err {err}{chain_note(name, args, ms)}")
+    return {"name": name, "route": "cuda", "source": SOURCES[name][0],
+            "replaces": SOURCES[name][1], "launches": 0, "max_abs_err": err,
+            "ms": ms, "plain_ms": plain_s * 1e3, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": None}, reps
+
+
 def check_kernels(kernels, recorded, device, curve_params) -> list[dict]:
     """Each kernel against its plain version on the recorded main-path
     inputs (timed) and on the edge cases."""
@@ -990,23 +1079,7 @@ def check_kernels(kernels, recorded, device, curve_params) -> list[dict]:
     sizes = {}
     for key, (size, args, kw) in sorted(recorded.items()):
         name = key.split("[")[0]
-        kern, ref = kernels.WRAPPERS[name], plain[name]
-        got = kern(*args, **kw)
-        want, plain_s = wall(lambda: ref(*args, **kw), device)
-        err = outputs_err(name, args[0], got, want)
-        if err:
-            raise AssertionError(f"{key}: kernel != plain at main-path shape (max err {err})")
-        once = elapsed_ms(lambda: kern(*args, **kw), device)
-        reps = int(min(50, max(3, 200 / max(once, 1e-3))))
-        ms = elapsed_ms(lambda: kern(*args, **kw), device, reps)
-        b_ms, b_by = bound_ms(name, args, kw)
-        shape = "x".join(str(s) for s in next(a for a in args if torch.is_tensor(a)).shape)
-        log(f"kernel {key:28s} shape {shape:22s} {ms:10.4f} ms  plain {plain_s * 1e3:10.1f} ms  "
-            f"bound {b_ms:.3g} ms ({b_by})  max_abs_err {err}{chain_note(name, args, ms)}")
-        row = {"name": name, "route": "cuda", "source": SOURCES[name][0],
-               "replaces": SOURCES[name][1], "launches": 0, "max_abs_err": err,
-               "ms": ms, "plain_ms": plain_s * 1e3, "bound_ms": b_ms, "bound_by": b_by,
-               "library_ms": None}
+        row, reps = hold_against_plain(kernels, key, args, kw, device)
         if name == "ec_prefix_scan_parts":
             log("  " + k6_note(kernels, args))
         if name == "ec_prefix_scan_fused":
@@ -1273,6 +1346,360 @@ def bench_path(device, cache_dir=None) -> dict:
                 proof_bytes=len(serialize_proof(index.curve, proof)), rounds=len(proof.proof.lr))
 
 
+# ---------------------------------------------------------------------------
+# Recursion challenges, a chunked proof, lookups, batch verification and the
+# verifier index on disk
+# ---------------------------------------------------------------------------
+
+# Recursion challenges a proof carries (a Pickles step proof carries its
+# predecessors' IPA challenges), each of log_n seeded scalars.
+RECURSION_CHALLENGES = 2
+# The lookup circuit (tests/test_lookup.py:18-31, scaled): LOOKUP_ROWS Lookup
+# rows of three lookups into the table (x, x^2) of LOOKUP_TABLE entries,
+# table id 0 (or a runtime table of LOOKUP_TABLE entries), then Const(1)
+# generic gates up to 2^k - 20 gates.
+LOOKUP_ROWS, LOOKUP_TABLE = 32768, 4096
+# The one kernel a proof need not launch: K3 builds the scaled basis, once
+# per SRS.
+NOT_ON_A_PROOF = ("jacobian_double",)
+
+
+def counted(kernels, tag: str, fn, device, expect) -> tuple:
+    """Run one path with every launch count zeroed just before and read just
+    after, under a Recorder (its calls are held against the plain versions
+    afterwards); fatal if a kernel of `expect` was launched no time."""
+    sync(device)
+    kernels.reset_launch_counts()
+    with Recorder(kernels) as rec:
+        out = fn()
+    sync(device)
+    counts = kernels.launch_counts()
+    log(f"{tag} launches: {json.dumps(counts)}")
+    zero = [k for k in expect if counts[k] == 0]
+    if zero and device.type == "cuda":  # the CPU's plain versions launch nothing
+        raise AssertionError(f"kernels not launched on the {tag} path: {zero}")
+    return out, counts, rec.calls
+
+
+def check_path_calls(kernels, recorded: dict, tag: str, device, checked: set) -> None:
+    """Each kernel's largest call on a path against its plain version, and
+    every call shape of the kernels recorded by shape (BY_SHAPE) that no
+    earlier check held; as for the public path, a shape held already is not
+    held again (`checked`: the keys, without their path tags, held
+    already)."""
+    largest = {}
+    for key, (size, _, _) in recorded.items():
+        name = key.split("[")[0]
+        if name not in largest or size > recorded[largest[name]][0]:
+            largest[name] = key
+    for key in sorted(recorded):
+        name = key.split("[")[0]
+        if key in checked and (name in BY_SHAPE or key != largest[name]):
+            continue
+        size, args, kw = recorded[key]
+        hold_against_plain(kernels, f"{key}[{tag}]", args, kw, device)
+        checked.add(key)
+
+
+def recursion_path(run, log_n: int, device, nat) -> dict:
+    """The bench circuit's index with RECURSION_CHALLENGES recursion
+    challenges of log_n seeded scalars: each commitment is the port's
+    commit of b_poly_coefficients over the SRS (held against the native host
+    MSM over g); a proof of the packed witness, verified, and rejected when
+    one challenge changes."""
+    import copy
+
+    from proof_systems_tpu_torch.fields import Fp
+    from proof_systems_tpu_torch.poly_commitment.commitment import b_poly_coefficients
+    from proof_systems_tpu_torch.proof import RecursionChallenge
+    from proof_systems_tpu_torch.prover import create_proof
+    from proof_systems_tpu_torch.utils.rng import TestRng
+
+    rng, srs, times = random.Random(SEED + 20), run["srs"], run["times"]
+    challenges, jobs = [], []
+    for _ in range(RECURSION_CHALLENGES):
+        chals = [rng.randrange(Fp.p) for _ in range(log_n)]
+        coeffs = b_poly_coefficients(Fp, chals)
+        challenges.append(RecursionChallenge(chals=chals,
+                                             comm=srs.commit_coeffs_host([coeffs])[0]))
+        jobs.append(coeffs)
+    with concurrent.futures.ThreadPoolExecutor(8) as pool:
+        want = list(pool.map(lambda sc: nat.msm(sc, srs.g), jobs))
+    if [rc.comm.chunks for rc in challenges] != [[w] for w in want]:
+        raise AssertionError("the recursion challenges' commitments differ from the host MSM")
+    proof, prove_s = wall(lambda: create_proof(run["index"], run["witness"], TestRng(SEED + 21),
+                                               prev_challenges=challenges), device)
+    times["prove_rec_ms"] = prove_s * 1e3
+    ok, verify_s = wall(lambda: verify_proof(run, proof, SEED + 22), device)
+    times["verify_rec_ms"] = verify_s * 1e3
+    if not ok:
+        raise AssertionError("verify rejected the honest proof with recursion challenges")
+    bad = copy.deepcopy(proof)
+    bad.prev_challenges[0].chals[0] = (bad.prev_challenges[0].chals[0] + 1) % Fp.p
+    if verify_proof(run, bad, SEED + 23):
+        raise AssertionError("verify accepted a changed recursion challenge")
+    log(f"check: {RECURSION_CHALLENGES} recursion challenges of {log_n} scalars: their "
+        "commitments equal the host MSM over g; the proof verifies and is rejected when one "
+        "challenge changes")
+    return dict(rec_proof=proof)
+
+
+def chunked_path(run, log_n: int, device) -> dict:
+    """The bench circuit of 2^(k+1) - 10 Const(1) gates over the path's
+    2^k-point SRS (2 chunks, zk_rows 5, 14 t chunks): ConstraintSystem.create
+    and ProverIndex (timed), a proof of the packed witness (all ones),
+    verified, rejected at ft_eval1 + 1."""
+    import copy
+
+    from proof_systems_tpu_torch.circuits.builders import bench_circuit
+    from proof_systems_tpu_torch.circuits.constraints import ConstraintSystem
+    from proof_systems_tpu_torch.curves import Vesta
+    from proof_systems_tpu_torch.fields import Fp
+    from proof_systems_tpu_torch.prover import create_proof
+    from proof_systems_tpu_torch.prover_index import ProverIndex
+    from proof_systems_tpu_torch.utils.rng import TestRng
+    from proof_systems_tpu_torch.verifier import verify as kimchi_verify
+
+    n2, times, F = 1 << (log_n + 1), run["times"], run["F"]
+
+    def build():
+        cs = ConstraintSystem.create(Fp, bench_circuit(Fp, n2 - 10), public=0,
+                                     max_poly_size=1 << log_n, device=device)
+        return ProverIndex(cs, Vesta, run["srs"])
+
+    index, times["index_chunked_s"] = wall(build, device)
+    if (index.num_chunks, index.cs.zk_rows, index.cs.domain.d1.n) != (2, 5, n2):
+        raise AssertionError(f"the chunked index has {index.num_chunks} chunks, zk_rows "
+                             f"{index.cs.zk_rows}, domain {index.cs.domain.d1.n}")
+    vk = index.verifier_index()
+    witness = F.one_mont((COLUMNS, n2 - 10), device=device)  # bench_witness, packed
+    proof, prove_s = wall(lambda: create_proof(index, witness, TestRng(SEED + 24)), device)
+    times["prove_chunked_ms"] = prove_s * 1e3
+    ok, verify_s = wall(lambda: kimchi_verify(vk, proof, [], TestRng(SEED + 25)), device)
+    times["verify_chunked_ms"] = verify_s * 1e3
+    shape = ([len(c.chunks) for c in proof.commitments.w_comm],
+             len(proof.commitments.t_comm.chunks))
+    if not ok or shape != ([2] * COLUMNS, 14):
+        raise AssertionError(f"the chunked proof: verified {ok}, chunks {shape}")
+    bad = copy.deepcopy(proof)
+    bad.ft_eval1 = (bad.ft_eval1 + 1) % Fp.p
+    if kimchi_verify(vk, bad, [], TestRng(SEED + 26)):
+        raise AssertionError("verify accepted the chunked proof with ft_eval1 + 1")
+    log(f"check: the chunked proof (domain 2^{log_n + 1} over 2^{log_n} points: 2 chunks a "
+        "witness commitment, 14 t chunks, zk_rows 5) verifies and is rejected at ft_eval1 + 1")
+    return dict(chunked_index=index, chunked_vk=vk, chunked_proof=proof, chunked_witness=witness)
+
+
+def chunked_steady(run, device) -> None:
+    """prove_ms and the peak device memory of one more chunked proof, with
+    no recorder holding copies of kernel inputs."""
+    from proof_systems_tpu_torch.prover import create_proof
+    from proof_systems_tpu_torch.utils.rng import TestRng
+
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+        base = torch.cuda.memory_allocated(device)
+    _, prove_s = wall(lambda: create_proof(run["chunked_index"], run["chunked_witness"],
+                                           TestRng(SEED + 24)), device)
+    run["times"]["prove_chunked_steady_ms"] = prove_s * 1e3
+    if device.type == "cuda":
+        peak = (torch.cuda.max_memory_allocated(device) - base) / 2**30
+        run["times"]["chunked_proof_peak_gib"] = peak
+
+
+def lookup_circuit(n: int, runtime: bool):
+    """(gates, witness, fixed tables, runtime configs, runtime tables) of the
+    lookup circuit at 2^k = n rows: LOOKUP_ROWS Lookup rows of three lookups,
+    then Const(1) gates up to n - 20 gates. Fixed: the table (x, x^2) of
+    LOOKUP_TABLE entries, id 0; runtime: a table of id 0 whose first column
+    is 0..LOOKUP_TABLE - 1 and whose seeded second column comes at prove time."""
+    from proof_systems_tpu_torch.circuits.builders import GenericGateSpec, create_generic_gadget
+    from proof_systems_tpu_torch.circuits.gate import CircuitGate, GateType, new_wires
+    from proof_systems_tpu_torch.circuits.lookup import LookupTable, RuntimeTableCfg
+    from proof_systems_tpu_torch.fields import Fp
+
+    rng = random.Random(SEED + (31 if runtime else 30))
+    if runtime:
+        second = [rng.randrange(Fp.p) for _ in range(LOOKUP_TABLE)]
+    else:
+        second = [i * i for i in range(LOOKUP_TABLE)]
+    gates = [CircuitGate(GateType.Lookup, new_wires(r), []) for r in range(LOOKUP_ROWS)] + [
+        create_generic_gadget(Fp, r, GenericGateSpec.const(Fp, 1))
+        for r in range(LOOKUP_ROWS, n - 20)]
+    witness = [[0] * (n - 20) for _ in range(COLUMNS)]
+    witness[0][LOOKUP_ROWS:] = [1] * (n - 20 - LOOKUP_ROWS)
+    for r in range(LOOKUP_ROWS):  # column 0 holds the table id, 0
+        for slot in range(3):
+            idx = rng.randrange(LOOKUP_TABLE)
+            witness[1 + 2 * slot][r] = idx
+            witness[2 + 2 * slot][r] = second[idx]
+    if runtime:
+        cfg = RuntimeTableCfg(id=0, first_column=list(range(LOOKUP_TABLE)))
+        return gates, witness, None, [cfg], [(0, second)]
+    return gates, witness, [LookupTable(0, [list(range(LOOKUP_TABLE)), second])], None, None
+
+
+class HostClock:
+    """Wraps functions with the host clock (seconds summed over calls), as
+    Clock does with CUDA events: the lookup argument's host stages."""
+
+    def __init__(self, owner, names) -> None:
+        self.owner, self.names = owner, names
+        self.seconds = dict.fromkeys(names, 0.0)
+
+    def __enter__(self):
+        self.saved = {name: getattr(self.owner, name) for name in self.names}
+        for name, fn in self.saved.items():
+            setattr(self.owner, name, self._timed(name, fn))
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self.saved.items():
+            setattr(self.owner, name, fn)
+
+    def _timed(self, name, fn):
+        def wrapper(*args, **kw):
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            self.seconds[name] += time.perf_counter() - t0
+            return out
+
+        return wrapper
+
+
+def lookup_path(run, log_n: int, device, runtime: bool) -> dict:
+    """The lookup circuit (fixed or runtime table) over the path's SRS:
+    ConstraintSystem.create and ProverIndex (timed), a proof of the host
+    witness with the host time of the lookup argument's stages (the
+    combined table, the sorted multiset and its zk rows, the aggregation)
+    apart from the rest, verified, rejected with a changed sorted
+    evaluation; a looked-up value not in the table (fixed) or a runtime
+    table under another id (runtime) raises ValueError, as in the JAX
+    package."""
+    import copy
+
+    from proof_systems_tpu_torch.circuits import lookup as lookup_mod
+    from proof_systems_tpu_torch.circuits.constraints import ConstraintSystem
+    from proof_systems_tpu_torch.curves import Vesta
+    from proof_systems_tpu_torch.fields import Fp
+    from proof_systems_tpu_torch.prover import create_proof
+    from proof_systems_tpu_torch.prover_index import ProverIndex
+    from proof_systems_tpu_torch.utils.rng import TestRng
+    from proof_systems_tpu_torch.verifier import verify as kimchi_verify
+
+    n, times, tag = 1 << log_n, run["times"], "runtime" if runtime else "lookup"
+    gates, witness, fixed, configs, tables = lookup_circuit(n, runtime)
+
+    def build():
+        cs = ConstraintSystem.create(Fp, gates, public=0, max_poly_size=n,
+                                     fixed_lookup_tables=fixed, runtime_tables=configs,
+                                     device=device)
+        return ProverIndex(cs, Vesta, run["srs"])
+
+    index, times[f"index_{tag}_s"] = wall(build, device)
+    if index.cs.domain.d1.n != n or index.cs.lookup_cs is None:
+        raise AssertionError(f"the {tag} index: domain {index.cs.domain.d1.n}")
+    vk = index.verifier_index()
+    host = ("combined_table_d1", "sorted_multiset", "zk_patch", "aggregation")
+    with HostClock(lookup_mod, host) as clock:
+        proof, prove_s = wall(lambda: create_proof(index, witness, TestRng(SEED + 32),
+                                                   runtime_tables=tables), device)
+    times[f"prove_{tag}_ms"] = prove_s * 1e3
+    times[f"prove_{tag}_host_lookup_ms"] = sum(clock.seconds.values()) * 1e3
+    times[f"prove_{tag}_rest_ms"] = (prove_s - sum(clock.seconds.values())) * 1e3
+    for name, secs in clock.seconds.items():
+        times[f"prove_{tag}_{name}_ms"] = secs * 1e3
+    ok, verify_s = wall(lambda: kimchi_verify(vk, proof, [], TestRng(SEED + 33)), device)
+    times[f"verify_{tag}_ms"] = verify_s * 1e3
+    if not ok:
+        raise AssertionError(f"verify rejected the honest {tag} proof")
+    bad = copy.deepcopy(proof)
+    bad.evals.lookup_sorted[0].zeta[0] = (bad.evals.lookup_sorted[0].zeta[0] + 1) % Fp.p
+    if kimchi_verify(vk, bad, [], TestRng(SEED + 34)):
+        raise AssertionError(f"verify accepted the {tag} proof with a changed sorted evaluation")
+    wrong = [list(c) for c in witness]
+    if runtime:
+        tables, why = [(1, tables[0][1])], "inconsistent"
+    else:
+        wrong[2][1], why = 9999, "not in table"  # (x, 9999) is no entry of (x, x^2)
+    try:
+        create_proof(index, wrong, TestRng(SEED + 35), runtime_tables=tables)
+    except ValueError as e:
+        if why not in str(e):
+            raise
+    else:
+        raise AssertionError(f"the {tag} prover accepted a bad witness ({why})")
+    log(f"check: the {tag} proof ({LOOKUP_ROWS} Lookup rows, a table of {LOOKUP_TABLE} "
+        f"entries, k = {log_n}) verifies and is rejected with a changed sorted evaluation; "
+        f"the prover raises ValueError ({why}) as the JAX package does")
+    return {f"{tag}_index": index, f"{tag}_vk": vk, f"{tag}_proof": proof}
+
+
+def batch_path(run, device) -> dict:
+    """One batch_verify over five proofs of four circuits on the path's SRS
+    (the bench proof, the public-input proof, the recursion proof, the lookup
+    proof and the chunked proof) beside the five single verifications; the
+    batch is rejected when one proof has ft_eval1 + 1."""
+    import copy
+
+    from proof_systems_tpu_torch.fields import Fp
+    from proof_systems_tpu_torch.utils.rng import TestRng
+    from proof_systems_tpu_torch.verifier import batch_verify
+    from proof_systems_tpu_torch.verifier import verify as kimchi_verify
+
+    batch = [(run["vk"], run["kproof"], []), (run["pub_vk"], run["pub_proof"], run["public"]),
+             (run["vk"], run["rec_proof"], []), (run["lookup_vk"], run["lookup_proof"], []),
+             (run["chunked_vk"], run["chunked_proof"], [])]
+    singles = 0.0
+    for i, item in enumerate(batch):
+        ok, secs = wall(lambda: kimchi_verify(*item, TestRng(SEED + 40 + i)), device)
+        if not ok:
+            raise AssertionError(f"proof {i} of the batch does not verify alone")
+        singles += secs
+    ok, secs = wall(lambda: batch_verify(batch, TestRng(SEED + 45)), device)
+    run["times"]["batch_verify_ms"] = secs * 1e3
+    run["times"]["single_verify_sum_ms"] = singles * 1e3
+    if not ok:
+        raise AssertionError("batch_verify rejected five honest proofs")
+    bad = copy.deepcopy(run["lookup_proof"])
+    bad.ft_eval1 = (bad.ft_eval1 + 1) % Fp.p
+    altered = batch[:3] + [(run["lookup_vk"], bad, [])] + batch[4:]
+    if batch_verify(altered, TestRng(SEED + 46)):
+        raise AssertionError("batch_verify accepted a batch with one proof at ft_eval1 + 1")
+    log(f"check: batch_verify accepts the {len(batch)} proofs (bench, public, recursion, lookup, "
+        "chunked) and rejects the batch when one has ft_eval1 + 1")
+    return {}
+
+
+def vk_file_path(run, device) -> dict:
+    """The bench, lookup and chunked verifier indexes through to_file into
+    build/ and from_file against the path's SRS: the digests are equal and
+    each reloaded index verifies its proof."""
+    import pathlib
+
+    from proof_systems_tpu_torch.utils.rng import TestRng
+    from proof_systems_tpu_torch.verifier import verify as kimchi_verify
+    from proof_systems_tpu_torch.verifier_index import VerifierIndex
+
+    out = pathlib.Path(__file__).resolve().parent / "build" / "vk"
+    out.mkdir(parents=True, exist_ok=True)
+    for i, tag in enumerate(("bench", "lookup", "chunked")):
+        vk, proof = ((run["vk"], run["kproof"]) if tag == "bench" else
+                     (run[f"{tag}_vk"], run[f"{tag}_proof"]))
+        path = out / f"vk_{tag}.bin"
+        _, write_s = wall(lambda: vk.to_file(path), device)
+        back, read_s = wall(lambda: VerifierIndex.from_file(path, run["srs"]), device)
+        run["times"][f"vk_file_{tag}_write_s"], run["times"][f"vk_file_{tag}_read_s"] = (
+            write_s, read_s)
+        if back.digest() != vk.digest():
+            raise AssertionError(f"the {tag} verifier index read back has another digest")
+        if not kimchi_verify(back, proof, [], TestRng(SEED + 50 + i)):
+            raise AssertionError(f"the {tag} verifier index read back rejects its proof")
+        log(f"check: the {tag} verifier index ({path.stat().st_size} bytes) reads back with its "
+            "digest and verifies its proof")
+    return {}
+
+
 def ipa_inputs(log_n: int) -> dict:
     """The evaluation points (zeta, zeta*omega), polyscale and evalscale."""
     from proof_systems_tpu_torch.fields import Fp
@@ -1411,7 +1838,9 @@ def proof_times(run, device, reps: int) -> dict:
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
         base = torch.cuda.memory_allocated(device)
-    out["prove_ms"] = sum(wall(lambda: prove(run), device)[1] for _ in range(reps)) * 1e3 / reps
+    with GcPauses() as pauses:
+        out["prove_ms"] = sum(wall(lambda: prove(run), device)[1] for _ in range(reps)) * 1e3 / reps
+    log(f"python gc inside the {reps} timed proofs: {pauses.summary()}")
     if device.type == "cuda":
         out["proof_peak_gib"] = (torch.cuda.max_memory_allocated(device) - base) / 2**30
     TRACER.enable(hook=lambda: sync(device))
@@ -1716,6 +2145,47 @@ def residency_check(run) -> None:
         "around each fold step and the tail); the opening repeats exactly")
 
 
+def new_paths(kernels, result, device, log_n: int, checked: set, verify_kernels) -> None:
+    """The recursion, chunked, lookup (a fixed and a runtime table), batch
+    and verifier-index-file paths, each counted (every kernel of a proof but K3
+    must launch; the batch and the files launch what a verification does),
+    then each one's kernel calls held against the plain versions."""
+    from proof_systems_tpu_torch.curves import Vesta
+    from proof_systems_tpu_torch.native import native_curve
+
+    every = [k for k in kernels.WRAPPERS if k not in NOT_ON_A_PROOF]
+    times = result["times"]
+    nat = native_curve(Vesta)
+    phases = [
+        ("recursion", f"k = {log_n}, {RECURSION_CHALLENGES} challenges", every,
+         lambda: recursion_path(result, log_n, device, nat), ("prove_rec_ms", "verify_rec_ms")),
+        ("chunked", f"domain 2^{log_n + 1} over 2^{log_n} points", every,
+         lambda: chunked_path(result, log_n, device),
+         ("index_chunked_s", "prove_chunked_ms", "verify_chunked_ms")),
+        ("lookup", f"k = {log_n}, a fixed and a runtime table", every,
+         lambda: {**lookup_path(result, log_n, device, runtime=False),
+                  **lookup_path(result, log_n, device, runtime=True)}, None),
+        ("batch", "five proofs of four circuits", verify_kernels,
+         lambda: batch_path(result, device), ("batch_verify_ms", "single_verify_sum_ms")),
+        ("vk files", "bench, lookup, chunked", verify_kernels,
+         lambda: vk_file_path(result, device), None),
+    ]
+    for tag, what, expect, fn, keys in phases:
+        log(f"== {tag} path, {what}, counted")
+        before = set(times)
+        out, _, calls = counted(kernels, tag, fn, device, expect)
+        result.update(out)
+        for k in keys or sorted(set(times) - before):
+            log(f"{tag} path {k}: {times[k]:.4f}")
+        check_path_calls(kernels, calls, tag.replace(" ", "_"), device, checked)
+        del calls
+        if tag == "chunked":
+            chunked_steady(result, device)
+            for k in ("prove_chunked_steady_ms", "chunked_proof_peak_gib"):
+                if k in times:
+                    log(f"chunked path {k}: {times[k]:.4f}")
+
+
 def card_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -1741,6 +2211,7 @@ def run(device, log_n: int = LOG_N, cache_dir=None) -> list[dict]:
     # tail) are held against the plain versions too
     # (a call shape that the main path recorded already is checked once)
     recorded = dict(rec.calls)
+    checked = set(rec.calls)  # the keys held against the plain versions, untagged
     for tag, fn in (("lagrange", lambda: lagrange_once(warm, log_n, device)),
                     ("public", lambda: public_path(warm, log_n, device)),
                     (f"k{BENCH_K}", lambda: bench_path(device, cache_dir))):
@@ -1749,6 +2220,7 @@ def run(device, log_n: int = LOG_N, cache_dir=None) -> list[dict]:
         log(f"warm-up {tag} path: {secs:.2f} s")
         recorded.update({f"{key}[{tag}]": call for key, call in rec.calls.items()
                          if not (key in recorded and key.split("[")[0] in BY_SHAPE)})
+        checked.update(rec.calls)
     del warm, rec
 
     log("== kernels against their plain versions")
@@ -1818,12 +2290,14 @@ def run(device, log_n: int = LOG_N, cache_dir=None) -> list[dict]:
     log(f"launches per proof: {json.dumps(kernels.launch_counts())}")
     kernels.reset_launch_counts()
     verify_proof(result, result["kproof"])
+    verify_kernels = [k for k, v in kernels.launch_counts().items() if v]
     log(f"launches per proof verification: {json.dumps(kernels.launch_counts())}")
     log(f"proof_bytes: {result['proof_bytes']}")
     for k, v in steady_times(result, device).items():
         log(f"steady {k}: {v:.3f}")
     if device.type == "cuda":
         kernel_times(result, device)
+    new_paths(kernels, result, device, log_n, checked, verify_kernels)
 
     log("== checks")
     golden_checks(result, device, log_n)

@@ -1,16 +1,18 @@
 """Constraint system construction (kimchi/src/circuits/constraints.rs).
 
 Counterpart of proof_systems_tpu/circuits/constraints.py, host code as
-there, with the domains' plans on one device. A circuit with lookups or
-optional gates is refused for now (ROADMAP Queue 1 items 8 and 9).
+there, with the domains' plans on one device. A circuit with optional
+gates is refused for now (ROADMAP Queue 1 item 9).
 
 Builds, from a gate list:
   - the d1..d8 domains with the zk_rows/domain-size fixpoint
-    (constraints.rs:984-1000; zk_rows = (16c + 5)/7 for c chunks),
+    (constraints.rs:984-1000; zk_rows = (16c + 5)/7 for c chunks), where
+    the lookup tables' length also bounds the domain,
   - the permutation shifts (blake2b-sampled quadratic non-residues,
     permutation.rs:125-196) and σ columns from the wire cycles
     (constraints.rs:525-560, incl. the zk-row zeroing),
-  - selector and coefficient columns (constraints.rs:565-600).
+  - selector and coefficient columns (constraints.rs:565-600),
+  - the lookup constraint system of fixed and runtime tables.
 
 All columns are produced as host int vectors here; ProverIndex lifts
 them to device arrays.
@@ -24,7 +26,7 @@ from dataclasses import dataclass, field
 from ..fields import FieldParams
 from .domains import EvaluationDomains, domain_size
 from .gate import COLUMNS, PERMUTS, CircuitGate, GateType
-from .lookup import LookupInfo, LookupTable
+from .lookup import LookupConstraintSystem, LookupInfo, LookupTable
 from .polynomials.optional_gates import OPTIONAL_GATE_ORDER
 
 
@@ -70,7 +72,7 @@ class ConstraintSystem:
     coefficients_d1: list[list[int]]  # COLUMNS x n
     feature_flags: set = field(default_factory=set)
     endo: int = 0
-    lookup_cs: None = None  # LookupConstraintSystem: ROADMAP Queue 1 item 8
+    lookup_cs: "LookupConstraintSystem | None" = None
 
     @classmethod
     def create(
@@ -86,20 +88,35 @@ class ConstraintSystem:
         """The constraint system of `gates`; its domains' plans live on
         `device` (the CUDA card unless device="cpu")."""
         assert gates, "empty gate list"
-        info = LookupInfo.from_gates(gates, uses_runtime_tables=runtime_tables is not None)
-        if info is not None or fixed_lookup_tables or runtime_tables:
-            raise NotImplementedError(
-                "lookups are not ported yet (ROADMAP Queue 1 item 8)"
-            )
         optional = sorted({g.typ for g in gates if g.typ in OPTIONAL_GATE_ORDER})
         if optional:
             raise NotImplementedError(
                 f"optional gates {[g.name for g in optional]} are not ported yet "
                 "(ROADMAP Queue 1 item 9)"
             )
-        # with lookups, the table's length would also bound the domain
-        # (constraints.rs:940-960)
-        circuit_lower_bound = max(len(gates), 1)
+        # lookup table length drives the domain fixpoint (constraints.rs:940-960)
+        lookup_domain_size = 0
+        info = LookupInfo.from_gates(gates, uses_runtime_tables=runtime_tables is not None)
+        if info is not None or fixed_lookup_tables:
+            seen = set()
+            total = 0
+            has_id_0 = False
+            for t in fixed_lookup_tables or []:
+                seen.add(t.id)
+                total += len(t)
+                has_id_0 |= t.id == 0
+            if info is not None:
+                for pat in info.patterns:
+                    t = pat.table()
+                    if t is not None and t.id not in seen:
+                        seen.add(t.id)
+                        total += len(t)
+                        has_id_0 |= t.id == 0
+            for rt in runtime_tables or []:
+                total += len(rt)
+            lookup_domain_size = total if has_id_0 else total + 1
+
+        circuit_lower_bound = max(len(gates), lookup_domain_size + 1)
         zk_rows = 3
         n = domain_size(circuit_lower_bound + zk_rows)
         if max_poly_size is not None:
@@ -151,13 +168,17 @@ class ConstraintSystem:
         for row, gate in enumerate(gates):
             if gate.typ in selectors:
                 selectors[gate.typ][row] = 1
-            elif gate.typ != GateType.Zero:
+            elif gate.typ not in (GateType.Zero, GateType.Lookup):
                 features.add(gate.typ)
 
         coefficients = [
             [gate.coeffs[i] % f.p if i < len(gate.coeffs) else 0 for gate in gates]
             for i in range(COLUMNS)
         ]
+
+        lookup_cs = LookupConstraintSystem.create(
+            f, gates, n, zk_rows, fixed_lookup_tables, runtime_tables
+        ) if (info is not None or fixed_lookup_tables) else None
 
         return cls(
             f=f,
@@ -171,6 +192,7 @@ class ConstraintSystem:
             selectors_d1=selectors,
             coefficients_d1=coefficients,
             feature_flags=features,
+            lookup_cs=lookup_cs,
         )
 
     # -- zk / vanishing helpers (permutation.rs:66-131) -------------------

@@ -36,6 +36,7 @@ from ..curves import AffinePoint, CurveParams
 from ..ops import kernels, limb, msm, ntt, poly
 from ..ops.curve_ops import APoint, DeviceCurve, device_curve
 from ..poseidon.sponge import FqSponge
+from ..runtime import resolve_device
 from .commitment import PolyComm, b_poly, shift_scalar
 
 # Basis size from which the rounds stop folding and run masked (the
@@ -375,7 +376,7 @@ def verify_batch(srs, batch: list[BatchEvaluationProof], rng) -> bool:
     curve: CurveParams = srs.curve
     f = curve.scalar
     _, endo_r = curve.endos
-    dev = srs.device
+    dev = resolve_device(srs.device)  # the card unless the SRS names a device
     n = len(srs.g)
     rounds = max((n - 1).bit_length(), 1)
     if 1 << rounds != n:

@@ -191,7 +191,8 @@ class SRS:
         if n != len(self.g):
             raise NotImplementedError(
                 f"Lagrange commitments of a {n}-point domain over a {len(self.g)}-point "
-                "SRS (num_chunks > 1: ROADMAP Queue 1 item 10)")
+                "SRS: public inputs on a chunked domain fail in the JAX package too "
+                "(ROADMAP Queue 3)")
         have = self._lagrange.get(n)
         if have is not None and len(have) >= m:
             return have[:m]

@@ -4,6 +4,9 @@ Counterpart of proof_systems_tpu/prover.py. The protocol order follows
 create_recursive exactly; every column-sized computation runs as batched
 limb ops on the index's device:
   - witness commit: one batched iNTT and one batched MSM;
+  - lookups: the runtime table's commit, the joint combiner, the sorted
+    multiset and the aggregation (host integers, circuits/lookup.py), then
+    their commits like every other column;
   - permutation z: batched products, a batch inversion and the prefix
     product over n (K12 + K1 when n > 8,192, limb.prefix_mul);
   - quotient: the constraint-AST walk over d8 (circuits/expr.eval_dev) and
@@ -15,9 +18,14 @@ limb ops on the index's device:
 Not ported, by design: the reference's single jax.jit of the quotient and
 its traced-argument dict K0 (prover.py:76-99, 257-265), which worked around
 the TPU's dispatch latency and a request-size limit of its compile service;
-here the walk runs op by op. The data-mesh sharding of the d8 arrays
-(prover.py:101-133) belongs to the multi-device port. Lookups are not
-ported yet (ROADMAP Queue 1 item 8).
+here the walk runs op by op, the lookup columns with the rest. The
+data-mesh sharding of the d8 arrays (prover.py:101-133) belongs to the
+multi-device port.
+
+Chunked circuits (domain larger than the SRS) carry num_chunks chunks per
+commitment; evaluations are chunk lists recombined with powers of
+zeta^max_poly_size (prover.rs:194-199, 956-975). Recursion challenges enter
+the transcript and the opening as the reference's prev_challenges.
 
 The host synchronises three times, as the reference does: the z_check
 fetch, the fetch of the evaluations, and the opening's fetches.
@@ -28,13 +36,20 @@ from __future__ import annotations
 import torch
 
 from .circuits import expr as expr_mod
+from .circuits import lookup as lookup_mod
 from .circuits.gate import COLUMNS, PERMUTS
 from .ops import limb, poly
 from .ops.limb import NLIMBS
 from .poly_commitment.commitment import PolyComm, b_poly_coefficients
 from .poly_commitment.ipa import open_proof
-from .poseidon import FrSponge, fp_kimchi, fq_kimchi
-from .proof import PointEvaluations, ProofEvaluations, ProverCommitments, ProverProof
+from .poseidon import FrSponge, ScalarChallenge, fp_kimchi, fq_kimchi
+from .proof import (
+    LookupCommitments,
+    PointEvaluations,
+    ProofEvaluations,
+    ProverCommitments,
+    ProverProof,
+)
 from .prover_index import ALWAYS_ON, ProverIndex
 from .utils.tracing import checkpoint
 from .verifier_index import sponge_for
@@ -51,7 +66,10 @@ def _quotient_fn(index: ProverIndex):
     permutation term, the vanishing division and the boundary terms.
 
     Returns qfn(w_coeffs (8, 15, n), z_coeffs (8, n), public_low (8, n),
-    chal {name: (8, 1)}) -> (quotient (8, 7n), remainder (8, n), r1, r2)."""
+    chal {name: (8, 1)}, lookup_in) -> (quotient (8, 7n), remainder (8, n),
+    jt_coeff, r1, r2); with lookups, lookup_in holds the sorted, aggregation
+    and runtime-table coefficients, and jt_coeff is the combined table's
+    coefficients (else None)."""
     if getattr(index, "_qfn", None) is not None:
         return index._qfn
     cs = index.cs
@@ -62,6 +80,7 @@ def _quotient_fn(index: ProverIndex):
     d1, d8 = cs.domain.d1, cs.domain.d8
     n = d1.n
     zk = cs.zk_rows
+    lcs = cs.lookup_cs
     mds_params = fp_kimchi if f.name == "Fp" else fq_kimchi
     perm_exps = index.alphas.get_exponents("permutation", 3)
     one = F.one_mont((1,), device=dev)
@@ -69,7 +88,7 @@ def _quotient_fn(index: ProverIndex):
     def to_d8(coeffs):
         return d8.ntt_t(torch.nn.functional.pad(coeffs, (0, 7 * n)), d8.fwd_twiddles)
 
-    def qfn(w_coeffs, z_coeffs, public_low, chal):
+    def qfn(w_coeffs, z_coeffs, public_low, chal, lookup_in=None):
         w8 = to_d8(w_coeffs)
         z8 = to_d8(z_coeffs)
         columns = {expr_mod.col_witness(i): w8[:, i] for i in range(COLUMNS)}
@@ -79,6 +98,40 @@ def _quotient_fn(index: ProverIndex):
         columns[expr_mod.COL_Z] = z8
         for g in ALWAYS_ON:
             columns[expr_mod.col_index(g)] = cd.selector8[g]
+
+        jt_coeff = None
+        if lcs is not None:
+            # the combined table sum_i j^i col_i + tid_comb * ids (+ j * the
+            # runtime table), in coefficient form for the evaluations and
+            # over d8 for the walk
+            ld = index.lookup_data
+            jt8 = None
+            jpow = one
+            for i in range(ld["table_coeff"].shape[1]):
+                term_c = limb.mont_mul(F, ld["table_coeff"][:, i], jpow)
+                term_8 = limb.mont_mul(F, ld["table8"][:, i], jpow)
+                jt_coeff = term_c if jt_coeff is None else limb.add(F, jt_coeff, term_c)
+                jt8 = term_8 if jt8 is None else limb.add(F, jt8, term_8)
+                jpow = limb.mont_mul(F, jpow, chal["joint_combiner"])
+            if ld["ids_coeff"] is not None:
+                jt_coeff = limb.add(
+                    F, jt_coeff, limb.mont_mul(F, ld["ids_coeff"], chal["tid_comb"]))
+                jt8 = limb.add(F, jt8, limb.mont_mul(F, ld["ids8"], chal["tid_comb"]))
+            if lookup_in.get("runtime_coeffs") is not None:
+                rt8 = to_d8(lookup_in["runtime_coeffs"])
+                jt_coeff = limb.add(
+                    F, jt_coeff,
+                    limb.mont_mul(F, lookup_in["runtime_coeffs"], chal["joint_combiner"]))
+                jt8 = limb.add(F, jt8, limb.mont_mul(F, rt8, chal["joint_combiner"]))
+                columns[lookup_mod.COL_LOOKUP_RUNTIME_TABLE] = rt8
+                columns[lookup_mod.COL_LOOKUP_RUNTIME_SELECTOR] = ld["runtime_sel8"]
+            sorted8 = to_d8(lookup_in["sorted_coeffs"])
+            for i in range(sorted8.shape[1]):
+                columns[lookup_mod.col_lookup_sorted(i)] = sorted8[:, i]
+            columns[lookup_mod.COL_LOOKUP_AGGREG] = to_d8(lookup_in["aggreg_coeffs"])
+            columns[lookup_mod.COL_LOOKUP_TABLE] = jt8
+            for pat in lcs.info.patterns:
+                columns[lookup_mod.col_lookup_kind(pat)] = ld["sel8"][pat]
 
         ctx = expr_mod.DeviceEvalContext(
             F=F,
@@ -91,6 +144,18 @@ def _quotient_fn(index: ProverIndex):
             omega=d1.group_gen,
             vanishes_on_zk_and_previous=cd.vanishes_zk_prev8,
         )
+        if lcs is not None:
+
+            def unnorm_lagrange(row_idx: int):
+                # (x^n - 1) / (x - w^row) over d8
+                num = limb.sub(F, limb.mont_pow(F, cd.x_d8, n), one)
+                den = limb.sub(F, cd.x_d8, F.const_mont(cs.sid[row_idx], (1,), device=dev))
+                return limb.mont_mul(F, num, limb.batch_inverse(F, den))
+
+            ctx.unnormalized_lagrange = {
+                0: unnorm_lagrange(0),
+                n - zk - 1: unnorm_lagrange(n - zk - 1),
+            }
         gate_evals8 = expr_mod.eval_dev(index.linearization_expr, ctx)
 
         a0 = limb.mont_pow(F, chal["alpha"], perm_exps[0]) if perm_exps[0] else one
@@ -132,7 +197,7 @@ def _quotient_fn(index: ProverIndex):
         bnd2, r2 = poly.divide_by_linear_dev(F, z_minus_1, cs.sid[n - zk])
         bnd = limb.add(F, limb.mont_mul(F, bnd1, a1), limb.mont_mul(F, bnd2, a2))
         quotient[:, : n - 1] = limb.add(F, quotient[:, : n - 1], bnd)
-        return quotient, rem, r1, r2
+        return quotient, rem, jt_coeff, r1, r2
 
     index._qfn = qfn
     return qfn
@@ -144,14 +209,15 @@ def create_proof(
     rng,
     prev_challenges=(),
     debug: dict | None = None,
+    runtime_tables=None,
 ) -> ProverProof:
     """Prove `witness` against `index`: 15 host columns (lists of ints), or
     a packed (8, 15, rows) Montgomery evaluation tensor on the index's
-    device (rows <= n - zk_rows, no public inputs), as the reference
-    accepts both."""
+    device (rows <= n - zk_rows, no public inputs, no lookups), as the
+    reference accepts both. runtime_tables: (id, second column) pairs in
+    the index's runtime-table layout; prev_challenges: RecursionChallenge
+    objects."""
     cs = index.cs
-    if cs.lookup_cs is not None:
-        raise NotImplementedError("lookups are not ported yet (ROADMAP Queue 1 item 8)")
     f = cs.f
     p = f.p
     F = limb.device_field(f)
@@ -170,6 +236,7 @@ def create_proof(
     # draws come in the same column-major rng order either way.
     if torch.is_tensor(witness):
         assert cs.public == 0, "packed witness requires no public inputs"
+        assert cs.lookup_cs is None, "packed witness requires no lookups"
         rows = witness.shape[2]
         assert rows <= n - zk, "no room for zk rows"
         if rows < n:
@@ -224,9 +291,78 @@ def create_proof(
         fq_sponge.absorb_g(c.chunks)
 
     checkpoint("commit_to_witness_columns")
+    # -- 4b. lookup: joint combiner, sorted polynomials --------------------
+    lcs = cs.lookup_cs
+    lookup_ctx = {}
+    if lcs is not None:
+        # runtime tables: the id/length layout must match the setup; the
+        # contribution vector is committed + absorbed BEFORE the joint
+        # combiner squeeze (prover.rs:383-450)
+        runtime_d1 = None
+        if lcs.runtime_tables_spec is not None:
+            given = [(rt[0], len(rt[1])) for rt in (runtime_tables or [])]
+            if given != lcs.runtime_tables_spec:
+                raise ValueError("runtime tables inconsistent with configuration")
+            runtime_d1 = [0] * n
+            off = lcs.runtime_table_offset
+            for _tid, data in runtime_tables:
+                runtime_d1[off : off + len(data)] = [v % p for v in data]
+                off += len(data)
+            for i in range(n - zk, n):
+                runtime_d1[i] = rng.field(p)
+            runtime_dev = F.pack_mont(runtime_d1, shape=(1, n), device=dev)
+            runtime_coeffs = d1.intt_t(runtime_dev, d1.inv_twiddles)[:, 0]
+            runtime_blinder = [rng.field(p) for _ in range(nc)]
+            runtime_comm = index.srs.commit_coeffs_dev(
+                runtime_coeffs[:, None, :], nc, [runtime_blinder]
+            )[0]
+            fq_sponge.absorb_g(runtime_comm.chunks)
+            lookup_ctx.update(
+                runtime_coeffs=runtime_coeffs, runtime_comm=runtime_comm,
+                runtime_blinder=runtime_blinder,
+            )
+        jc_pre = fq_sponge.challenge().value if lcs.info.joint_lookup_used else 0
+        joint = ScalarChallenge(jc_pre).to_field(endo_r, f)
+        tid_comb = pow(joint, lcs.info.max_joint_size, p) if lcs.table_ids is not None else 0
+        table_d1 = lookup_mod.combined_table_d1(lcs, f, joint, tid_comb, runtime_d1)
+        sorted_cols = lookup_mod.sorted_multiset(
+            lcs, f, cs.gates, witness, joint, tid_comb, table_d1, zk
+        )
+        sorted_cols = [lookup_mod.zk_patch(f, c, n, zk, rng) for c in sorted_cols]
+        nsorted = len(sorted_cols)
+        sorted_dev = F.pack_mont(
+            [v for col in sorted_cols for v in col], shape=(nsorted, n), device=dev
+        )
+        sorted_coeffs = d1.intt_t(sorted_dev, d1.inv_twiddles)
+        sorted_blinders = [[rng.field(p) for _ in range(nc)] for _ in range(nsorted)]
+        sorted_comms = index.srs.commit_coeffs_dev(sorted_coeffs, nc, sorted_blinders)
+        for c in sorted_comms:
+            fq_sponge.absorb_g(c.chunks)
+        lookup_ctx.update(
+            joint=joint, tid_comb=tid_comb, table_d1=table_d1, sorted_cols=sorted_cols,
+            sorted_coeffs=sorted_coeffs, sorted_comms=sorted_comms,
+            sorted_blinders=sorted_blinders,
+        )
+
     # -- 5. beta, gamma (raw 128-bit challenges) ---------------------------
     beta = fq_sponge.challenge().value
     gamma = fq_sponge.challenge().value
+
+    # -- 5b. lookup aggregation --------------------------------------------
+    if lcs is not None:
+        aggreg = lookup_mod.aggregation(
+            lcs, f, cs.gates, witness, lookup_ctx["joint"], lookup_ctx["tid_comb"],
+            beta, gamma, lookup_ctx["sorted_cols"], lookup_ctx["table_d1"], zk, rng,
+        )
+        aggreg_dev = F.pack_mont(aggreg, shape=(1, n), device=dev)
+        aggreg_coeffs = d1.intt_t(aggreg_dev, d1.inv_twiddles)
+        aggreg_blinder = [rng.field(p) for _ in range(nc)]
+        aggreg_comm = index.srs.commit_coeffs_dev(aggreg_coeffs, nc, [aggreg_blinder])[0]
+        fq_sponge.absorb_g(aggreg_comm.chunks)
+        lookup_ctx.update(
+            aggreg_coeffs=aggreg_coeffs[:, 0], aggreg_comm=aggreg_comm,
+            aggreg_blinder=aggreg_blinder,
+        )
 
     checkpoint("use_lookup")
     # -- 6. permutation aggregation z --------------------------------------
@@ -287,10 +423,23 @@ def create_proof(
     cd = index.column_data
     chal = {
         name: F.pack_mont([v], shape=(1,), device=dev)
-        for name, v in (("alpha", alpha), ("beta", beta), ("gamma", gamma))
+        for name, v in (
+            ("alpha", alpha), ("beta", beta), ("gamma", gamma),
+            ("joint_combiner", lookup_ctx.get("joint", 0)),
+            ("tid_comb", lookup_ctx.get("tid_comb", 0)),
+        )
     }
+    lookup_in = None
+    if lcs is not None:
+        lookup_in = {
+            "sorted_coeffs": lookup_ctx["sorted_coeffs"],
+            "aggreg_coeffs": lookup_ctx["aggreg_coeffs"],
+            "runtime_coeffs": lookup_ctx.get("runtime_coeffs"),
+        }
     checkpoint("compute_quotient_poly")
-    quotient, rem, _, _ = _quotient_fn(index)(w_coeffs, z_coeffs, public_coeffs[:, 0], chal)
+    quotient, rem, jt_coeff, _, _ = _quotient_fn(index)(
+        w_coeffs, z_coeffs, public_coeffs[:, 0], chal, lookup_in
+    )
     if debug is not None:
         debug["quotient_rem_zero"] = bool(limb.is_zero(F, rem).all())
     a0, a1, a2 = index.alphas.get_alphas("permutation", 3)
@@ -310,18 +459,27 @@ def create_proof(
     pow_z = poly.powers_dev(F, zeta, srs_len, device=dev)
     pow_zw = poly.powers_dev(F, zeta_omega, srs_len, device=dev)
 
-    # batched coefficient stack: [public, z, w x15, s x6, coeff x15, sel x6]
-    stack = torch.cat(
-        [
-            public_coeffs,  # 1
-            z_coeffs[:, None, :],  # 1
-            w_coeffs,  # 15
-            cd.sigma_coeff[:, : PERMUTS - 1],  # 6
-            cd.coefficients_coeff,  # 15
-            torch.stack([cd.selector_coeff[g] for g in ALWAYS_ON], dim=1),  # 6
-        ],
-        dim=1,
-    )  # (8, 44, n)
+    # batched coefficient stack: [public, z, w x15, s x6, coeff x15, sel x6,
+    # then the lookup columns: sorted, aggregation, table, runtime table and
+    # its selector, pattern selectors]
+    parts = [
+        public_coeffs,  # 1
+        z_coeffs[:, None, :],  # 1
+        w_coeffs,  # 15
+        cd.sigma_coeff[:, : PERMUTS - 1],  # 6
+        cd.coefficients_coeff,  # 15
+        torch.stack([cd.selector_coeff[g] for g in ALWAYS_ON], dim=1),  # 6
+    ]
+    if lcs is not None:
+        ld = index.lookup_data
+        has_runtime = "runtime_coeffs" in lookup_ctx
+        lk_stack = [lookup_ctx["aggreg_coeffs"], jt_coeff]
+        if has_runtime:
+            lk_stack += [lookup_ctx["runtime_coeffs"], ld["runtime_sel_coeff"]]
+        lk_pats = list(lcs.info.patterns)
+        lk_stack += [ld["sel_coeff"][pat] for pat in lk_pats]
+        parts += [lookup_ctx["sorted_coeffs"], torch.stack(lk_stack, dim=1)]
+    stack = torch.cat(parts, dim=1)  # (8, 44 + lookup columns, n)
     chunked = stack.reshape(NLIMBS, stack.shape[1] * nc, srs_len)
     ev_z, ev_zw = poly.eval_at2(F, chunked, pow_z, pow_zw)
 
@@ -341,6 +499,22 @@ def create_proof(
         emul_selector=pe(42),
         endomul_scalar_selector=pe(43),
     )
+    if lcs is not None:
+        ns = len(lookup_ctx["sorted_cols"])
+        evals.lookup_sorted = [pe(44 + i) for i in range(ns)] + [None] * (5 - ns)
+        evals.lookup_aggregation = pe(44 + ns)
+        evals.lookup_table = pe(45 + ns)
+        base = 46 + ns
+        if has_runtime:
+            evals.runtime_lookup_table = pe(base)
+            evals.runtime_lookup_table_selector = pe(base + 1)
+            base += 2
+        sel_evals = {pat: pe(base + i) for i, pat in enumerate(lk_pats)}
+        evals.xor_lookup_selector = sel_evals.get(lookup_mod.LookupPattern.Xor)
+        evals.lookup_gate_lookup_selector = sel_evals.get(lookup_mod.LookupPattern.Lookup)
+        evals.range_check_lookup_selector = sel_evals.get(lookup_mod.LookupPattern.RangeCheck)
+        evals.foreign_field_mul_lookup_selector = sel_evals.get(
+            lookup_mod.LookupPattern.ForeignFieldMul)
 
     checkpoint("compute_ft_poly")
     # -- 11. ft polynomial (Maller) -----------------------------------------
@@ -409,7 +583,7 @@ def create_proof(
     u = fr_sponge.challenge().to_field(endo_r, f)
     if debug is not None:
         debug.update(beta=beta, gamma=gamma, alpha=alpha, zeta=zeta, v=v, u=u,
-                     ft_eval1=ft_eval1)
+                     joint=lookup_ctx.get("joint"), ft_eval1=ft_eval1)
 
     checkpoint("build_polynomials")
     # -- 13. assemble opening ------------------------------------------------
@@ -428,14 +602,49 @@ def create_proof(
         plnms.append((cd.coefficients_coeff[:, i], [0] * nc))
     for i in range(PERMUTS - 1):
         plnms.append((cd.sigma_coeff[:, i], [0] * nc))
+    if lcs is not None:
+        for i in range(len(lookup_ctx["sorted_cols"])):
+            plnms.append((lookup_ctx["sorted_coeffs"][:, i], lookup_ctx["sorted_blinders"][i]))
+        plnms.append((lookup_ctx["aggreg_coeffs"], lookup_ctx["aggreg_blinder"]))
+        # joint table blinding: sum_{i<width} j^i + tid_comb (each column is
+        # fixed-hiding in the verifier index; prover.rs:1346-1384)
+        width = ld["table_coeff"].shape[1]
+        fb = 0
+        if width:
+            fb = 1  # (1..width).fold(1, |acc,_| 1 + j*acc) = sum_{i<width} j^i
+            for _ in range(1, width):
+                fb = (1 + lookup_ctx["joint"] * fb) % p
+        base_blinding = (fb + lookup_ctx["tid_comb"]) % p
+        if has_runtime:
+            # table blinder gains j * runtime blinder (prover.rs:1369-1382)
+            jt_blinders = [
+                (lookup_ctx["joint"] * rb + base_blinding) % p
+                for rb in lookup_ctx["runtime_blinder"]
+            ]
+            plnms.append((jt_coeff, jt_blinders))
+            plnms.append((lookup_ctx["runtime_coeffs"], lookup_ctx["runtime_blinder"]))
+            plnms.append((ld["runtime_sel_coeff"], [0]))
+        else:
+            plnms.append((jt_coeff, [base_blinding] * nc))
+        for pat in lk_pats:
+            plnms.append((ld["sel_coeff"][pat], [0]))
 
     checkpoint("create_aggregated_ipa")
     opening = open_proof(index.srs, plnms, [zeta, zeta_omega], v, u,
                          fq_sponge_before_evaluations, rng)
 
     checkpoint("create_recursive_done")
+    lookup_comms = None
+    if lcs is not None:
+        lookup_comms = LookupCommitments(
+            sorted=lookup_ctx["sorted_comms"],
+            aggreg=lookup_ctx["aggreg_comm"],
+            runtime=lookup_ctx.get("runtime_comm"),
+        )
     return ProverProof(
-        commitments=ProverCommitments(w_comm=w_comms, z_comm=z_comm, t_comm=t_comm),
+        commitments=ProverCommitments(
+            w_comm=w_comms, z_comm=z_comm, t_comm=t_comm, lookup=lookup_comms
+        ),
         proof=opening,
         evals=evals,
         ft_eval1=ft_eval1,

@@ -10,7 +10,8 @@ iNTT and one batched NTT.
 Not ported, by design: the reference's disk cache of the verifier-index
 commitments (prover_index.py:210-315), which saved a TPU compile of
 minutes; here the b = 28 commit costs about as much as the witness commit.
-The lookup columns come with ROADMAP Queue 1 item 8.
+The lookup columns (table, table ids, pattern and runtime selectors) are one
+more batch of the same iNTT, d8 NTT and commit.
 """
 
 from __future__ import annotations
@@ -20,13 +21,15 @@ from typing import Any
 
 import torch
 
+from .circuits import expr as expr_mod
+from .circuits import lookup as lookup_mod
 from .circuits.alphas import Alphas, default_alphas
 from .circuits.constraints import ConstraintSystem
 from .circuits.gate import GateType
 from .circuits.polynomials import gates as gate_constraints
 from .curves import CurveParams, Pallas, Vesta
 from .ops import limb, poly
-from .verifier_index import VerifierIndex
+from .verifier_index import LookupVerifierIndex, VerifierIndex
 
 ALWAYS_ON = [
     GateType.Generic,
@@ -41,15 +44,27 @@ ALWAYS_ON = [
 def build_linearization(f, feature_flags, lookup_cs):
     """Full constraint AST and alpha registry (linearization.rs:43-367;
     constant term only: berkeley index_terms are empty). The optional gates
-    and the lookup constraints are not ported yet (ROADMAP Queue 1 items 8
-    and 9). Returns (alphas, linearization_expr)."""
-    if feature_flags or lookup_cs is not None:
-        raise NotImplementedError("optional gates and lookups: ROADMAP Queue 1 items 8, 9")
-    alphas: Alphas = default_alphas(0)
+    are not ported yet (ROADMAP Queue 1 item 9).
+
+    lookup_cs only needs `.info`, `.table_ids` and `.runtime_selector_d1`
+    (a deserialized VerifierIndex passes a shadow object with just those;
+    see serialization.deserialize_verifier_index). Returns (alphas,
+    linearization_expr)."""
+    if feature_flags:
+        raise NotImplementedError("optional gates: ROADMAP Queue 1 item 9")
+    lookup_constraints = None
+    nlookup = 0
+    if lookup_cs is not None:
+        lookup_constraints = lookup_mod.constraints(lookup_cs, f)
+        nlookup = len(lookup_constraints)
+    alphas: Alphas = default_alphas(nlookup)
     total = None
     for g in ALWAYS_ON:
         term = gate_constraints.combined(g, f, alphas)
         total = term if total is None else total + term
+    if lookup_constraints is not None:
+        exps = alphas.get_exponents("lookup", len(lookup_constraints))
+        total = total + expr_mod.combine_constraints(exps, lookup_constraints)
     return alphas, total
 
 
@@ -91,6 +106,7 @@ class ProverIndex:
             cs.f, cs.feature_flags, cs.lookup_cs
         )
         self.column_data = self._build_columns()
+        self.lookup_data = self._build_lookup_columns()
         self._verifier_index: VerifierIndex | None = None
 
     # -- column device data ------------------------------------------------
@@ -140,12 +156,49 @@ class ProverIndex:
             x_d8=x_d8,
         )
 
+    def _build_lookup_columns(self):
+        """The lookup columns (the table's columns, its ids, one selector a
+        pattern, the runtime selector) in coefficient and d8 form, or None
+        without lookups."""
+        lcs = self.cs.lookup_cs
+        if lcs is None:
+            return None
+        F = limb.device_field(self.cs.f)
+        d1, d8 = self.cs.domain.d1, self.cs.domain.d8
+        n = d1.n
+        cols: list[list[int]] = list(lcs.lookup_table)
+        if lcs.table_ids is not None:
+            cols = cols + [lcs.table_ids]
+        sel_pats = list(lcs.info.patterns)
+        cols = cols + [lcs.selectors_d1[pat] for pat in sel_pats]
+        has_runtime = lcs.runtime_selector_d1 is not None
+        if has_runtime:
+            cols = cols + [lcs.runtime_selector_d1]
+        arr = F.pack_mont([v for col in cols for v in col], shape=(len(cols), n),
+                          device=self.device)
+        coeffs = d1.intt_t(arr, d1.inv_twiddles)
+        evals8 = d8.ntt_t(torch.nn.functional.pad(coeffs, (0, 7 * n)), d8.fwd_twiddles)
+        w = len(lcs.lookup_table)
+        has_ids = lcs.table_ids is not None
+        off = w + (1 if has_ids else 0)
+        return {
+            "coeffs": coeffs,  # every column, in the order of the verifier index's commit
+            "table_coeff": coeffs[:, :w],
+            "table8": evals8[:, :w],
+            "ids_coeff": coeffs[:, w] if has_ids else None,
+            "ids8": evals8[:, w] if has_ids else None,
+            "sel_coeff": {pat: coeffs[:, off + i] for i, pat in enumerate(sel_pats)},
+            "sel8": {pat: evals8[:, off + i] for i, pat in enumerate(sel_pats)},
+            "runtime_sel_coeff": coeffs[:, off + len(sel_pats)] if has_runtime else None,
+            "runtime_sel8": evals8[:, off + len(sel_pats)] if has_runtime else None,
+        }
+
     # -- verifier index ----------------------------------------------------
 
-    def _compute_vk_comms(self) -> list:
+    def _compute_vk_comms(self) -> tuple[list, "LookupVerifierIndex | None"]:
         """The 28 column commitments (7 sigma, 15 coefficients, 6 selectors)
         in one b = 28 commit; the selectors are fixed-hiding (+1*H,
-        verifier_index.rs:173)."""
+        verifier_index.rs:173). Returns them and the lookup index."""
         cd = self.column_data
         all_coeffs = torch.cat(
             [
@@ -159,11 +212,41 @@ class ProverIndex:
         ones = [1] * self.num_chunks
         for i in range(22, 28):
             comms[i] = self.srs.mask(comms[i], ones)
-        return comms
+        return comms, self._compute_lookup_vk()
+
+    def _compute_lookup_vk(self) -> LookupVerifierIndex | None:
+        """The lookup columns' commitments in one batch; the table's columns
+        and ids are fixed-hiding (+1*H), the selectors are not."""
+        lcs = self.cs.lookup_cs
+        if lcs is None:
+            return None
+        ld = self.lookup_data
+        ones = [1] * self.num_chunks
+        ncols = ld["table_coeff"].shape[1]
+        sel_pats = list(lcs.info.patterns)
+        lcomms = self.srs.commit_coeffs_dev(ld["coeffs"], self.num_chunks)
+        table_comms = [self.srs.mask(lcomms[i], ones) for i in range(ncols)]
+        idx = ncols
+        ids_comm = None
+        if ld["ids_coeff"] is not None:
+            ids_comm = self.srs.mask(lcomms[idx], ones)
+            idx += 1
+        sel_comms = {pat: lcomms[idx + i] for i, pat in enumerate(sel_pats)}
+        runtime_sel_comm = None
+        if ld["runtime_sel_coeff"] is not None:
+            runtime_sel_comm = lcomms[idx + len(sel_pats)]
+        return LookupVerifierIndex(
+            joint_lookup_used=lcs.info.joint_lookup_used,
+            lookup_info=lcs.info,
+            lookup_table=table_comms,
+            table_ids=ids_comm,
+            lookup_selectors=sel_comms,
+            runtime_tables_selector=runtime_sel_comm,
+        )
 
     def verifier_index(self) -> VerifierIndex:
         if self._verifier_index is None:
-            comms = self._compute_vk_comms()
+            comms, lookup_vk = self._compute_vk_comms()
             self._verifier_index = VerifierIndex(
                 curve=self.curve,
                 domain=self.cs.domain.d1,
@@ -185,5 +268,6 @@ class ProverIndex:
                 linearization_expr=self.linearization_expr,
                 alphas=self.alphas,
                 zk_w=self.cs.zk_w(),
+                lookup_index=lookup_vk,
             )
         return self._verifier_index

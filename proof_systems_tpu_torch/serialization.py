@@ -1,8 +1,9 @@
-"""Proof wire format: rmp-serde (MessagePack) compatible layout.
+"""Proof and verifier-index wire formats: rmp-serde (MessagePack)
+compatible layout.
 
-Counterpart of the proof half of proof_systems_tpu/serialization.py, host
-code copied as it is; the verifier-index half comes with ROADMAP Queue 1
-item 10.
+Counterpart of proof_systems_tpu/serialization.py, host code copied as it
+is: a proof or a verifier-index file written by either package reads in the
+other.
 
 Mirrors the reference serialization surface:
   - rmp-serde compact mode: structs -> fixarray of fields, Option ->
@@ -19,7 +20,10 @@ from __future__ import annotations
 
 import io
 
-from .curves import AffinePoint, CurveParams
+from .circuits.gate import GateType
+from .circuits.lookup import LookupInfo, LookupPattern
+from .curves import AffinePoint, CurveParams, Pallas, Vesta
+from .ops import ntt as ntt_mod
 from .poly_commitment.commitment import PolyComm
 from .poly_commitment.ipa import OpeningProof
 from .proof import (
@@ -30,6 +34,8 @@ from .proof import (
     ProverProof,
     RecursionChallenge,
 )
+from .prover_index import build_linearization
+from .verifier_index import LookupVerifierIndex, VerifierIndex
 
 # ---------------------------------------------------------------------------
 # Minimal msgpack writer/reader (subset used by rmp-serde compact mode)
@@ -413,4 +419,209 @@ def deserialize_proof(curve: CurveParams, data: bytes) -> ProverProof:
         evals=evals,
         ft_eval1=ft_eval1,
         prev_challenges=prev,
+    )
+
+
+# ---------------------------------------------------------------------------
+# VerifierIndex persistence (verifier_index.rs:345 to_file / :384 from_file).
+# MessagePack layout mirroring the proof conventions above; the SRS and all
+# derived structures (domain plan, zk polynomials, linearization AST, alpha
+# registry) are reconstructed at load time, as the reference does.
+# ---------------------------------------------------------------------------
+
+
+def _pack_opt_poly_comm(pk: Packer, curve: CurveParams, c) -> None:
+    if c is None:
+        pk.nil()
+    else:
+        _pack_poly_comm(pk, curve, c)
+
+
+def serialize_verifier_index(vk) -> bytes:
+    curve = vk.curve
+    pk = Packer()
+    pk.array(12 if vk.lookup_index is None else 17)
+    pk.bin(curve.name.encode())
+    pk.uint(vk.domain.log_n)
+    pk.uint(vk.max_poly_size)
+    pk.uint(vk.zk_rows)
+    pk.uint(vk.public)
+    pk.array(len(vk.shift))
+    for s in vk.shift:
+        pk.bin(field_bytes(s))
+    pk.array(7 + 15 + 6)
+    for c in vk.sigma_comm:
+        _pack_poly_comm(pk, curve, c)
+    for c in vk.coefficients_comm:
+        _pack_poly_comm(pk, curve, c)
+    for c in [
+        vk.generic_comm, vk.psm_comm, vk.complete_add_comm,
+        vk.mul_comm, vk.emul_comm, vk.endomul_scalar_comm,
+    ]:
+        _pack_poly_comm(pk, curve, c)
+    pk.array(6)
+    for c in [
+        vk.range_check0_comm, vk.range_check1_comm,
+        vk.foreign_field_add_comm, vk.foreign_field_mul_comm,
+        vk.xor_comm, vk.rot_comm,
+    ]:
+        _pack_opt_poly_comm(pk, curve, c)
+    if vk.lookup_index is None:
+        pk.array(0)
+        pk.nil()
+        pk.array(0)
+        pk.nil()
+        return pk.getvalue()
+    li = vk.lookup_index
+    pats = list(LookupPattern)
+    pk.array(len(li.lookup_info.patterns) + (1 if li.joint_lookup_used else 0))
+    if li.joint_lookup_used:
+        pk.uint(1)
+    for p in li.lookup_info.patterns:
+        pk.uint(2 + pats.index(p))
+    pk.bool(li.lookup_info.uses_runtime_tables)
+    pk.array(len(li.lookup_table))
+    for c in li.lookup_table:
+        _pack_poly_comm(pk, curve, c)
+    _pack_opt_poly_comm(pk, curve, li.table_ids)
+    # selector comms in enum order, nil-padded; then runtime selector
+    pk2 = [li.lookup_selectors.get(p) for p in pats] + [li.runtime_tables_selector]
+    for c in pk2:
+        _pack_opt_poly_comm(pk, curve, c)
+    return pk.getvalue()
+
+
+def deserialize_verifier_index(data: bytes, srs):
+    """Rebuild a VerifierIndex against a live SRS (from_file semantics:
+    verifier_index.rs:384; srs and derived members are not on disk). The
+    domain's plan lives on the SRS's device."""
+    up = Unpacker(data)
+    n_fields = up.array()
+    assert n_fields in (12, 17)
+    curve_name = up.bin().decode()
+    curve = {"Pallas": Pallas, "Vesta": Vesta}[curve_name]
+    assert srs.curve is curve, "SRS curve mismatch"
+    f = curve.scalar
+    log_n = up.uint()
+    max_poly_size = up.uint()
+    zk_rows = up.uint()
+    public = up.uint()
+    shift = [int.from_bytes(up.bin(), "little") for _ in range(up.array())]
+
+    def poly_comm() -> PolyComm:
+        up.array()
+        return PolyComm(
+            [point_from_bytes(curve, up.bin()) for _ in range(up.array())]
+        )
+
+    def opt_poly_comm():
+        if up.peek_nil():
+            return None
+        return poly_comm()
+
+    ncomms = up.array()
+    assert ncomms == 28
+    comms = [poly_comm() for _ in range(28)]
+    up.array()
+    opt = [opt_poly_comm() for _ in range(6)]
+
+    flags_raw = [up.uint() for _ in range(up.array())]
+    pats = list(LookupPattern)
+    joint_lookup_used = 1 in flags_raw
+    patterns = [pats[v - 2] for v in flags_raw if v >= 2]
+    uses_runtime = not up.peek_nil() and up.bool()
+    ntables = up.array()
+    lookup_vk = None
+    lcs_shadow = None
+    if ntables or patterns:
+        table_comms = [poly_comm() for _ in range(ntables)]
+        ids_comm = opt_poly_comm()
+        sel_comms = {}
+        for p in pats:
+            c = opt_poly_comm()
+            if c is not None:
+                sel_comms[p] = c
+        runtime_sel = opt_poly_comm()
+        info = LookupInfo(
+            patterns=patterns,
+            max_per_row=max(p.max_lookups_per_row() for p in patterns),
+            max_joint_size=max(p.max_joint_size() for p in patterns),
+            joint_lookup_used=joint_lookup_used,
+            uses_runtime_tables=uses_runtime,
+        )
+        lookup_vk = LookupVerifierIndex(
+            joint_lookup_used=joint_lookup_used,
+            lookup_info=info,
+            lookup_table=table_comms,
+            table_ids=ids_comm,
+            lookup_selectors=sel_comms,
+            runtime_tables_selector=runtime_sel,
+        )
+
+        class _ShadowLcs:
+            pass
+
+        lcs_shadow = _ShadowLcs()
+        lcs_shadow.info = info
+        lcs_shadow.table_ids = [] if ids_comm is not None else None
+        lcs_shadow.runtime_selector_d1 = [] if runtime_sel is not None else None
+    else:
+        up.peek_nil()  # consume the nil table_ids slot
+
+    domain = ntt_mod.ntt_plan(f, log_n, device=srs.device)
+    n = domain.n
+    gen = domain.group_gen
+    p = f.p
+
+    feature_flags = {
+        g
+        for g, c in zip(
+            [
+                GateType.RangeCheck0, GateType.RangeCheck1,
+                GateType.ForeignFieldAdd, GateType.ForeignFieldMul,
+                GateType.Xor16, GateType.Rot64,
+            ],
+            opt,
+        )
+        if c is not None
+    }
+    alphas, linearization = build_linearization(f, feature_flags, lcs_shadow)
+
+    def eval_zkpm(x: int) -> int:
+        term = pow(gen, n - zk_rows, p)
+        acc = (x - term) % p
+        acc = acc * (x - term * gen) % p
+        acc = acc * (x - pow(gen, n - 1, p)) % p
+        return acc
+
+    # in-circuit endo = endo_q of the other curve (prover_index.rs:192)
+    other = Pallas if curve.name == "Vesta" else Vesta
+    return VerifierIndex(
+        curve=curve,
+        domain=domain,
+        max_poly_size=max_poly_size,
+        zk_rows=zk_rows,
+        public=public,
+        sigma_comm=comms[:7],
+        coefficients_comm=comms[7:22],
+        generic_comm=comms[22],
+        psm_comm=comms[23],
+        complete_add_comm=comms[24],
+        mul_comm=comms[25],
+        emul_comm=comms[26],
+        endomul_scalar_comm=comms[27],
+        shift=shift,
+        endo=other.endos[0],
+        zkpm_eval=eval_zkpm,
+        srs=srs,
+        linearization_expr=linearization,
+        alphas=alphas,
+        zk_w=pow(gen, n - zk_rows, p),
+        range_check0_comm=opt[0],
+        range_check1_comm=opt[1],
+        foreign_field_add_comm=opt[2],
+        foreign_field_mul_comm=opt[3],
+        xor_comm=opt[4],
+        rot_comm=opt[5],
+        lookup_index=lookup_vk,
     )

@@ -3,16 +3,17 @@
 Counterpart of proof_systems_tpu/verifier.py: oracles() replays the
 Fiat-Shamir transcript (verifier.rs:126-630), to_batch() builds the
 linearization commitment and the evaluation list (verifier.rs:781-1010),
-verify() hands the one batched check to the IPA
-(poly_commitment/ipa.verify_batch, one MSM on the SRS's device).
+batch_verify() hands one batched check over any number of proofs to the IPA
+(poly_commitment/ipa.verify_batch, one MSM on the SRS's device), and verify()
+is a batch of one.
 
 The linearization constant term is evaluated at zeta by walking the same
 constraint AST the prover used (circuits/expr.eval_host); the berkeley
 linearization has no index terms, so f_comm is perm_scalars * sigma_6
 (verifier.rs:897-958). Public inputs are evaluated at zeta and zeta*omega
 by the barycentric sum over the public rows, and committed from the SRS's
-cached Lagrange-basis commitments. Not ported yet: lookups (ROADMAP Queue 1
-item 8) and batch_verify over several proofs (item 10).
+cached Lagrange-basis commitments, which a chunked domain does not have
+(ROADMAP Queue 3: the JAX package fails there too).
 """
 
 from __future__ import annotations
@@ -21,6 +22,7 @@ from dataclasses import dataclass
 
 from .circuits import expr as expr_mod
 from .circuits.gate import COLUMNS, PERMUTS, GateType
+from .circuits.lookup import LookupPattern
 from .poly_commitment.commitment import (
     PolyComm,
     b_poly,
@@ -29,7 +31,7 @@ from .poly_commitment.commitment import (
     poly_comm_scale,
 )
 from .poly_commitment.ipa import BatchEvaluationProof, Evaluation, verify_batch
-from .poseidon import fp_kimchi, fq_kimchi
+from .poseidon import ScalarChallenge, fp_kimchi, fq_kimchi
 from .proof import ProverProof
 from .prover import fr_sponge_for
 from .verifier_index import VerifierIndex, sponge_for
@@ -42,6 +44,20 @@ _SELECTOR_EVALS = {
     GateType.VarBaseMul: "mul_selector",
     GateType.EndoMul: "emul_selector",
     GateType.EndoMulScalar: "endomul_scalar_selector",
+}
+# Evaluations of the lookup columns, by column tag, and of the pattern
+# selectors (the `lookup_kind` cells), in LookupPattern's order.
+_LOOKUP_EVALS = {
+    ("lookup_aggreg",): "lookup_aggregation",
+    ("lookup_table",): "lookup_table",
+    ("lookup_runtime_table",): "runtime_lookup_table",
+    ("lookup_runtime_selector",): "runtime_lookup_table_selector",
+}
+_LOOKUP_SELECTOR_EVALS = {
+    LookupPattern.Xor: "xor_lookup_selector",
+    LookupPattern.Lookup: "lookup_gate_lookup_selector",
+    LookupPattern.RangeCheck: "range_check_lookup_selector",
+    LookupPattern.ForeignFieldMul: "foreign_field_mul_lookup_selector",
 }
 
 
@@ -81,8 +97,19 @@ def oracles(
         fq_sponge.absorb_g(c.chunks)
 
     joint_combiner = 0
+    if vk.lookup_index is not None:
+        li = vk.lookup_index
+        if li.runtime_tables_selector is not None:
+            fq_sponge.absorb_g(proof.commitments.lookup.runtime.chunks)
+        jc_pre = fq_sponge.challenge().value if li.joint_lookup_used else 0
+        joint_combiner = ScalarChallenge(jc_pre).to_field(endo_r, f)
+        for c in proof.commitments.lookup.sorted:
+            fq_sponge.absorb_g(c.chunks)
+
     beta = fq_sponge.challenge().value
     gamma = fq_sponge.challenge().value
+    if vk.lookup_index is not None:
+        fq_sponge.absorb_g(proof.commitments.lookup.aggreg.chunks)
     fq_sponge.absorb_g(proof.commitments.z_comm.chunks)
     alpha = fq_sponge.challenge().to_field(endo_r, f)
     # quotient has 7*num_chunks chunks (verifier.rs:260 bounds it by
@@ -180,6 +207,12 @@ def oracles(
             pt = evals.coefficients[col[1]]
         elif col == expr_mod.COL_Z:
             pt = evals.z
+        elif col in _LOOKUP_EVALS:
+            pt = getattr(evals, _LOOKUP_EVALS[col])
+        elif col[0] == "lookup_sorted":
+            pt = evals.lookup_sorted[col[1]]
+        elif col[0] == "lookup_kind":
+            pt = getattr(evals, _LOOKUP_SELECTOR_EVALS[LookupPattern(col[1])])
         elif col[0] == "index":
             pt = getattr(evals, _SELECTOR_EVALS[GateType(col[1])])
         else:
@@ -305,6 +338,8 @@ def to_batch(vk: VerifierIndex, proof: ProverProof, public_input: list[int]) -> 
     cols += [(proof.commitments.w_comm[i], proof.evals.w[i]) for i in range(COLUMNS)]
     cols += [(vk.coefficients_comm[i], proof.evals.coefficients[i]) for i in range(COLUMNS)]
     cols += [(vk.sigma_comm[i], proof.evals.s[i]) for i in range(PERMUTS - 1)]
+    if vk.lookup_index is not None:
+        cols += _lookup_columns(vk, proof, o.joint_combiner)
     for commv, pt in cols:
         evaluations.append(Evaluation(commv, [pt.zeta, pt.zeta_omega]))
 
@@ -319,6 +354,45 @@ def to_batch(vk: VerifierIndex, proof: ProverProof, public_input: list[int]) -> 
     )
 
 
+def _lookup_columns(vk: VerifierIndex, proof: ProverProof, joint: int) -> list:
+    """to_batch's lookup entries (verifier.rs:985-1050): the sorted columns,
+    the aggregation, the combined table sum_i j^i col_i + tid_comb * ids
+    (with j times the runtime table added to the second column), the
+    runtime table and its selector, and the pattern selectors."""
+    curve = vk.curve
+    p = curve.scalar.p
+    li = vk.lookup_index
+    lk = proof.commitments.lookup
+    cols = [(c, proof.evals.lookup_sorted[i]) for i, c in enumerate(lk.sorted)]
+    cols.append((lk.aggreg, proof.evals.lookup_aggregation))
+    tid_comb = pow(joint, li.lookup_info.max_joint_size, p) if li.table_ids is not None else 0
+    comb = None
+    jpow = 1
+    for ci, c in enumerate(li.lookup_table):
+        term = poly_comm_scale(curve, c, jpow)
+        if ci == 1 and lk.runtime is not None:
+            term = poly_comm_add(curve, term, poly_comm_scale(curve, lk.runtime, joint))
+        comb = term if comb is None else poly_comm_add(curve, comb, term)
+        jpow = jpow * joint % p
+    if li.table_ids is not None:
+        comb = poly_comm_add(curve, comb, poly_comm_scale(curve, li.table_ids, tid_comb))
+    cols.append((comb, proof.evals.lookup_table))
+    if li.runtime_tables_selector is not None:
+        cols.append((lk.runtime, proof.evals.runtime_lookup_table))
+        cols.append((li.runtime_tables_selector, proof.evals.runtime_lookup_table_selector))
+    for pat, attr in _LOOKUP_SELECTOR_EVALS.items():
+        if pat in li.lookup_selectors:
+            cols.append((li.lookup_selectors[pat], getattr(proof.evals, attr)))
+    return cols
+
+
 def verify(vk: VerifierIndex, proof: ProverProof, public_input: list[int], rng) -> bool:
-    """One proof, one batched IPA check on the SRS's device."""
-    return verify_batch(vk.srs, [to_batch(vk, proof, public_input)], rng)
+    """One proof: a batch of one."""
+    return batch_verify([(vk, proof, public_input)], rng)
+
+
+def batch_verify(batch, rng) -> bool:
+    """(vk, proof, public_input) triples: one to_batch each, then one
+    batched IPA check on the SRS of the first (verifier.rs:1093)."""
+    proofs = [to_batch(vk, proof, pub) for vk, proof, pub in batch]
+    return verify_batch(batch[0][0].srs, proofs, rng)

@@ -141,11 +141,12 @@ def test_prover_index_columns_match_jax(pair):
 
 
 def test_unported_gates_are_refused():
-    """A circuit with an optional gate (ROADMAP Queue 1 item 9) or a lookup
-    (item 8) is refused, not proved wrongly."""
+    """A circuit with an optional gate (ROADMAP Queue 1 item 9) is refused,
+    not proved wrongly; a lookup gate, ported since, gets its lookup
+    constraint system and no feature flag."""
     gates = bench_circuit(Fp, 4) + [CircuitGate(GateType.Xor16, new_wires(4), [])]
-    with pytest.raises(NotImplementedError, match="item 9|item 8"):
+    with pytest.raises(NotImplementedError, match="item 9"):
         ConstraintSystem.create(Fp, gates, device="cpu")
     gates = bench_circuit(Fp, 4) + [CircuitGate(GateType.Lookup, new_wires(4), [])]
-    with pytest.raises(NotImplementedError, match="item 8"):
-        ConstraintSystem.create(Fp, gates, device="cpu")
+    cs = ConstraintSystem.create(Fp, gates, device="cpu")
+    assert cs.lookup_cs is not None and not cs.feature_flags

@@ -800,3 +800,79 @@ def test_bench_proof_k11_has_no_fold_step(dev, tmp_path):
     assert counts["endo_ladder"] == 0
     assert len(proof.proof.lr) == 11
     assert verify(index.verifier_index(), proof, [], TestRng(12))
+
+
+# Call shapes that the lookup, chunked and batch paths add (chip_smoke.py's
+# recorded calls at k = 16): K12 over 2^17 (the chunked z) and over the d8
+# domain of 2^19 (the lookup constraints' batch inverses); K9 over 2^17 with
+# c = 1 and c = omega^(n - 5) (the chunked boundary divisions, zk_rows 5);
+# K4 over 2^19 with e = 2^16 (x^n over d8); K1 on 28 x 2^19 (the chunked
+# index's d8 columns); K6 mixed on the 24 x 1 x 65,995 of a five-proof batch;
+# K7 and K2 on the 2-, 3- and 4-row commits of the chunked z and the sorted
+# and lookup columns.
+NEW_PATH_FIELD_SHAPES = [("mont_prefix_scan_parts", 1 << 17, None),
+                         ("mont_prefix_scan_parts", 1 << 19, None),
+                         ("linear_scan", 1 << 17, 1), ("linear_scan", 1 << 17, "omega17"),
+                         ("mont_pow", 1 << 19, 1 << 16), ("mont_mul", 28 << 19, None)]
+
+
+@pytest.mark.parametrize("name,n,arg", NEW_PATH_FIELD_SHAPES, ids=str)
+def test_new_path_field_shapes_match_plain(dev, name, n, arg):
+    """K12, K9, K4 and K1 at the lookup and chunked paths' shapes as the
+    wrappers launch them, one launch a call, limb for limb against the
+    plain versions, on rows with a zero element."""
+    F = limb.device_field(Fp)
+    gen = torch.Generator(device=dev).manual_seed(620)
+
+    def row():  # canonical values below 2^254 < p, as the mont_pow test draws them
+        std = torch.randint(0, 1 << 30, (8, 1, n), dtype=torch.int32, device=dev, generator=gen)
+        return limb.to_mont(F, std).contiguous()
+
+    x = row()
+    x[:, 0, 17] = 0
+    if arg == "omega17":
+        arg = pow(Fp.root_of_unity(17), n - 5, Fp.p)
+    args = {"mont_prefix_scan_parts": (x,), "linear_scan": (x, arg), "mont_pow": (x, arg),
+            "mont_mul": (x, row())}[name]
+    before = kernels.launch_counts()[name]
+    got, want = _pair(name, F, *args)
+    assert kernels.launch_counts()[name] == before + 1
+    for a, b in zip(_flat(got), _flat(want)):
+        assert torch.equal(a, b), name
+
+
+def test_new_path_batch_msm_scan_matches_plain(dev):
+    """K6 (mixed) at the five-proof batch's 24 x 1 x 65,995 as the wrapper
+    launches it, against the plain version as group elements."""
+    rng = random.Random(621)
+    dc, pts = _k6_rows(rng, dev, 24, 65995, True)
+    want_p, want_e, want_cp = kernels.ec_prefix_scan_parts_plain(dc.F, *pts, mixed=True)
+    part, excl, cp = kernels.ec_prefix_scan_parts(dc.F, *pts, mixed=True)
+    assert cp == want_cp
+    assert _same_points(dc, part, want_p) and _same_points(dc, excl, want_e)
+
+
+@pytest.mark.parametrize("shape", [(24, 2, 2047), (24, 3, 2047), (24, 4, 2047)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_new_path_ec_scan_fused_shapes(dev, shape):
+    """K7 at the 2-, 3- and 4-row commits of the new paths, as group
+    elements against the plain version, the first row starting with three
+    lanes of identities (R, R, 0)."""
+    rng = random.Random(622)
+    dc, (p, _) = _pool_pairs(rng, dev, shape)
+    p = _msm_identities(dc, p, 3 * kernels.scan_chunk(shape[-1]))
+    got, want = _pair("ec_prefix_scan_fused", dc.F, *p)
+    assert _same_points(dc, got, want)
+
+
+@pytest.mark.parametrize("shape", [(24, 2, 4096), (24, 3, 4096), (24, 4, 4096), (24, 3, 2048),
+                                   (16, 3), (16, 4), (24, 4, 1)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_new_path_jacobian_add_shapes(dev, shape):
+    """K2 at the new paths' commit shapes, limb for limb against the plain
+    version, with the doubling, negation and identity lanes."""
+    rng = random.Random(623)
+    dc, (p, q) = _pool_pairs(rng, dev, shape)
+    got, want = _pair("jacobian_add", dc.F, *p, *q)
+    for x, y in zip(got, want):
+        assert torch.equal(x, y), shape

@@ -52,32 +52,82 @@ def test_importing_every_module_loads_no_jax():
     assert int(out.stdout.strip()) >= 12
 
 
-def _entry_points():
+def _stub_vk_file(path) -> None:
+    """A verifier-index file of the 32-point bench domain whose commitments
+    are all the point at infinity (written on the host, no MSM)."""
+    from proof_systems_tpu_torch.curves import Vesta
+    from proof_systems_tpu_torch.fields import Fp
+    from proof_systems_tpu_torch.ops import ntt
+    from proof_systems_tpu_torch.poly_commitment.commitment import PolyComm
+    from proof_systems_tpu_torch.verifier_index import VerifierIndex
+
+    zero = PolyComm([None])
+    VerifierIndex(
+        curve=Vesta, domain=ntt.ntt_plan(Fp, 5, device="cpu"), max_poly_size=32, zk_rows=3,
+        public=0, sigma_comm=[zero] * 7, coefficients_comm=[zero] * 15, generic_comm=zero,
+        psm_comm=zero, complete_add_comm=zero, mul_comm=zero, emul_comm=zero,
+        endomul_scalar_comm=zero, shift=[1] * 7, endo=0, zkpm_eval=None, srs=None,
+        linearization_expr=None, alphas=None, zk_w=0,
+    ).to_file(path)
+
+
+def _entry_points(tmp_path):
     import numpy as np
 
-    from proof_systems_tpu_torch import convert
+    from proof_systems_tpu_torch import convert, verifier
+    from proof_systems_tpu_torch.circuits.constraints import ConstraintSystem
+    from proof_systems_tpu_torch.circuits.gate import CircuitGate, GateType, new_wires
+    from proof_systems_tpu_torch.circuits.lookup import LookupTable
     from proof_systems_tpu_torch.curves import Vesta
     from proof_systems_tpu_torch.fields import Fp
     from proof_systems_tpu_torch.ops import limb, msm, ntt
-    from proof_systems_tpu_torch.poly_commitment.srs import SRS
+    from proof_systems_tpu_torch.poly_commitment.srs import SRS, derive_g, derive_h
+    from proof_systems_tpu_torch.serialization import deserialize_proof
+    from proof_systems_tpu_torch.utils.rng import TestRng
+    from proof_systems_tpu_torch.verifier_index import VerifierIndex
 
     scal = torch.zeros((limb.NLIMBS, 1, 4), dtype=torch.int32)
+    lookup_gates = [CircuitGate(GateType.Lookup, new_wires(r), []) for r in range(4)]
+    table = LookupTable(0, [list(range(4)), [i * i for i in range(4)]])
+    g, h = [derive_g(Vesta, i) for i in range(32)], derive_h(Vesta)
+
+    def batch_verify():
+        # an SRS made without a device: verification goes to the card
+        path = tmp_path / "vk.bin"
+        _stub_vk_file(path)
+        vk = VerifierIndex.from_file(path, SRS(Vesta, g, h, torch.device("cpu")))
+        vk.srs = SRS(Vesta, g, h, None)
+        proof = deserialize_proof(Vesta, (ROOT / "tests/vectors/proof_2^5.bin").read_bytes())
+        return verifier.batch_verify([(vk, proof, [])], TestRng(0))
+
+    def from_file():
+        path = tmp_path / "vk.bin"
+        _stub_vk_file(path)
+        return VerifierIndex.from_file(path, SRS(Vesta, g, h, None))
+
     return {
         "SRS.create": lambda: SRS.create(Vesta, 4),
         "ntt_plan": lambda: ntt.ntt_plan(Fp, 3),
         "msm.msm": lambda: msm.msm(Vesta, scal),
         "convert.limbs_from_numpy": lambda: convert.limbs_from_numpy(np.zeros((16, 2), np.uint32)),
+        "ConstraintSystem.create[lookup]": lambda: ConstraintSystem.create(
+            Fp, lookup_gates, fixed_lookup_tables=[table]),
+        "VerifierIndex.from_file": from_file,
+        "batch_verify": batch_verify,
     }
 
 
-@pytest.mark.parametrize("name", ["SRS.create", "ntt_plan", "msm.msm", "convert.limbs_from_numpy"])
-def test_entry_points_default_to_cuda(name):
+@pytest.mark.parametrize("name", ["SRS.create", "ntt_plan", "msm.msm", "convert.limbs_from_numpy",
+                                  "ConstraintSystem.create[lookup]", "VerifierIndex.from_file",
+                                  "batch_verify"])
+def test_entry_points_default_to_cuda(name, tmp_path):
     """With no device given, an entry point asks for the card; without one
-    it raises instead of running on the CPU."""
+    it raises instead of running on the CPU. The verifier's entry points run
+    on their SRS's device, which is the card when the SRS names none."""
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
     with pytest.raises(RuntimeError, match="no CUDA device"):
-        _entry_points()[name]()
+        _entry_points(tmp_path)[name]()
 
 
 def test_chip_smoke_fails_without_cuda():

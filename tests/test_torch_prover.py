@@ -101,7 +101,8 @@ def test_quotient_matches_jax(proved):
     names = ("alpha", "beta", "gamma")
     vals = [int(v) for v in rng.integers(0, 1 << 62, 3)]
     chal = {k: F.pack_mont([v], shape=(1,), device="cpu") for k, v in zip(names, vals)}
-    got = _quotient_fn(index)(w, z, public, chal)
+    q, rem, jt_coeff, r1, r2 = _quotient_fn(index)(w, z, public, chal)
+    assert jt_coeff is None  # no lookups: no combined table
 
     JF = jlimb.device_field(JFp)
     jchal = {k: JF.pack_mont([v], shape=(1,)) for k, v in zip(names, vals)}
@@ -109,5 +110,5 @@ def test_quotient_matches_jax(proved):
     qfn = jprover._quotient_fn(jindex)
     jq, jrem, _, jr1, jr2 = qfn(*(jnp.asarray(convert.limbs_to_numpy(t)) for t in (w, z, public)),
                                 jchal, None, jindex._qfn_consts)
-    for ours, theirs in zip(got, (jq, jrem, jr1, jr2)):
+    for ours, theirs in zip((q, rem, r1, r2), (jq, jrem, jr1, jr2), strict=True):
         assert torch.equal(ours, convert.limbs_from_numpy(np.asarray(theirs), device="cpu"))
