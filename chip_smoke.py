@@ -68,7 +68,7 @@ Phases, each fatal on failure:
      SRS), and bench_torch's own set-up and proof at
      k = 11, where n = IPA_FOLD_TAIL and the opening has no fold step (the
      endo ladder must not launch, every kernel of the tail rounds must),
-     verified, its size 4,949 bytes; then five more phases, each with the
+     verified, its size 4,949 bytes; then seven more phases, each with the
      counts zeroed just before and read just after (a proof's must launch
      every kernel but K3, a verification's what one verification does) and
      with each kernel's largest call on it held against the plain version
@@ -84,11 +84,25 @@ Phases, each fatal on failure:
      and with a runtime table, the host time of the lookup argument's
      stages apart (rejected with a changed sorted evaluation; a value not
      in the table, or a runtime table under another id, raises ValueError);
+     the committed proofs of the gadget circuits (tests/vectors/
+     proof_gates_2^5.bin: one each of the Poseidon, CompleteAdd, VarBaseMul,
+     EndoMul and EndoMulScalar gadgets and a ForeignFieldAdd chain;
+     proof_optional_2^13.bin and vk_optional_2^13.bin: a multi-range-check,
+     Xor, Rot64, ForeignFieldAdd, ForeignFieldMul, And and Not over both
+     fixed tables), each proved by the port byte for byte as the JAX
+     package did on the CPU, verified and rejected with a changed selector
+     evaluation; the gate mix of foreign-field ECDSA and Keccak gadgets at
+     k = 16 (gate_mix.gate_mix_circuit: 1,771 blocks of a ForeignFieldMul
+     with its multi-range-checks, a ForeignFieldAdd chain, Xor, Rot64, And
+     and Not), its index_s, the host time of the lookup argument's stages
+     apart, rejected with a changed ForeignFieldMul selector evaluation,
+     and one more proof's prove_ms, peak device memory and quotient split
+     (d8 transforms, walk);
      one batch_verify over the bench, public-input, recursion, lookup and
      chunked proofs beside the five single verifications (rejected when one
-     has ft_eval1 + 1); and the bench, lookup and chunked verifier indexes
-     through to_file into build/vk/ and from_file (equal digests, each
-     verifies its proof);
+     has ft_eval1 + 1); and the bench, lookup, chunked and gate-mix
+     verifier indexes through to_file into build/vk/ and from_file (equal
+     digests, each verifies its proof);
   5. every commitment against the native host MSM over g ++ [h], the iNTT
      against the CPU plain path, one b = 1 MSM at c = 10; the evaluations
      against host Horner; every round's L and R, sg, a0 and b0 against the
@@ -1635,6 +1649,179 @@ def lookup_path(run, log_n: int, device, runtime: bool) -> dict:
     return {f"{tag}_index": index, f"{tag}_vk": vk, f"{tag}_proof": proof}
 
 
+VECTOR_PROOFS = {"always-on gadgets": ("tests/vectors/proof_gates_2^5.bin", 32),
+                 "optional gates": ("tests/vectors/proof_optional_2^13.bin", 1 << 13)}
+VECTOR_VK = "tests/vectors/vk_optional_2^13.bin"
+
+
+def vectors_path(run, device) -> dict:
+    """The committed proofs of the gadget circuits, made by the JAX package
+    on the CPU (tests/test_torch_gates_prove.py, test_torch_optional_vectors.py):
+    gate_mix.always_on_circuit over 32 points and gate_mix.optional_circuit
+    over 8,192 (both fixed lookup tables), each over the first points of the
+    path's SRS with TestRng of its seed. The port's proof bytes and, for the
+    optional circuit, its verifier-index file must equal the vectors; each
+    proof verifies and is rejected with one selector evaluation changed."""
+    import copy
+    import pathlib
+
+    from proof_systems_tpu_torch.circuits import gate_mix
+    from proof_systems_tpu_torch.circuits.constraints import ConstraintSystem
+    from proof_systems_tpu_torch.curves import Vesta
+    from proof_systems_tpu_torch.fields import Fp
+    from proof_systems_tpu_torch.poly_commitment.srs import SRS
+    from proof_systems_tpu_torch.prover import create_proof
+    from proof_systems_tpu_torch.prover_index import ProverIndex
+    from proof_systems_tpu_torch.serialization import serialize_proof
+    from proof_systems_tpu_torch.utils.rng import TestRng
+    from proof_systems_tpu_torch.verifier import verify as kimchi_verify
+
+    root = pathlib.Path(__file__).resolve().parent
+    times = run["times"]
+    for tag, (gates, witness), seed, changed in (
+            ("always-on gadgets", gate_mix.always_on_circuit(gate_mix.ALWAYS_ON_SEED),
+             gate_mix.ALWAYS_ON_SEED, "poseidon_selector"),
+            ("optional gates", gate_mix.optional_circuit(gate_mix.OPTIONAL_SEED),
+             gate_mix.OPTIONAL_SEED, "rot_selector")):
+        vector, n = VECTOR_PROOFS[tag]
+        srs = SRS(Vesta, run["srs"].g[:n], run["srs"].h, device)
+        key = tag.split()[0].replace("-", "_")
+
+        def build():
+            cs = ConstraintSystem.create(Fp, gates, public=0, max_poly_size=n, device=device)
+            return ProverIndex(cs, Vesta, srs)
+
+        index, times[f"index_vector_{key}_s"] = wall(build, device)
+        proof, prove_s = wall(lambda: create_proof(index, witness, TestRng(seed)), device)
+        times[f"prove_vector_{key}_ms"] = prove_s * 1e3
+        if serialize_proof(Vesta, proof) != (root / vector).read_bytes():
+            raise AssertionError(f"the {tag} proof differs from {vector}")
+        vk = index.verifier_index()
+        if tag == "optional gates":
+            out = root / "build" / "vk"
+            out.mkdir(parents=True, exist_ok=True)
+            vk.to_file(out / "vk_optional_2^13.bin")
+            if (out / "vk_optional_2^13.bin").read_bytes() != (root / VECTOR_VK).read_bytes():
+                raise AssertionError(f"the optional verifier-index file differs from {VECTOR_VK}")
+        if not kimchi_verify(vk, proof, [], TestRng(seed + 1)):
+            raise AssertionError(f"verify rejected the {tag} vector proof")
+        bad = copy.deepcopy(proof)
+        pt = getattr(bad.evals, changed)
+        pt.zeta[0] = (pt.zeta[0] + 1) % Fp.p
+        if kimchi_verify(vk, bad, [], TestRng(seed + 2)):
+            raise AssertionError(f"verify accepted the {tag} proof with a changed {changed}")
+        log(f"check: the {tag} proof (n = {n}) equals {vector} byte for byte"
+            + (f", its verifier-index file {VECTOR_VK}" if tag == "optional gates" else "")
+            + f"; it verifies and is rejected with a changed {changed} evaluation")
+    return {}
+
+
+# The gate mix of foreign-field ECDSA and Keccak gadgets at full width
+# (gate_mix.gate_mix_circuit), as many blocks as keep the domain at 2^k.
+OPT_SEED = SEED + 60
+
+
+def lookup_count(lcs) -> int:
+    """The lookups a witness makes: one a lookup of each pattern's row."""
+    return sum(sum(sel) * len(pat.lookups()) for pat, sel in lcs.selectors_d1.items())
+
+
+def optional_path(run, log_n: int, device) -> dict:
+    """The gate mix at k = log_n over the path's SRS: ConstraintSystem.create
+    and ProverIndex (timed), a proof of the fillers' witness with the host
+    time of the lookup argument's stages apart from the rest, verified,
+    rejected with a changed ForeignFieldMul selector evaluation."""
+    import copy
+
+    from proof_systems_tpu_torch.circuits import gate_mix
+    from proof_systems_tpu_torch.circuits import lookup as lookup_mod
+    from proof_systems_tpu_torch.circuits.constraints import ConstraintSystem
+    from proof_systems_tpu_torch.curves import Vesta
+    from proof_systems_tpu_torch.fields import Fp
+    from proof_systems_tpu_torch.prover import create_proof
+    from proof_systems_tpu_torch.prover_index import ProverIndex
+    from proof_systems_tpu_torch.utils.rng import TestRng
+    from proof_systems_tpu_torch.verifier import verify as kimchi_verify
+
+    n, times = 1 << log_n, run["times"]
+    (gates, witness, blocks), fill_s = wall(
+        lambda: gate_mix.gate_mix_circuit(n - 3, OPT_SEED), device)
+    times["opt_witness_fill_s"] = fill_s
+
+    def build():
+        cs = ConstraintSystem.create(Fp, gates, public=0, max_poly_size=n, device=device)
+        return ProverIndex(cs, Vesta, run["srs"])
+
+    index, times["index_opt_s"] = wall(build, device)
+    cs = index.cs
+    if cs.domain.d1.n != n or len(cs.feature_flags) != 6:
+        raise AssertionError(f"the gate-mix index: domain {cs.domain.d1.n}, "
+                             f"flags {sorted(g.name for g in cs.feature_flags)}")
+    lookups = lookup_count(cs.lookup_cs)
+    log(f"gate mix: {blocks} blocks of {gate_mix.BLOCK_ROWS} rows ({len(gates)} gates), "
+        f"{lookups} lookups, patterns {[p.value for p in cs.lookup_cs.info.patterns]}")
+    vk = index.verifier_index()
+    host = ("combined_table_d1", "sorted_multiset", "zk_patch", "aggregation")
+    with HostClock(lookup_mod, host) as clock:
+        proof, prove_s = wall(lambda: create_proof(index, witness, TestRng(OPT_SEED)), device)
+    times["prove_opt_ms"] = prove_s * 1e3
+    times["prove_opt_host_lookup_ms"] = sum(clock.seconds.values()) * 1e3
+    times["prove_opt_rest_ms"] = (prove_s - sum(clock.seconds.values())) * 1e3
+    for name, secs in clock.seconds.items():
+        times[f"prove_opt_{name}_ms"] = secs * 1e3
+    ok, verify_s = wall(lambda: kimchi_verify(vk, proof, [], TestRng(OPT_SEED + 1)), device)
+    times["verify_opt_ms"] = verify_s * 1e3
+    if not ok:
+        raise AssertionError("verify rejected the honest gate-mix proof")
+    bad = copy.deepcopy(proof)
+    pt = bad.evals.foreign_field_mul_selector
+    pt.zeta[0] = (pt.zeta[0] + 1) % Fp.p
+    if kimchi_verify(vk, bad, [], TestRng(OPT_SEED + 2)):
+        raise AssertionError("verify accepted the gate-mix proof with a changed "
+                             "foreign_field_mul_selector evaluation")
+    log(f"check: the gate-mix proof (k = {log_n}, {blocks} blocks, {lookups} lookups, every "
+        "optional gate) verifies and is rejected with a changed foreign_field_mul_selector "
+        "evaluation")
+    return dict(optional_index=index, optional_vk=vk, optional_proof=proof,
+                optional_witness=witness)
+
+
+def optional_steady(run, device) -> None:
+    """prove_ms and the peak device memory of one more gate-mix proof with no
+    recorder holding copies of kernel inputs; then one proof with the tracer
+    on (a synchronize before every checkpoint) and CUDA events around the
+    quotient's d8 transforms and its walk."""
+    from proof_systems_tpu_torch.circuits import expr
+    from proof_systems_tpu_torch.prover import create_proof
+    from proof_systems_tpu_torch.utils.rng import TestRng
+    from proof_systems_tpu_torch.utils.tracing import TRACER
+
+    index, times = run["optional_index"], run["times"]
+
+    def prove():
+        return create_proof(index, run["optional_witness"], TestRng(OPT_SEED))
+
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+        base = torch.cuda.memory_allocated(device)
+    _, prove_s = wall(prove, device)
+    times["prove_opt_steady_ms"] = prove_s * 1e3
+    if device.type == "cuda":
+        times["opt_proof_peak_gib"] = (torch.cuda.max_memory_allocated(device) - base) / 2**30
+        d8 = index.cs.domain.d8
+        TRACER.enable(hook=lambda: sync(device))
+        with Clock([(d8, "ntt_t", "d8_ntt"), (d8, "intt_t", "d8_ntt"),
+                    (expr, "eval_dev", "walk")]) as clock:
+            prove()
+        TRACER.disable()
+        for label, ms in clock.totals().items():
+            times[f"prove_opt_quotient_{label}_ms"] = ms
+        stage_of, stage = {cp: st for st, cp in PROOF_STAGES}, None
+        for name, secs in TRACER.intervals():
+            stage = stage_of.get(name, stage)
+            times[f"prove_opt_{stage}_ms"] = times.get(f"prove_opt_{stage}_ms", 0.0) + secs * 1e3
+
+
 def batch_path(run, device) -> dict:
     """One batch_verify over five proofs of four circuits on the path's SRS
     (the bench proof, the public-input proof, the recursion proof, the lookup
@@ -1672,9 +1859,9 @@ def batch_path(run, device) -> dict:
 
 
 def vk_file_path(run, device) -> dict:
-    """The bench, lookup and chunked verifier indexes through to_file into
-    build/ and from_file against the path's SRS: the digests are equal and
-    each reloaded index verifies its proof."""
+    """The bench, lookup, chunked and gate-mix verifier indexes through
+    to_file into build/ and from_file against the path's SRS: the digests
+    are equal and each reloaded index verifies its proof."""
     import pathlib
 
     from proof_systems_tpu_torch.utils.rng import TestRng
@@ -1683,7 +1870,7 @@ def vk_file_path(run, device) -> dict:
 
     out = pathlib.Path(__file__).resolve().parent / "build" / "vk"
     out.mkdir(parents=True, exist_ok=True)
-    for i, tag in enumerate(("bench", "lookup", "chunked")):
+    for i, tag in enumerate(("bench", "lookup", "chunked", "optional")):
         vk, proof = ((run["vk"], run["kproof"]) if tag == "bench" else
                      (run[f"{tag}_vk"], run[f"{tag}_proof"]))
         path = out / f"vk_{tag}.bin"
@@ -2146,10 +2333,11 @@ def residency_check(run) -> None:
 
 
 def new_paths(kernels, result, device, log_n: int, checked: set, verify_kernels) -> None:
-    """The recursion, chunked, lookup (a fixed and a runtime table), batch
-    and verifier-index-file paths, each counted (every kernel of a proof but K3
-    must launch; the batch and the files launch what a verification does),
-    then each one's kernel calls held against the plain versions."""
+    """The recursion, chunked, lookup (a fixed and a runtime table),
+    optional-gate vector, gate-mix, batch and verifier-index-file paths,
+    each counted (every kernel of a k = 16 proof but K3 must launch; the
+    vectors, the batch and the files launch what a verification does), then
+    each one's kernel calls held against the plain versions."""
     from proof_systems_tpu_torch.curves import Vesta
     from proof_systems_tpu_torch.native import native_curve
 
@@ -2165,9 +2353,13 @@ def new_paths(kernels, result, device, log_n: int, checked: set, verify_kernels)
         ("lookup", f"k = {log_n}, a fixed and a runtime table", every,
          lambda: {**lookup_path(result, log_n, device, runtime=False),
                   **lookup_path(result, log_n, device, runtime=True)}, None),
+        ("optional vector", "the gadget circuits' committed proofs, n = 32 and 8,192",
+         verify_kernels, lambda: vectors_path(result, device), None),
+        ("optional gates", f"k = {log_n}, the gate mix of ECDSA and Keccak gadgets", every,
+         lambda: optional_path(result, log_n, device), None),
         ("batch", "five proofs of four circuits", verify_kernels,
          lambda: batch_path(result, device), ("batch_verify_ms", "single_verify_sum_ms")),
-        ("vk files", "bench, lookup, chunked", verify_kernels,
+        ("vk files", "bench, lookup, chunked, gate mix", verify_kernels,
          lambda: vk_file_path(result, device), None),
     ]
     for tag, what, expect, fn, keys in phases:
@@ -2179,11 +2371,11 @@ def new_paths(kernels, result, device, log_n: int, checked: set, verify_kernels)
             log(f"{tag} path {k}: {times[k]:.4f}")
         check_path_calls(kernels, calls, tag.replace(" ", "_"), device, checked)
         del calls
-        if tag == "chunked":
-            chunked_steady(result, device)
-            for k in ("prove_chunked_steady_ms", "chunked_proof_peak_gib"):
-                if k in times:
-                    log(f"chunked path {k}: {times[k]:.4f}")
+        if tag in ("chunked", "optional gates"):
+            before = set(times)
+            (chunked_steady if tag == "chunked" else optional_steady)(result, device)
+            for k in sorted(set(times) - before):
+                log(f"{tag} path {k}: {times[k]:.4f}")
 
 
 def card_line() -> str:

@@ -1,8 +1,7 @@
 """Constraint system construction (kimchi/src/circuits/constraints.rs).
 
 Counterpart of proof_systems_tpu/circuits/constraints.py, host code as
-there, with the domains' plans on one device. A circuit with optional
-gates is refused for now (ROADMAP Queue 1 item 9).
+there, with the domains' plans on one device.
 
 Builds, from a gate list:
   - the d1..d8 domains with the zk_rows/domain-size fixpoint
@@ -11,7 +10,9 @@ Builds, from a gate list:
   - the permutation shifts (blake2b-sampled quadratic non-residues,
     permutation.rs:125-196) and σ columns from the wire cycles
     (constraints.rs:525-560, incl. the zk-row zeroing),
-  - selector and coefficient columns (constraints.rs:565-600),
+  - selector and coefficient columns (constraints.rs:565-600), an optional
+    gate's selector only where the circuit has that gate, which also sets
+    its feature flag,
   - the lookup constraint system of fixed and runtime tables.
 
 All columns are produced as host int vectors here; ProverIndex lifts
@@ -88,12 +89,6 @@ class ConstraintSystem:
         """The constraint system of `gates`; its domains' plans live on
         `device` (the CUDA card unless device="cpu")."""
         assert gates, "empty gate list"
-        optional = sorted({g.typ for g in gates if g.typ in OPTIONAL_GATE_ORDER})
-        if optional:
-            raise NotImplementedError(
-                f"optional gates {[g.name for g in optional]} are not ported yet "
-                "(ROADMAP Queue 1 item 9)"
-            )
         # lookup table length drives the domain fixpoint (constraints.rs:940-960)
         lookup_domain_size = 0
         info = LookupInfo.from_gates(gates, uses_runtime_tables=runtime_tables is not None)
@@ -167,6 +162,10 @@ class ConstraintSystem:
         features = set()
         for row, gate in enumerate(gates):
             if gate.typ in selectors:
+                selectors[gate.typ][row] = 1
+            elif gate.typ in OPTIONAL_GATE_ORDER:
+                features.add(gate.typ)
+                selectors.setdefault(gate.typ, [0] * n)
                 selectors[gate.typ][row] = 1
             elif gate.typ not in (GateType.Zero, GateType.Lookup):
                 features.add(gate.typ)

@@ -13,8 +13,26 @@ from __future__ import annotations
 from dataclasses import dataclass, field
 from typing import Optional
 
+from .circuits.gate import GateType
 from .poly_commitment.commitment import PolyComm
 from .poly_commitment.ipa import OpeningProof
+
+# The ProofEvaluations field of each gate's selector: the six always-on
+# gates, then the optional ones (set only where the circuit has the gate).
+SELECTOR_EVALS = {
+    GateType.Generic: "generic_selector",
+    GateType.Poseidon: "poseidon_selector",
+    GateType.CompleteAdd: "complete_add_selector",
+    GateType.VarBaseMul: "mul_selector",
+    GateType.EndoMul: "emul_selector",
+    GateType.EndoMulScalar: "endomul_scalar_selector",
+    GateType.RangeCheck0: "range_check0_selector",
+    GateType.RangeCheck1: "range_check1_selector",
+    GateType.ForeignFieldAdd: "foreign_field_add_selector",
+    GateType.ForeignFieldMul: "foreign_field_mul_selector",
+    GateType.Xor16: "xor_selector",
+    GateType.Rot64: "rot_selector",
+}
 
 
 @dataclass

@@ -49,8 +49,9 @@ from .proof import (
     ProofEvaluations,
     ProverCommitments,
     ProverProof,
+    SELECTOR_EVALS,
 )
-from .prover_index import ALWAYS_ON, ProverIndex
+from .prover_index import ALWAYS_ON, ProverIndex, optional_present
 from .utils.tracing import checkpoint
 from .verifier_index import sponge_for
 
@@ -96,8 +97,8 @@ def _quotient_fn(index: ProverIndex):
             {expr_mod.col_coeff(i): cd.coefficients8[:, i] for i in range(COLUMNS)}
         )
         columns[expr_mod.COL_Z] = z8
-        for g in ALWAYS_ON:
-            columns[expr_mod.col_index(g)] = cd.selector8[g]
+        for g, sel8 in cd.selector8.items():  # the always-on and the optional present
+            columns[expr_mod.col_index(g)] = sel8
 
         jt_coeff = None
         if lcs is not None:
@@ -460,15 +461,18 @@ def create_proof(
     pow_zw = poly.powers_dev(F, zeta_omega, srs_len, device=dev)
 
     # batched coefficient stack: [public, z, w x15, s x6, coeff x15, sel x6,
-    # then the lookup columns: sorted, aggregation, table, runtime table and
-    # its selector, pattern selectors]
+    # the optional selectors present (rows 44 .. 44 + n_opt - 1), then the
+    # lookup columns: sorted, aggregation, table, runtime table and its
+    # selector, pattern selectors]
+    opt_present = optional_present(cs)
+    n_opt = len(opt_present)
     parts = [
         public_coeffs,  # 1
         z_coeffs[:, None, :],  # 1
         w_coeffs,  # 15
         cd.sigma_coeff[:, : PERMUTS - 1],  # 6
         cd.coefficients_coeff,  # 15
-        torch.stack([cd.selector_coeff[g] for g in ALWAYS_ON], dim=1),  # 6
+        torch.stack([cd.selector_coeff[g] for g in ALWAYS_ON + opt_present], dim=1),  # 6 + n_opt
     ]
     if lcs is not None:
         ld = index.lookup_data
@@ -479,7 +483,7 @@ def create_proof(
         lk_pats = list(lcs.info.patterns)
         lk_stack += [ld["sel_coeff"][pat] for pat in lk_pats]
         parts += [lookup_ctx["sorted_coeffs"], torch.stack(lk_stack, dim=1)]
-    stack = torch.cat(parts, dim=1)  # (8, 44 + lookup columns, n)
+    stack = torch.cat(parts, dim=1)  # (8, 44 + n_opt + lookup columns, n)
     chunked = stack.reshape(NLIMBS, stack.shape[1] * nc, srs_len)
     ev_z, ev_zw = poly.eval_at2(F, chunked, pow_z, pow_zw)
 
@@ -499,12 +503,14 @@ def create_proof(
         emul_selector=pe(42),
         endomul_scalar_selector=pe(43),
     )
+    for i, g in enumerate(opt_present):
+        setattr(evals, SELECTOR_EVALS[g], pe(44 + i))
     if lcs is not None:
         ns = len(lookup_ctx["sorted_cols"])
-        evals.lookup_sorted = [pe(44 + i) for i in range(ns)] + [None] * (5 - ns)
-        evals.lookup_aggregation = pe(44 + ns)
-        evals.lookup_table = pe(45 + ns)
-        base = 46 + ns
+        evals.lookup_sorted = [pe(44 + n_opt + i) for i in range(ns)] + [None] * (5 - ns)
+        evals.lookup_aggregation = pe(44 + n_opt + ns)
+        evals.lookup_table = pe(45 + n_opt + ns)
+        base = 46 + n_opt + ns
         if has_runtime:
             evals.runtime_lookup_table = pe(base)
             evals.runtime_lookup_table_selector = pe(base + 1)
@@ -602,6 +608,8 @@ def create_proof(
         plnms.append((cd.coefficients_coeff[:, i], [0] * nc))
     for i in range(PERMUTS - 1):
         plnms.append((cd.sigma_coeff[:, i], [0] * nc))
+    for g in opt_present:  # not hiding, as in the verifier index
+        plnms.append((cd.selector_coeff[g], [0] * nc))
     if lcs is not None:
         for i in range(len(lookup_ctx["sorted_cols"])):
             plnms.append((lookup_ctx["sorted_coeffs"][:, i], lookup_ctx["sorted_blinders"][i]))

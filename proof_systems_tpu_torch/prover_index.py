@@ -10,6 +10,8 @@ iNTT and one batched NTT.
 Not ported, by design: the reference's disk cache of the verifier-index
 commitments (prover_index.py:210-315), which saved a TPU compile of
 minutes; here the b = 28 commit costs about as much as the witness commit.
+The selectors of the optional gates a circuit has follow the six always-on
+ones in the column batch and in that commit (b = 28 + their count).
 The lookup columns (table, table ids, pattern and runtime selectors) are one
 more batch of the same iNTT, d8 NTT and commit.
 """
@@ -27,6 +29,7 @@ from .circuits.alphas import Alphas, default_alphas
 from .circuits.constraints import ConstraintSystem
 from .circuits.gate import GateType
 from .circuits.polynomials import gates as gate_constraints
+from .circuits.polynomials import optional_gates
 from .curves import CurveParams, Pallas, Vesta
 from .ops import limb, poly
 from .verifier_index import LookupVerifierIndex, VerifierIndex
@@ -41,17 +44,23 @@ ALWAYS_ON = [
 ]
 
 
+def optional_present(cs) -> list[GateType]:
+    """The optional gates the circuit has, in OPTIONAL_GATE_ORDER: the order
+    of their selectors after the always-on ones everywhere (columns, vk
+    commit, evaluations, opening)."""
+    return [g for g in optional_gates.OPTIONAL_GATE_ORDER if g in cs.selectors_d1]
+
+
 def build_linearization(f, feature_flags, lookup_cs):
     """Full constraint AST and alpha registry (linearization.rs:43-367;
-    constant term only: berkeley index_terms are empty). The optional gates
-    are not ported yet (ROADMAP Queue 1 item 9).
+    constant term only: berkeley index_terms are empty). Each optional gate
+    of feature_flags adds index(g) * sum_i alpha^i c_i, in
+    OPTIONAL_GATE_ORDER, before the lookup term.
 
     lookup_cs only needs `.info`, `.table_ids` and `.runtime_selector_d1`
     (a deserialized VerifierIndex passes a shadow object with just those;
     see serialization.deserialize_verifier_index). Returns (alphas,
     linearization_expr)."""
-    if feature_flags:
-        raise NotImplementedError("optional gates: ROADMAP Queue 1 item 9")
     lookup_constraints = None
     nlookup = 0
     if lookup_cs is not None:
@@ -62,6 +71,14 @@ def build_linearization(f, feature_flags, lookup_cs):
     for g in ALWAYS_ON:
         term = gate_constraints.combined(g, f, alphas)
         total = term if total is None else total + term
+    for g in optional_gates.OPTIONAL_GATE_ORDER:
+        if feature_flags and g in feature_flags:  # None: no optional gate
+            constraints = optional_gates.OPTIONAL_GATE_BUILDERS[g](f)
+            exps = alphas.get_exponents("gate", len(constraints))
+            term = expr_mod.Cell(expr_mod.col_index(g), 0) * expr_mod.combine_constraints(
+                exps, constraints
+            )
+            total = total + term
     if lookup_constraints is not None:
         exps = alphas.get_exponents("lookup", len(lookup_constraints))
         total = total + expr_mod.combine_constraints(exps, lookup_constraints)
@@ -76,7 +93,7 @@ class ColumnData:
     sigma8: Any  # (8, 7, 8n)
     coefficients_coeff: Any  # (8, 15, n)
     coefficients8: Any  # (8, 15, 8n)
-    selector_coeff: dict  # GateType -> (8, n)
+    selector_coeff: dict  # GateType -> (8, n), ALWAYS_ON then the optional ones present
     selector8: dict  # GateType -> (8, 8n)
     zkpl8: Any  # permutation vanishing poly on d8 (8, 8n)
     vanishes_zk_prev8: Any  # vanishes_on_last_n_rows(zk+1) on d8
@@ -119,7 +136,8 @@ class ProverIndex:
         d1, d8 = cs.domain.d1, cs.domain.d8
         n = d1.n
 
-        host_cols = cs.sigma_d1 + cs.coefficients_d1 + [cs.selectors_d1[g] for g in ALWAYS_ON]
+        sel_order = ALWAYS_ON + optional_present(cs)
+        host_cols = cs.sigma_d1 + cs.coefficients_d1 + [cs.selectors_d1[g] for g in sel_order]
         arr = F.pack_mont([v for col in host_cols for v in col], shape=(len(host_cols), n),
                           device=dev)
         coeffs = d1.intt_t(arr, d1.inv_twiddles)
@@ -149,8 +167,8 @@ class ProverIndex:
             sigma8=evals8[:, :7],
             coefficients_coeff=coeffs[:, 7:22],
             coefficients8=evals8[:, 7:22],
-            selector_coeff={g: coeffs[:, 22 + i] for i, g in enumerate(ALWAYS_ON)},
-            selector8={g: evals8[:, 22 + i] for i, g in enumerate(ALWAYS_ON)},
+            selector_coeff={g: coeffs[:, 22 + i] for i, g in enumerate(sel_order)},
+            selector8={g: evals8[:, 22 + i] for i, g in enumerate(sel_order)},
             zkpl8=prod_of_linear(zkpl_roots),
             vanishes_zk_prev8=prod_of_linear(vzp_roots),
             x_d8=x_d8,
@@ -195,24 +213,30 @@ class ProverIndex:
 
     # -- verifier index ----------------------------------------------------
 
-    def _compute_vk_comms(self) -> tuple[list, "LookupVerifierIndex | None"]:
+    def _compute_vk_comms(self) -> tuple[list, dict, "LookupVerifierIndex | None"]:
         """The 28 column commitments (7 sigma, 15 coefficients, 6 selectors)
-        in one b = 28 commit; the selectors are fixed-hiding (+1*H,
-        verifier_index.rs:173). Returns them and the lookup index."""
+        and those of the optional selectors present, in one b = 28 + n_opt
+        commit; the six always-on selectors are fixed-hiding (+1*H,
+        verifier_index.rs:173), the optional ones are not, as in the JAX
+        package. Returns them, the optional ones by gate, and the lookup
+        index."""
         cd = self.column_data
+        opt = optional_present(self.cs)
         all_coeffs = torch.cat(
             [
                 cd.sigma_coeff,
                 cd.coefficients_coeff,
-                torch.stack([cd.selector_coeff[g] for g in ALWAYS_ON], dim=1),
+                torch.stack([cd.selector_coeff[g] for g in ALWAYS_ON + opt], dim=1),
             ],
             dim=1,
-        )  # (8, 28, n)
+        )  # (8, 28 + n_opt, n)
         comms = self.srs.commit_coeffs_dev(all_coeffs, self.num_chunks)
+        opt_comms = {g: comms[28 + i] for i, g in enumerate(opt)}
+        comms = comms[:28]
         ones = [1] * self.num_chunks
         for i in range(22, 28):
             comms[i] = self.srs.mask(comms[i], ones)
-        return comms, self._compute_lookup_vk()
+        return comms, opt_comms, self._compute_lookup_vk()
 
     def _compute_lookup_vk(self) -> LookupVerifierIndex | None:
         """The lookup columns' commitments in one batch; the table's columns
@@ -246,7 +270,7 @@ class ProverIndex:
 
     def verifier_index(self) -> VerifierIndex:
         if self._verifier_index is None:
-            comms, lookup_vk = self._compute_vk_comms()
+            comms, opt_comms, lookup_vk = self._compute_vk_comms()
             self._verifier_index = VerifierIndex(
                 curve=self.curve,
                 domain=self.cs.domain.d1,
@@ -269,5 +293,11 @@ class ProverIndex:
                 alphas=self.alphas,
                 zk_w=self.cs.zk_w(),
                 lookup_index=lookup_vk,
+                range_check0_comm=opt_comms.get(GateType.RangeCheck0),
+                range_check1_comm=opt_comms.get(GateType.RangeCheck1),
+                foreign_field_add_comm=opt_comms.get(GateType.ForeignFieldAdd),
+                foreign_field_mul_comm=opt_comms.get(GateType.ForeignFieldMul),
+                xor_comm=opt_comms.get(GateType.Xor16),
+                rot_comm=opt_comms.get(GateType.Rot64),
             )
         return self._verifier_index

@@ -32,18 +32,19 @@ from .poly_commitment.commitment import (
 )
 from .poly_commitment.ipa import BatchEvaluationProof, Evaluation, verify_batch
 from .poseidon import ScalarChallenge, fp_kimchi, fq_kimchi
-from .proof import ProverProof
+from .proof import SELECTOR_EVALS, ProverProof
 from .prover import fr_sponge_for
 from .verifier_index import VerifierIndex, sponge_for
 
-# Selector evaluations read by the constant term's `index` cells.
-_SELECTOR_EVALS = {
-    GateType.Generic: "generic_selector",
-    GateType.Poseidon: "poseidon_selector",
-    GateType.CompleteAdd: "complete_add_selector",
-    GateType.VarBaseMul: "mul_selector",
-    GateType.EndoMul: "emul_selector",
-    GateType.EndoMulScalar: "endomul_scalar_selector",
+# The optional selectors' commitments, in the order of the batch after
+# sigma (verifier.rs; the JAX package's verifier.py:353-362).
+_OPTIONAL_COMMS = {
+    GateType.RangeCheck0: "range_check0_comm",
+    GateType.RangeCheck1: "range_check1_comm",
+    GateType.ForeignFieldAdd: "foreign_field_add_comm",
+    GateType.ForeignFieldMul: "foreign_field_mul_comm",
+    GateType.Xor16: "xor_comm",
+    GateType.Rot64: "rot_comm",
 }
 # Evaluations of the lookup columns, by column tag, and of the pattern
 # selectors (the `lookup_kind` cells), in LookupPattern's order.
@@ -214,7 +215,7 @@ def oracles(
         elif col[0] == "lookup_kind":
             pt = getattr(evals, _LOOKUP_SELECTOR_EVALS[LookupPattern(col[1])])
         elif col[0] == "index":
-            pt = getattr(evals, _SELECTOR_EVALS[GateType(col[1])])
+            pt = getattr(evals, SELECTOR_EVALS[GateType(col[1])])
         else:
             raise KeyError(col)
         return pt.zeta[0] if row == expr_mod.CURR else pt.zeta_omega[0]
@@ -338,6 +339,9 @@ def to_batch(vk: VerifierIndex, proof: ProverProof, public_input: list[int]) -> 
     cols += [(proof.commitments.w_comm[i], proof.evals.w[i]) for i in range(COLUMNS)]
     cols += [(vk.coefficients_comm[i], proof.evals.coefficients[i]) for i in range(COLUMNS)]
     cols += [(vk.sigma_comm[i], proof.evals.s[i]) for i in range(PERMUTS - 1)]
+    for g, comm_attr in _OPTIONAL_COMMS.items():
+        if getattr(vk, comm_attr) is not None:
+            cols.append((getattr(vk, comm_attr), getattr(proof.evals, SELECTOR_EVALS[g])))
     if vk.lookup_index is not None:
         cols += _lookup_columns(vk, proof, o.joint_combiner)
     for commv, pt in cols:

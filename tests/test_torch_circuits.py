@@ -141,12 +141,17 @@ def test_prover_index_columns_match_jax(pair):
 
 
 def test_unported_gates_are_refused():
-    """A circuit with an optional gate (ROADMAP Queue 1 item 9) is refused,
-    not proved wrongly; a lookup gate, ported since, gets its lookup
-    constraint system and no feature flag."""
+    """No gate is refused any more: an Xor16 circuit gets its feature flag,
+    its selector (set on its row only) and the Xor lookup pattern into the
+    XOR table; a Lookup circuit gets its lookup constraint system and no
+    feature flag."""
     gates = bench_circuit(Fp, 4) + [CircuitGate(GateType.Xor16, new_wires(4), [])]
-    with pytest.raises(NotImplementedError, match="item 9"):
-        ConstraintSystem.create(Fp, gates, device="cpu")
+    cs = ConstraintSystem.create(Fp, gates, device="cpu")
+    assert cs.feature_flags == {GateType.Xor16}
+    assert [r for r, v in enumerate(cs.selectors_d1[GateType.Xor16]) if v] == [4]
+    assert [p.value for p in cs.lookup_cs.info.patterns] == ["xor"]
+    assert cs.lookup_cs.table_ids is None and cs.domain.d1.n == 512
     gates = bench_circuit(Fp, 4) + [CircuitGate(GateType.Lookup, new_wires(4), [])]
     cs = ConstraintSystem.create(Fp, gates, device="cpu")
     assert cs.lookup_cs is not None and not cs.feature_flags
+    assert set(cs.selectors_d1) == set(ALWAYS_ON)

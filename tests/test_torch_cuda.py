@@ -876,3 +876,34 @@ def test_new_path_jacobian_add_shapes(dev, shape):
     got, want = _pair("jacobian_add", dc.F, *p, *q)
     for x, y in zip(got, want):
         assert torch.equal(x, y), shape
+
+
+# Call shapes that the optional-gate paths add (chip_smoke.py's recorded calls
+# of the gate mix at k = 16): K1 on the 34 index columns (28 + the six
+# optional selectors); K6 mixed, K7 and K2 on the 17-column halves of the
+# b = 34 verifier-index commit.
+@pytest.mark.parametrize("name,n,arg", [("mont_mul", 34 << 18, None)], ids=str)
+def test_optional_path_field_shapes_match_plain(dev, name, n, arg):
+    test_new_path_field_shapes_match_plain(dev, name, n, arg)
+
+
+def test_optional_path_vk_msm_scan_matches_plain(dev):
+    """K6 (mixed) at 24 x 17 x 65,537 (as 408 rows) as the wrapper launches
+    it, against the plain version as group elements."""
+    rng = random.Random(624)
+    dc, pts = _k6_rows(rng, dev, 24 * 17, 65537, True)
+    want_p, want_e, want_cp = kernels.ec_prefix_scan_parts_plain(dc.F, *pts, mixed=True)
+    part, excl, cp = kernels.ec_prefix_scan_parts(dc.F, *pts, mixed=True)
+    assert cp == want_cp
+    assert _same_points(dc, part, want_p) and _same_points(dc, excl, want_e)
+
+
+@pytest.mark.parametrize("shape", [(24, 17, 2047)], ids=lambda s: "x".join(map(str, s)))
+def test_optional_path_ec_scan_fused_shapes(dev, shape):
+    test_new_path_ec_scan_fused_shapes(dev, shape)
+
+
+@pytest.mark.parametrize("shape", [(24, 17, 4096), (24, 17, 2048), (24, 17, 1)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_optional_path_jacobian_add_shapes(dev, shape):
+    test_new_path_jacobian_add_shapes(dev, shape)

@@ -49,7 +49,28 @@ def test_importing_every_module_loads_no_jax():
         [sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=300
     )
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 12
+    assert int(out.stdout.strip()) >= 18
+
+
+# The host modules of the optional gates, the witness builders, the checker
+# and the snarky front end (each a copy of the JAX package's host code).
+HOST_MODULES = ["circuits.polynomials.optional_gates", "circuits.polynomials.optional_witness",
+                "circuits.polynomials.witness_gen", "circuits.checker", "circuits.snarky",
+                "circuits.gate_mix"]
+
+
+@pytest.mark.parametrize("module", HOST_MODULES)
+def test_host_module_loads_no_jax(module):
+    code = (
+        "import importlib, sys\n"
+        f"importlib.import_module('proof_systems_tpu_torch.{module}')\n"
+        "bad = {k.split('.')[0] for k in sys.modules} & {'jax', 'jaxlib', 'proof_systems_tpu'}\n"
+        "assert not bad, bad\n"
+    )
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=300
+    )
+    assert out.returncode == 0, out.stderr
 
 
 def _stub_vk_file(path) -> None:
@@ -75,6 +96,7 @@ def _entry_points(tmp_path):
     import numpy as np
 
     from proof_systems_tpu_torch import convert, verifier
+    from proof_systems_tpu_torch.circuits import gate_mix
     from proof_systems_tpu_torch.circuits.constraints import ConstraintSystem
     from proof_systems_tpu_torch.circuits.gate import CircuitGate, GateType, new_wires
     from proof_systems_tpu_torch.circuits.lookup import LookupTable
@@ -112,13 +134,16 @@ def _entry_points(tmp_path):
         "convert.limbs_from_numpy": lambda: convert.limbs_from_numpy(np.zeros((16, 2), np.uint32)),
         "ConstraintSystem.create[lookup]": lambda: ConstraintSystem.create(
             Fp, lookup_gates, fixed_lookup_tables=[table]),
+        "ConstraintSystem.create[optional]": lambda: ConstraintSystem.create(
+            Fp, gate_mix.optional_circuit(gate_mix.OPTIONAL_SEED)[0]),
         "VerifierIndex.from_file": from_file,
         "batch_verify": batch_verify,
     }
 
 
 @pytest.mark.parametrize("name", ["SRS.create", "ntt_plan", "msm.msm", "convert.limbs_from_numpy",
-                                  "ConstraintSystem.create[lookup]", "VerifierIndex.from_file",
+                                  "ConstraintSystem.create[lookup]",
+                                  "ConstraintSystem.create[optional]", "VerifierIndex.from_file",
                                   "batch_verify"])
 def test_entry_points_default_to_cuda(name, tmp_path):
     """With no device given, an entry point asks for the card; without one
