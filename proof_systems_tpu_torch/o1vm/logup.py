@@ -1,0 +1,446 @@
+"""LogUp: lookups via logarithmic derivatives (msm/src/logup.rs,
+o1vm/src/pickles/lookup_{prover,verifier}.rs).
+
+Counterpart of proof_systems_tpu/o1vm/logup.py. The host code is the JAX
+package's, copied as it is (the same dict orders and the same Python
+inverses); the packed columns go to the device the caller names (the card
+unless device="cpu") and prove through o1vm/pickles.prove_columns.
+
+Protocol (eprint 2022/1530, PlonK-quotient variant — logup.rs:14-100):
+(a_i) is included in table (b_i) with multiplicities m iff
+
+    sum_j  1/(beta + f_j(w^i))  ==  sum_i  m(w^i)/(beta + t(w^i)).
+
+Per row the "inner sum" h = sum_j 1/(beta+f_j) - m/(beta+t) is folded
+into a running accumulator phi with phi(w^{i+1}) = phi(w^i) + h(w^i);
+the cyclic telescoping over H forces sum h = 0 without any boundary
+constraint. The constraint is degree-cleared (logup.rs eq. (5)):
+
+  (phi_next - phi_curr) * (beta+t) * prod_j (beta+f_j)
+    == (beta+t) * sum_j prod_{i!=j} (beta+f_i)  -  m * prod_j (beta+f_j)
+
+beta is squeezed AFTER committing f, t, m (two-phase prove_columns);
+phi is the only beta-dependent column.
+
+Multiplicity counting, phi and the h columns are host setup per proof, one
+Python inverse a lookup; limb.batch_inverse and a prefix sum are the path
+that would move them to the device.
+"""
+
+from __future__ import annotations
+
+from collections import Counter
+
+from ..circuits import expr as E
+from ..runtime import resolve_device
+from .pickles import col
+
+
+def range_table(bits: int, n: int) -> list[int]:
+    """[0, 2^bits) range-check table padded with zeros to n rows."""
+    assert (1 << bits) <= n
+    return list(range(1 << bits)) + [0] * (n - (1 << bits))
+
+
+def multiplicities(lookups: list[list[int]], table: list[int], p: int) -> list[int]:
+    """m[i] = how many times table[i] is looked up. Duplicate table
+    entries (zero padding) carry the count on their first occurrence."""
+    counts = Counter(v % p for row in lookups for v in row)
+    first: dict[int, int] = {}
+    for i, t in enumerate(table):
+        first.setdefault(t % p, i)
+    m = [0] * len(table)
+    for v, c in counts.items():
+        if v not in first:
+            raise ValueError(f"looked-up value {v} not in table")
+        m[first[v]] += c
+    return m
+
+
+def phi_column(
+    lookups: list[list[int]], table: list[int], m: list[int], beta: int, p: int
+) -> list[int]:
+    """The running aggregator: phi[0] = 0, phi[i+1] = phi[i] + h[i];
+    wraps to zero exactly when the lookup relation holds."""
+    n = len(table)
+    phi = [0] * n
+    acc = 0
+    for i in range(n):
+        h = 0
+        for v in lookups[i]:
+            h += pow((beta + v) % p, -1, p)
+        h -= m[i] * pow((beta + table[i]) % p, -1, p)
+        phi[i] = acc
+        acc = (acc + h) % p
+    if acc != 0:
+        raise ValueError("logup relation does not hold: phi does not wrap to 0")
+    return phi
+
+
+def logup_constraint(k: int, f_idx: list[int], t_idx: int, m_idx: int, phi_idx: int) -> E.Expr:
+    """The cleared-denominator constraint over column indices (logup.rs
+    eq. (5)); degree k + 2."""
+    beta = E.Challenge("beta")
+    f = [beta + E.Cell(col(i), E.CURR) for i in f_idx]
+    t = beta + E.Cell(col(t_idx), E.CURR)
+    m = E.Cell(col(m_idx), E.CURR)
+    phi = E.Cell(col(phi_idx), E.CURR)
+    phi_next = E.Cell(col(phi_idx), E.NEXT)
+
+    prod_f: E.Expr = E.Literal(1)
+    for fj in f:
+        prod_f = prod_f * fj
+    sum_partials: E.Expr = E.Literal(0)
+    for j in range(k):
+        part: E.Expr = E.Literal(1)
+        for i in range(k):
+            if i != j:
+                part = part * f[i]
+        sum_partials = sum_partials + part
+    return (phi_next - phi) * t * prod_f - (t * sum_partials - m * prod_f)
+
+
+class LogupInstance:
+    """Bundle: lookup columns + table + multiplicities, ready for the
+    two-phase column prover. Column order: [f_1..f_k, t, m, | phi]."""
+
+    def __init__(self, f_field, lookups: list[list[int]], table: list[int]):
+        self.f = f_field
+        p = f_field.p
+        self.k = len(lookups[0])
+        assert all(len(r) == self.k for r in lookups)
+        self.lookups = [[v % p for v in row] for row in lookups]
+        self.table = [t % p for t in table]
+        self.m = multiplicities(self.lookups, self.table, p)
+
+    def phase1_columns(self) -> list[list[int]]:
+        fcols = [[row[j] for row in self.lookups] for j in range(self.k)]
+        return fcols + [self.table, self.m]
+
+    def make_beta_columns(self, F, device=None):
+        dev = resolve_device(device)
+
+        def build(beta: int):
+            phi = phi_column(self.lookups, self.table, self.m, beta, self.f.p)
+            return F.pack_mont(phi, shape=(1, len(phi)), device=dev)
+
+        return build
+
+    def constraint(self) -> E.Expr:
+        k = self.k
+        return logup_constraint(k, list(range(k)), k, k + 1, k + 2)
+
+    def prove(self, domain, srs, curve, rng, device=None):
+        """On `device`: the card unless the caller passes device="cpu"."""
+        from ..ops import limb
+        from .pickles import prove_columns
+
+        F = limb.device_field(curve.scalar)
+        dev = resolve_device(device)
+        cols = self.phase1_columns()
+        n = len(self.table)
+        packed = F.pack_mont([v for c in cols for v in c], shape=(len(cols), n), device=dev)
+        return prove_columns(
+            domain, srs, curve, packed, [self.constraint()], rng,
+            make_beta_columns=self.make_beta_columns(F, dev), device=dev,
+        )
+
+    def verify(self, domain, srs, curve, proof, rng) -> bool:
+        from .pickles import verify_columns
+
+        return verify_columns(
+            domain, srs, curve, [self.constraint()], proof, rng, num_beta_columns=1
+        )
+
+
+# ---------------------------------------------------------------------------
+# Signed multi-table LogUp (msm/src/logup.rs, o1vm/src/ramlookup.rs).
+#
+# Generalizes LogupInstance to the full zkVM lookup environment:
+#   - many tables (fixed range/byte/bitwise tables AND dynamic RAM
+#     tables), identified by a table_id folded into the denominator,
+#   - vector-valued lookups combined with a joint combiner j squeezed
+#     before beta (logup.rs:646-649): key = table_id + sum_i j^{i+1} v_i,
+#   - SIGNED numerators (write +1, read -1 — ramlookup.rs:46-51), which
+#     is what makes the offline memory-checking argument work,
+#   - per-row slot lists chunked into h partial-sum columns of at most
+#     CHUNK slots (logup.rs:462-468 MAX_SUPPORTED_DEGREE - 2) plus one
+#     phi aggregation column with phi(wX) - phi(X) = sum_i h_i(X);
+#     cyclic telescoping forces the global signed sum to zero.
+#
+# Column layout appended after the caller's C trace columns:
+#   phase 1:  [table components + multiplicity col per fixed table]
+#   phase 2:  [h_0 .. h_{H-1}, phi]
+# Fixed-table component columns are committed with the trace; the
+# VERIFIER independently recommits the known tables and compares
+# (verify_tables), pinning them — the reference keeps these commitments
+# in its setup for the same reason.
+# ---------------------------------------------------------------------------
+
+CHUNK = 6  # slots per h column (MAX_SUPPORTED_DEGREE - 2, logup.rs:462)
+
+
+class FixedTable:
+    """A fixed lookup table: `columns` is a list of component columns
+    (width w), each of length <= n (padded with its last entry's zeros
+    implied — entries beyond len are all-zero rows whose multiplicity
+    lands on the first all-zero entry if looked up)."""
+
+    def __init__(self, table_id: int, name: str, columns: list[list[int]]):
+        assert columns and all(len(c) == len(columns[0]) for c in columns)
+        self.table_id = table_id
+        self.name = name
+        self.columns = columns
+        self.width = len(columns)
+        self.length = len(columns[0])
+
+
+def range_table_fixed(table_id: int, bits: int) -> FixedTable:
+    return FixedTable(table_id, f"range{bits}", [list(range(1 << bits))])
+
+
+BITWISE_AND, BITWISE_OR, BITWISE_XOR, BITWISE_NOR = 0, 1, 2, 3
+
+
+def bitwise_table(table_id: int, bits: int = 4) -> FixedTable:
+    """(op, x, y, z) for all `bits`-wide x,y and op in {AND,OR,XOR,NOR}:
+    4·4^bits entries (the reference amortizes with ByteLookup + sparse
+    tricks; a chunk product table is the flat version).
+    bits=4 (1024 entries) for production, bits=2 (64) for small test
+    domains."""
+    mask = (1 << bits) - 1
+    ops, xs, ys, zs = [], [], [], []
+    for op, fn in (
+        (BITWISE_AND, lambda a, b: a & b),
+        (BITWISE_OR, lambda a, b: a | b),
+        (BITWISE_XOR, lambda a, b: a ^ b),
+        (BITWISE_NOR, lambda a, b: mask - (a | b)),
+    ):
+        for x in range(1 << bits):
+            for y in range(1 << bits):
+                ops.append(op)
+                xs.append(x)
+                ys.append(y)
+                zs.append(fn(x, y))
+    return FixedTable(table_id, f"bitwise{bits}", [ops, xs, ys, zs])
+
+
+class LookupSpec:
+    """Constraint-side description of one lookup slot: `numerator` is
+    the signed magnitude expression (deg <= 2), `values` the vector of
+    looked-up component expressions (each deg <= 1 so the denominator
+    stays degree 1 — logup.rs:376-379)."""
+
+    def __init__(self, table_id: int, numerator: E.Expr, values: list[E.Expr]):
+        self.table_id = table_id
+        self.numerator = numerator
+        self.values = values
+
+
+class MultiLogup:
+    """Bundle the slot specs + fixed tables into phase-1/phase-2 column
+    builders and constraints for the two-phase column prover
+    (pickles.prove_columns with with_joint_combiner=True)."""
+
+    def __init__(self, f_field, specs: list[LookupSpec], tables: list[FixedTable], n: int, trace_cols: int):
+        self.f = f_field
+        self.n = n
+        self.C = trace_cols
+        self.tables = tables
+        for t in tables:
+            assert t.length <= n, f"table {t.name} ({t.length}) exceeds domain {n}"
+        # phase-1 extra column indices
+        idx = trace_cols
+        self.table_col: dict[int, list[int]] = {}
+        self.m_col: dict[int, int] = {}
+        for t in tables:
+            self.table_col[t.table_id] = [idx + i for i in range(t.width)]
+            idx += t.width
+            self.m_col[t.table_id] = idx
+            idx += 1
+        self.phase1_end = idx
+        # full slot list: caller specs then one -m slot per fixed table
+        self.specs = list(specs)
+        for t in tables:
+            self.specs.append(
+                LookupSpec(
+                    t.table_id,
+                    E.Literal(0) - E.Cell(col(self.m_col[t.table_id]), E.CURR),
+                    [E.Cell(col(c), E.CURR) for c in self.table_col[t.table_id]],
+                )
+            )
+        self.nchunks = -(-len(self.specs) // CHUNK)
+        self.h_cols = [idx + i for i in range(self.nchunks)]
+        self.phi_col = idx + self.nchunks
+        self.num_phase2 = self.nchunks + 1
+
+    # -- constraint side ----------------------------------------------------
+
+    def _denominator(self, spec: LookupSpec) -> E.Expr:
+        j = E.Challenge("joint_combiner")
+        combined: E.Expr = E.Literal(0)
+        for v in reversed(spec.values):
+            combined = combined * j + v
+        return E.Challenge("beta") + combined * j + E.Literal(spec.table_id)
+
+    def constraints(self) -> list[E.Expr]:
+        out = []
+        for ci in range(self.nchunks):
+            chunk = self.specs[ci * CHUNK : (ci + 1) * CHUNK]
+            dens = [self._denominator(s) for s in chunk]
+            lhs: E.Expr = E.Cell(col(self.h_cols[ci]), E.CURR)
+            for d in dens:
+                lhs = lhs * d
+            rhs: E.Expr = E.Literal(0)
+            for i, s in enumerate(chunk):
+                term: E.Expr = s.numerator
+                for k, d in enumerate(dens):
+                    if k != i:
+                        term = term * d
+                rhs = rhs + term
+            out.append(lhs - rhs)
+        phi = E.Cell(col(self.phi_col), E.CURR)
+        phi_next = E.Cell(col(self.phi_col), E.NEXT)
+        agg = phi_next - phi
+        for hc in self.h_cols:
+            agg = agg - E.Cell(col(hc), E.CURR)
+        out.append(agg)
+        return out
+
+    # -- witness side (host exact ints; traces are short relative to the
+    #    kimchi prover's hot loops — device batch-inversion is the
+    #    documented scale-up path, ops/limb.batch_inverse) --------------
+
+    def _eval_rows(self, expr: E.Expr, cols: list[list[int]]):
+        """Evaluate a (deg-bounded) expr at every row; NEXT wraps."""
+        from ..circuits.expr import HostEvalContext, eval_host
+
+        p = self.f.p
+        n = self.n
+        out = []
+        for i in range(n):
+            ctx = HostEvalContext(
+                f=self.f,
+                get_cell=lambda c, row, i=i: cols[c[1]][(i + row) % n],
+                challenges={},
+                endo=0,
+                mds=[],
+                point=0,
+                domain_n=n,
+                omega=0,
+                zk_rows=0,
+            )
+            out.append(eval_host(expr, ctx))
+        return out
+
+    def phase1_columns(self, trace_cols: list[list[int]]) -> list[list[int]]:
+        """Given the C trace columns, append padded table components and
+        multiplicity columns. Multiplicities are counted from the
+        caller-spec lookups (raw tuples, before joint combination)."""
+        n = self.n
+        p = self.f.p
+        assert len(trace_cols) == self.C
+        cols = [list(c) for c in trace_cols]
+        table_first: dict[int, dict[tuple, int]] = {}
+        for t in self.tables:
+            comp = [c + [0] * (n - t.length) for c in t.columns]
+            cols.extend(comp)
+            first: dict[tuple, int] = {}
+            for i in range(n):
+                key = tuple(c[i] % p for c in comp)
+                first.setdefault(key, i)
+            table_first[t.table_id] = first
+            cols.append([0] * n)  # m, filled below
+        m_counts: dict[int, list[int]] = {t.table_id: [0] * n for t in self.tables}
+        ncaller = len(self.specs) - len(self.tables)
+        for s in self.specs[:ncaller]:
+            if s.table_id not in table_first:
+                continue  # RAM table: balances against its own writes
+            nums = self._eval_rows(s.numerator, cols)
+            vals = [self._eval_rows(v, cols) for v in s.values]
+            first = table_first[s.table_id]
+            for i in range(n):
+                if nums[i] == 0:
+                    continue
+                key = tuple(v[i] for v in vals)
+                if key not in first:
+                    raise ValueError(
+                        f"lookup {key} not in table {s.table_id} (row {i})"
+                    )
+                m_counts[s.table_id][first[key]] = (
+                    m_counts[s.table_id][first[key]] + nums[i]
+                ) % p
+        for t in self.tables:
+            cols[self.m_col[t.table_id]] = m_counts[t.table_id]
+        self._cols_phase1 = cols
+        return cols
+
+    def phase2_host(self, beta: int, joint: int) -> list[list[int]]:
+        """h chunk columns + phi given the squeezed challenges (host
+        exact). Raises if the global signed sum is nonzero (the lookup
+        relation does not hold)."""
+        p = self.f.p
+        n = self.n
+        cols = self._cols_phase1
+        slot_terms = []
+        for s in self.specs:
+            nums = self._eval_rows(s.numerator, cols)
+            vals = [self._eval_rows(v, cols) for v in s.values]
+            terms = []
+            for i in range(n):
+                combined = 0
+                for v in reversed(vals):
+                    combined = (combined * joint + v[i]) % p
+                den = (beta + combined * joint + s.table_id) % p
+                terms.append(nums[i] * pow(den, -1, p) % p if nums[i] else 0)
+            slot_terms.append(terms)
+        h_cols = []
+        for ci in range(self.nchunks):
+            chunk = slot_terms[ci * CHUNK : (ci + 1) * CHUNK]
+            h_cols.append([sum(t[i] for t in chunk) % p for i in range(n)])
+        phi = [0] * n
+        acc = 0
+        for i in range(n):
+            phi[i] = acc
+            acc = (acc + sum(h[i] for h in h_cols)) % p
+        if acc != 0:
+            raise ValueError("logup relation does not hold: phi != 0 wrap")
+        return h_cols + [phi]
+
+    def make_phase2(self, F, device=None):
+        """-> callable(beta, joint) returning packed (8, H+1, n) on `device`
+        (the card unless device="cpu")."""
+        dev = resolve_device(device)
+
+        def build(beta: int, joint: int):
+            cols2 = self.phase2_host(beta, joint)
+            flat = [v for hc in cols2 for v in hc]
+            return F.pack_mont(flat, shape=(self.num_phase2, self.n), device=dev)
+
+        return build
+
+    # -- verifier-side table pinning -----------------------------------
+
+    def verify_tables(self, domain, srs, proof) -> bool:
+        """Recommit every padded fixed-table component column and check
+        the proof's phase-1 commitments at the table offsets match.
+        Fixed tables are public — a prover substituting its own 'table'
+        must be caught here (the reference pins them via precomputed
+        setup commitments). Trace commitments are hiding but table
+        commitments are committed with the same +H blinder=1 mask, so we
+        reproduce it exactly. The commits run on the SRS's device."""
+        from ..ops import limb as limb_mod
+
+        F = limb_mod.device_field(self.f)
+        for t in self.tables:
+            flat = []
+            for c in t.columns:
+                flat.extend(list(c) + [0] * (self.n - t.length))
+            packed = F.pack_mont(flat, shape=(t.width, self.n), device=srs.device)
+            coeffs = domain.d1.intt(packed)
+            comms = [srs.mask(c, [1]) for c in srs.commit_coeffs_dev(coeffs, 1)]
+            for w, expected in enumerate(comms):
+                got = proof.commitments[self.table_col[t.table_id][w]]
+                if got.chunks != expected.chunks:
+                    return False
+        return True

@@ -29,10 +29,12 @@ fallback. Each wrapper counts its launches in LAUNCHES[<name>].
 
 Layout: a field element is (8, ...) int32, the 32-bit limbs of its
 Montgomery integer (limb-major, little-endian). The plain versions compute
-in int64 on 16-bit limbs (a 32x32-bit product overflows int64, and the CPU
-build of torch has no uint32 arithmetic). They follow the kernels' formulas
-and association order, so the two agree limb for limb; K6 and K7 where a
-team of threads shares a lane chunk agree as group elements.
+on 16-bit limbs (a 32x32-bit product overflows int64, and the CPU build of
+torch has no uint32 arithmetic): in int64, or for wide batches in float64,
+which holds every limb product, column sum and carry exactly. They follow
+the kernels' formulas and association order, so the two agree limb for
+limb; K6 and K7 where a team of threads shares a lane chunk agree as group
+elements.
 
 The library is built with nvcc (one process per source, all started
 together) into the gitignored build directory at first use, keyed by a
@@ -251,11 +253,23 @@ class Field16:
     """Per-(modulus, device) constants of the 16-bit limb arithmetic."""
 
     def __init__(self, p: int, r_mod_p: int, device: str) -> None:
+        if p.bit_length() > 255:  # the reductions keep values below 2p < 2^256
+            raise ValueError("the 16-bit limb arithmetic takes primes below 2^255")
         self.p16 = torch.tensor(limbs16(p), dtype=torch.int64, device=device)
         self.one16 = torch.tensor(limbs16(r_mod_p), dtype=torch.int64, device=device)
         self.pinv16 = (-pow(p, -1, 1 << 16)) % (1 << 16)
-        # limb i <-> bit i of a carry word (_carries); 17 limbs at most
-        self.shift = torch.arange(17, dtype=torch.int64, device=device)
+        # the product's float64 copy of p and the runs [s, e) of its nonzero
+        # limbs (a Pasta prime has 8: limbs 0, 2-7 and 15)
+        self.p16f = self.p16.to(torch.float64)
+        self.p_limbs = limbs16(p)  # on the host: a scale factor reads no device memory
+        self.p_runs = _runs(self.p_limbs)
+        # 2^256 - p: adding it subtracts p mod 2^256, with limbs >= 0
+        self.np16 = torch.tensor(limbs16((1 << 256) - p), dtype=torch.int64, device=device)
+        # -p^-1 mod 2^256, the full-width reduction's factor (_mul_narrow)
+        self.pinv256 = torch.tensor(limbs16(-pow(p, -1, 1 << 256) % (1 << 256)),
+                                    dtype=torch.int64, device=device)
+        # limb i <-> bit i of a carry word (_carries); 33 limbs at most
+        self.shift = torch.arange(34, dtype=torch.int64, device=device)
         self.bit = torch.ones_like(self.shift) << self.shift
 
     def col(self, v: torch.Tensor, ndim: int) -> torch.Tensor:
@@ -264,6 +278,21 @@ class Field16:
 
 def limbs16(x: int) -> list[int]:
     return [(x >> (16 * i)) & M16 for i in range(16)]
+
+
+def _runs(limbs: list[int]) -> list[tuple[int, int]]:
+    """The runs [s, e) of nonzero entries."""
+    out, i = [], 0
+    while i < len(limbs):
+        if limbs[i]:
+            j = i
+            while j < len(limbs) and limbs[j]:
+                j += 1
+            out.append((i, j))
+            i = j
+        else:
+            i += 1
+    return out
 
 
 @functools.lru_cache(maxsize=None)
@@ -372,23 +401,66 @@ def sub16(P: Field16, a, b):
 
 
 def mul16(P: Field16, a, b):
-    """Montgomery product a*b*R^-1 mod p: schoolbook columns, 16 REDC
-    steps of 16 bits, one normalisation and a conditional subtract."""
-    a, b = torch.broadcast_tensors(a, b)
-    batch = a.shape[1:]
-    pv = P.col(P.p16, len(batch))
-    cols = a.new_zeros((33, *batch))
-    for i in range(16):  # column sums < 2^36
-        cols[i : i + 16].addcmul_(b, a[i : i + 1])
-    rows = cols.unbind(0)
-    for i in range(16):
-        m = ((rows[i] & M16) * P.pinv16) & M16
-        cols[i : i + 16].addcmul_(pv, m[None])
-        rows[i + 1].add_(rows[i] >> 16)
-    res = _normalize(P, cols[16:], 17, bits=38)
-    d, borrow = _sub_raw(P, res[:16], pv)
-    use_sub = (res[16] != 0) | (borrow == 0)
-    return torch.where(use_sub[None], d, res[:16])
+    """Montgomery product a*b*R^-1 mod p of canonical int64 limbs, in the
+    family of field ops that _arith picks for the batch. Any correct
+    Montgomery product gives the one canonical value."""
+    A = _arith(P, torch.broadcast_shapes(a.shape, b.shape)[1:].numel())
+    x = A.enter(a)
+    return A.leave(A.mul(x, x if a is b else A.enter(b)))
+
+
+def _skew_sum(x: torch.Tensor) -> torch.Tensor:
+    """(16, 16, ...) products x[i, j] -> (31, ...) column sums over i + j:
+    each row padded with 16 zeros and the rows read back 31 wide, so that
+    row i starts i places later."""
+    batch = x.shape[2:]
+    x = torch.nn.functional.pad(x, (0, 0) * len(batch) + (0, 16))
+    return x.reshape(512, *batch)[:496].reshape(16, 31, *batch).sum(0)
+
+
+def _mul_narrow(P: Field16, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The Montgomery product at full width in int64: T = a * b, the one
+    m < R with T + m p = 0 mod R as (T mod R) (-p^-1) mod R, and
+    (T + m p) / R, from whole 16 x 16 product tables. The word-by-word
+    reduction finds the same m, so the value is the same."""
+    nb = a.dim() - 1
+    t = _skew_sum(a[:, None] * b[None])  # column sums < 2^36
+    m = _normalize(P, _skew_sum(t[:16, None] * P.col(P.pinv256, nb)[None])[:16], 16,
+                   bits=58)
+    v = t + _skew_sum(m[:, None] * P.col(P.p16, nb)[None])
+    return _pick_reduced(P, v, 16)
+
+
+def _pick_reduced(P: Field16, v: torch.Tensor, at: int) -> torch.Tensor:
+    """The canonical limbs of V >> (16 at) for column sums v < 2^38 (limbs
+    first) whose V >> (16 at) is below 2p: V and V + (2^256 - p) 2^(16 at)
+    normalised together, the second where its carry out shows V >> (16 at)
+    >= p."""
+    w = v.new_zeros((at + 16, 2, *v.shape[1:]))
+    w[: v.shape[0]] = v[:, None]
+    w[at : at + 16, 1] += P.col(P.np16, v.dim() - 1)
+    r = _normalize(P, w, at + 17, bits=39)
+    return torch.where(r[at + 16, 1][None] != 0, r[at : at + 16, 1], r[at : at + 16, 0])
+
+
+def _schoolbook(a: torch.Tensor, b: torch.Tensor | None, out: torch.Tensor | None = None):
+    """(34, ...) float64 column sums of a * b (of a * a when b is None) for
+    (16, ...) float64 limbs, into `out` if given; columns 31-33 are the
+    reduction's room."""
+    cols = a.new_empty((34, *a.shape[1:])) if out is None else out
+    if b is not None:
+        torch.mul(b, a[0:1], out=cols[0:16])
+        cols[16:].zero_()
+        for i in range(1, 16):
+            cols[i : i + 16].addcmul_(b, a[i : i + 1])
+        return cols
+    torch.mul(a, a, out=cols[0:32:2])
+    cols[1:32:2].zero_()
+    cols[32:].zero_()
+    two_a = a * 2
+    for i in range(15):
+        cols[2 * i + 1 : i + 16].addcmul_(two_a[i + 1 :], a[i : i + 1])
+    return cols
 
 
 def is_zero16(a):
@@ -400,84 +472,326 @@ def _sel(cond, t, f):
 
 
 def _muls(P: Field16, *pairs):
-    """Independent Montgomery products in one mul16 call (stacked on a new
-    axis after the limbs): the same products, fewer torch ops."""
-    a = torch.stack(torch.broadcast_tensors(*(x for x, _ in pairs)), dim=1)
-    b = torch.stack(torch.broadcast_tensors(*(y for _, y in pairs)), dim=1)
-    return mul16(P, a, b).unbind(1)
+    """Independent Montgomery products of int64 limbs in one reduction
+    (stacked on a new axis after the limbs): the same products, fewer
+    torch ops."""
+    shape = torch.broadcast_shapes(*(t.shape for pair in pairs for t in pair))
+    A = _arith(P, shape[1:].numel())
+    f = {id(t): A.enter(t) for pair in pairs for t in pair}
+    return tuple(A.leave(t) for t in A.muls(*((f[id(x)], f[id(y)]) for x, y in pairs)))
+
+
+class _Int16:
+    """The formulas' field ops on int64 canonical 16-bit limbs: add16,
+    sub16 and whole 16 x 16 product tables (_mul_narrow), few torch ops
+    each, for narrow batches."""
+
+    def __init__(self, P: Field16) -> None:
+        self.P = P
+
+    def add(self, a, b):
+        return add16(self.P, a, b)
+
+    def sub(self, a, b):
+        return sub16(self.P, a, b)
+
+    def mul(self, a, b):
+        return _mul_narrow(self.P, *torch.broadcast_tensors(a, b))
+
+    def muls(self, *pairs):
+        shape = torch.broadcast_shapes(*(t.shape for pair in pairs for t in pair))
+        a = torch.stack([x.expand(shape) for x, _ in pairs], dim=1)
+        b = torch.stack([y.expand(shape) for _, y in pairs], dim=1)
+        return _mul_narrow(self.P, a, b).unbind(1)
+
+    @staticmethod
+    def enter(t):
+        return t
+
+    @staticmethod
+    def leave(t):
+        return t
+
+
+class _Float16:
+    """The formulas' field ops on float64 canonical 16-bit limbs, for wide
+    batches: every limb, column sum and carry is an integer below 2^53, so
+    float64 holds it exactly, and the CPU multiplies and adds float64
+    several times faster than int64. Carries ripple limb by limb over
+    (16, ...) slices; a conditional subtract is computed for every lane and
+    picked by lerp, whose weight is 0 or 1 (exact: no rounding happens)."""
+
+    def __init__(self, P: Field16) -> None:
+        self.P = P
+
+    @staticmethod
+    def enter(t):
+        return t.to(torch.float64)
+
+    @staticmethod
+    def leave(t):
+        return t.to(torch.int64)
+
+    def _pick(self, w, use_second):
+        """Canonical lanes of the two candidates w[:16, 0] and w[:16, 1]."""
+        return torch.lerp(w[:16, 0], w[:16, 1], use_second.to(torch.float64)[None])
+
+    def add(self, a, b):
+        """a + b, and a + b - p, rippled; the second where it is >= 0."""
+        a, b = torch.broadcast_tensors(a, b)
+        w = a.new_empty((17, 2, *a.shape[1:]))
+        torch.add(a, b, out=w[:16, 0])
+        torch.sub(w[:16, 0], self.P.col(self.P.p16f, a.dim() - 1), out=w[:16, 1])
+        w[16].zero_()
+        _ripple(w, 16)
+        return self._pick(w, w[16, 1] >= 0)
+
+    def sub(self, a, b):
+        """a - b, and a - b + p, rippled; the second where the first is < 0."""
+        a, b = torch.broadcast_tensors(a, b)
+        w = a.new_empty((17, 2, *a.shape[1:]))
+        torch.sub(a, b, out=w[:16, 0])
+        torch.add(w[:16, 0], self.P.col(self.P.p16f, a.dim() - 1), out=w[:16, 1])
+        w[16].zero_()
+        _ripple(w, 16)
+        return self._pick(w, w[16, 0] < 0)
+
+    def mul(self, a, b):
+        same = a is b
+        a, b = torch.broadcast_tensors(a, b)
+        return self._reduce(_schoolbook(a, None if same else b))
+
+    def muls(self, *pairs):
+        """Independent products in one reduction, squares first."""
+        shape = torch.broadcast_shapes(*(t.shape for pair in pairs for t in pair))
+        sq = [k for k, (x, y) in enumerate(pairs) if x is y]
+        gen = [k for k, (x, y) in enumerate(pairs) if x is not y]
+        cols = torch.empty((34, len(pairs), *shape[1:]), dtype=torch.float64,
+                           device=pairs[0][0].device)
+        if sq:
+            _schoolbook(torch.stack([pairs[k][0].expand(shape) for k in sq], 1), None,
+                        cols[:, : len(sq)])
+        if gen:
+            _schoolbook(torch.stack([pairs[k][0].expand(shape) for k in gen], 1),
+                        torch.stack([pairs[k][1].expand(shape) for k in gen], 1),
+                        cols[:, len(sq) :])
+        out = self._reduce(cols).unbind(1)
+        res = [None] * len(pairs)
+        for j, k in enumerate(sq + gen):
+            res[k] = out[j]
+        return tuple(res)
+
+    def _reduce(self, cols):
+        """(T + m p) / R of T's float64 columns, canonical."""
+        P = self.P
+        v = _redc_cols(P, cols)  # (17, ...) limbs of a value < 2p
+        w = v.new_empty((17, 2, *v.shape[1:]))
+        w[:, 0] = v
+        torch.sub(v[:16], P.col(P.p16f, v.dim() - 1), out=w[:16, 1])
+        w[16, 1] = v[16]
+        _ripple(w, 16)
+        return self._pick(w, w[16, 1] >= 0)
+
+
+def _ripple(w: torch.Tensor, k: int) -> None:
+    """Carry limbs 0 .. k-1 of float64 w (limbs first) into the next, in
+    place: limbs 0 .. k-1 end in [0, 2^16), limb k takes the rest (signed
+    limbs borrow by the floor)."""
+    rows = w.unbind(0)
+    for i in range(k):
+        c = rows[i].mul(1.0 / 65536).floor_()
+        rows[i].sub_(c, alpha=65536.0)
+        rows[i + 1].add_(c)
+
+
+def _redc_cols(P: Field16, cols: torch.Tensor) -> torch.Tensor:
+    """The 16 REDC steps over float64 columns (34, ...) of T, in place: the
+    (17, ...) column sums of (T + m p) / R, a value below 2p. Each step adds
+    m * p over p's nonzero limbs only. Where p = 1 mod 2^16 (the Pasta
+    primes), -p^-1 = -1 and the step's m is 2^16 - (c mod 2^16), in
+    [1, 2^16]: the column becomes (floor(c / 2^16) + 1) 2^16 and carries
+    that quotient, with no division of its own; m may be 2^16, so the m of
+    the whole reduction may exceed R by a hair (R / (2^16 - 1)), which
+    keeps the value below p^2 / R + 1.0001 p < 2p."""
+    pv = P.col(P.p16f, cols.dim() - 1)
+    rows = cols.unbind(0)
+    if P.pinv16 == M16:
+        runs = [(max(s, 1), e) for s, e in P.p_runs if e > 1]
+        for i in range(16):
+            q1 = rows[i].mul(1.0 / 65536).floor_().add_(1.0)
+            m = q1.mul(65536.0).sub_(rows[i])
+            rows[i + 1].add_(q1)
+            for s, e in runs:
+                if e - s == 1:
+                    rows[i + s].add_(m, alpha=float(P.p_limbs[s]))
+                else:
+                    cols[i + s : i + e].addcmul_(pv[s:e], m[None])
+        return cols[16:33]
+    for i in range(16):
+        m = torch.fmod(rows[i], 65536.0).mul_(P.pinv16).fmod_(65536.0)
+        for s, e in P.p_runs:
+            if e - s == 1:
+                rows[i + s].add_(m, alpha=float(P.p_limbs[s]))
+            else:
+                cols[i + s : i + e].addcmul_(pv[s:e], m[None])
+        rows[i + 1].add_(rows[i], alpha=1.0 / 65536)  # rows[i] is 0 mod 2^16 now
+    return cols[16:33]
+
+
+# Lanes from which the plain versions' field products and curve formulas run
+# on float64 limbs (_Float16) rather than int64 (_Int16): the crossover of
+# the complete add, which scripts/torch_plain_arith_ab.py measures (on the
+# CPU at one torch thread, as most test files run; on an H100).
+FLOAT_LANES = {"cpu": 1 << 6, "cuda": 1 << 16}
+
+
+def _arith(P: Field16, lanes: int):
+    return _Float16(P) if lanes >= FLOAT_LANES[P.p16.device.type] else _Int16(P)
+
+
+def _double(A, p):
+    """dbl-2009-l, as ec_double in csrc/field.cuh, over the field ops A."""
+    x, y, z = p
+    a, b, yz = A.muls((x, x), (y, y), (y, z))
+    xb = A.add(x, b)
+    e = A.add(A.add(a, a), a)
+    c, xb2, f = A.muls((b, b), (xb, xb), (e, e))
+    d = A.sub(A.sub(xb2, a), c)
+    d = A.add(d, d)
+    x3 = A.sub(f, A.add(d, d))
+    c8 = A.add(c, c)
+    c8 = A.add(c8, c8)
+    c8 = A.add(c8, c8)
+    y3 = A.sub(A.mul(e, A.sub(d, x3)), c8)
+    return x3, y3, A.add(yz, yz)
 
 
 def ec_double16(P: Field16, p):
     """dbl-2009-l, as ec_double in csrc/field.cuh."""
-    x, y, z = p
-    a, b, yz = _muls(P, (x, x), (y, y), (y, z))
-    xb = add16(P, x, b)
-    e = add16(P, add16(P, a, a), a)
-    c, xb2, f = _muls(P, (b, b), (xb, xb), (e, e))
-    d = sub16(P, sub16(P, xb2, a), c)
-    d = add16(P, d, d)
-    x3 = sub16(P, f, add16(P, d, d))
-    c8 = add16(P, c, c)
-    c8 = add16(P, c8, c8)
-    c8 = add16(P, c8, c8)
-    y3 = sub16(P, mul16(P, e, sub16(P, d, x3)), c8)
-    return x3, y3, add16(P, yz, yz)
+    A = _arith(P, p[0][0].numel())
+    return tuple(A.leave(t) for t in _double(A, tuple(A.enter(t) for t in p)))
 
 
-def _ec_fallbacks(p, q, main, double, h, r2, p_inf, q_inf):
-    """The complete-law selects of ec_add/ec_madd, in their order. The
-    doubling fallback runs only when a lane takes it, as the kernel's
-    branch does (only the plain versions come here, so the check's sync on
-    the card is off the main path)."""
+def _lanes(t: torch.Tensor, idx: torch.Tensor | None) -> torch.Tensor:
+    """(16, ...) -> (16, L) flattened, or its lanes idx."""
+    t = t.reshape(16, -1)
+    return t if idx is None else t.index_select(1, idx)
+
+
+# odd multipliers of _duplicates' lane hash, one a limb of the six operands
+_HASH = [(0x9E3779B97F4A7C15 * (2 * k + 1)) % (1 << 63) | 1 for k in range(96)]
+
+
+def _duplicates(lanes):
+    """(rep, inverse) for (16, L) operand tensors whose L lanes repeat: the
+    lanes rep hold each distinct operand tuple once and lane l equals lane
+    rep[inverse[l]]; None when none repeats. The lanes are grouped by a hash
+    and every lane is then compared with its representative limb for limb,
+    so a collision only costs the saving."""
+    L = lanes[0].shape[1]
+    h = None
+    for k, t in enumerate(lanes):
+        mult = torch.tensor(_HASH[16 * k : 16 * k + 16], dtype=torch.int64, device=t.device)
+        part = (t * mult[:, None]).sum(0)
+        h = part if h is None else h.mul_(0x100000001B3).add_(part)
+    uniq, inverse = torch.unique(h, return_inverse=True)
+    if uniq.numel() == L:
+        return None
+    rep = torch.empty(uniq.numel(), dtype=torch.int64, device=h.device)
+    rep.scatter_(0, inverse, torch.arange(L, device=h.device))
+    back = rep.index_select(0, inverse)
+    if not all(bool((t.index_select(1, back) == t).all()) for t in lanes):
+        return None
+    return rep, inverse
+
+
+def _ec_complete(P: Field16, p, q, main, double_p: bool):
+    """The complete law of ec_add / ec_madd (csrc/field.cuh): where q is
+    the identity (z = 0) the sum is p, else where p is the identity it is
+    q, else the formula `main`, with the doubling of p (double_p) or of q
+    where h = r = 0 and the identity (z = 0) where h = 0 and r != 0.
+
+    Only lanes that keep the formula's value compute it, once for each
+    distinct pair of operands, and only lanes that keep the doubling's
+    compute that: a lane's value is the kernel's whichever way the others
+    go, and the scans of bucket sums hold many identities."""
+    p, q = (tuple(t) for t in (p, q))
+    shape = torch.broadcast_shapes(*(t.shape for t in p + q))
+    p = tuple(t.expand(shape) for t in p)
+    q = tuple(t.expand(shape) for t in q)
+    p_inf, q_inf = is_zero16(p[2]), is_zero16(q[2])
+    out = tuple(_sel(q_inf, pc, _sel(p_inf, qc, pc)).reshape(16, -1) for pc, qc in zip(p, q))
+    live = ~(p_inf | q_inf).reshape(-1)
+    n_live = int(live.sum())
+    if n_live == 0:
+        return tuple(t.reshape(shape) for t in out)
+    idx = None if n_live == live.numel() else live.nonzero().squeeze(1)
+    lp = tuple(_lanes(t, idx) for t in p)
+    lq = tuple(_lanes(t, idx) for t in q)
+    dup = _duplicates(lp + lq)
+    if dup is not None:  # one lane of each distinct pair of operands computes
+        rep, inverse = dup
+        lp, lq = (tuple(t.index_select(1, rep) for t in pt) for pt in (lp, lq))
+    A = _arith(P, lp[0].shape[1])
+    lp, lq = (tuple(A.enter(t) for t in pt) for pt in (lp, lq))
+    (x, y, z), h, r2 = main(A, lp, lq)
     h_zero = is_zero16(h)
     r_zero = is_zero16(r2)
-    use_dbl = h_zero & r_zero
-    x, y, z = main
-    if bool(use_dbl.any()):
-        x, y, z = (_sel(use_dbl, d, m) for d, m in zip(double(), main))
-    z = _sel(h_zero & ~r_zero & ~p_inf, torch.zeros_like(z), z)
-    x, y, z = (_sel(p_inf, qc, c) for qc, c in zip(q, (x, y, z)))
-    return tuple(_sel(q_inf, pc, c) for pc, c in zip(p, (x, y, z)))
+    dbl = (h_zero & r_zero).nonzero().squeeze(1)
+    if dbl.numel():
+        d = _double(A, tuple(t.index_select(1, dbl) for t in (lp if double_p else lq)))
+        x, y, z = (m.index_copy(1, dbl, dc) for m, dc in zip((x, y, z), d))
+    z = _sel(h_zero & ~r_zero, torch.zeros_like(z), z)
+    x, y, z = (A.leave(t) for t in (x, y, z))
+    if dup is not None:
+        x, y, z = (t.index_select(1, inverse) for t in (x, y, z))
+    if idx is None:
+        return tuple(t.reshape(shape) for t in (x, y, z))
+    return tuple(o.index_copy(1, idx, v).reshape(shape) for o, v in zip(out, (x, y, z)))
 
 
-def _add_tail(P: Field16, u1, s1, h, rr):
+def _add_tail(A, u1, s1, h, rr):
     """The part of add-2007-bl after h = u2 - u1 and rr = s2 - s1."""
-    r2 = add16(P, rr, rr)
-    h2 = add16(P, h, h)
-    i = mul16(P, h2, h2)
-    j, v, r2sq = _muls(P, (h, i), (u1, i), (r2, r2))
-    x3 = sub16(P, sub16(P, r2sq, j), add16(P, v, v))
-    s1j, t = _muls(P, (s1, j), (r2, sub16(P, v, x3)))
-    return r2, x3, sub16(P, t, add16(P, s1j, s1j))
+    r2 = A.add(rr, rr)
+    h2 = A.add(h, h)
+    i = A.mul(h2, h2)
+    j, v, r2sq = A.muls((h, i), (u1, i), (r2, r2))
+    x3 = A.sub(A.sub(r2sq, j), A.add(v, v))
+    s1j, t = A.muls((s1, j), (r2, A.sub(v, x3)))
+    return r2, x3, A.sub(t, A.add(s1j, s1j))
+
+
+def _add_main(A, p, q):
+    (x1, y1, z1), (x2, y2, z2) = p, q
+    zs = A.add(z1, z2)
+    z1z1, z2z2, zs2 = A.muls((z1, z1), (z2, z2), (zs, zs))
+    u1, u2, t2, t1 = A.muls((x1, z2z2), (x2, z1z1), (z2, z2z2), (z1, z1z1))
+    s1, s2 = A.muls((y1, t2), (y2, t1))
+    h = A.sub(u2, u1)
+    r2, x3, y3 = _add_tail(A, u1, s1, h, A.sub(s2, s1))
+    z3 = A.mul(A.sub(A.sub(zs2, z1z1), z2z2), h)
+    return (x3, y3, z3), h, r2
+
+
+def _madd_main(A, p, q):
+    (x1, y1, z1), (x2, y2, _) = p, q
+    z1z1 = A.mul(z1, z1)
+    u2, t1 = A.muls((x2, z1z1), (z1, z1z1))
+    s2 = A.mul(y2, t1)
+    h = A.sub(u2, x1)
+    r2, x3, y3 = _add_tail(A, x1, y1, h, A.sub(s2, y1))
+    z3 = A.mul(A.add(z1, z1), h)
+    return (x3, y3, z3), h, r2
 
 
 def ec_add16(P: Field16, p, q):
     """Complete add-2007-bl, as ec_add in csrc/field.cuh."""
-    (x1, y1, z1), (x2, y2, z2) = p, q
-    zs = add16(P, z1, z2)
-    z1z1, z2z2, zs2 = _muls(P, (z1, z1), (z2, z2), (zs, zs))
-    u1, u2, t2, t1 = _muls(P, (x1, z2z2), (x2, z1z1), (z2, z2z2), (z1, z1z1))
-    s1, s2 = _muls(P, (y1, t2), (y2, t1))
-    h = sub16(P, u2, u1)
-    r2, x3, y3 = _add_tail(P, u1, s1, h, sub16(P, s2, s1))
-    z3 = mul16(P, sub16(P, sub16(P, zs2, z1z1), z2z2), h)
-    return _ec_fallbacks(
-        p, q, (x3, y3, z3), lambda: ec_double16(P, p), h, r2, is_zero16(z1), is_zero16(z2)
-    )
+    return _ec_complete(P, p, q, _add_main, double_p=True)
 
 
 def ec_madd16(P: Field16, p, q):
     """Mixed add, q affine-encoded, as ec_madd in csrc/field.cuh."""
-    (x1, y1, z1), (x2, y2, z2) = p, q
-    z1z1 = mul16(P, z1, z1)
-    u2, t1 = _muls(P, (x2, z1z1), (z1, z1z1))
-    s2 = mul16(P, y2, t1)
-    h = sub16(P, u2, x1)
-    r2, x3, y3 = _add_tail(P, x1, y1, h, sub16(P, s2, y1))
-    z3 = mul16(P, add16(P, z1, z1), h)
-    return _ec_fallbacks(
-        p, q, (x3, y3, z3), lambda: ec_double16(P, q), h, r2, is_zero16(z1), is_zero16(z2)
-    )
+    return _ec_complete(P, p, q, _madd_main, double_p=False)
 
 
 def _shift_lanes(t: torch.Tensor, s: int, fill: torch.Tensor) -> torch.Tensor:

@@ -30,6 +30,7 @@ from proof_systems_tpu_torch.fields import Fp, Fq
 from proof_systems_tpu_torch.ops import kernels, limb
 from proof_systems_tpu_torch.poseidon import fq_kimchi
 from proof_systems_tpu_torch.prover_index import build_linearization
+from torch_host_harness import run_pinned
 
 torch.set_num_threads(1)
 
@@ -75,8 +76,7 @@ def _run(exe, tmp_path, field, ops, sponge=None, xs=(), exps=()):
         words += [len(digits)] + digits
     src, dst = tmp_path / "in.bin", tmp_path / "out.bin"
     np.array(words, dtype="<u4").tofile(src)
-    res = subprocess.run([str(exe), str(src), str(dst)], capture_output=True, text=True,
-                         timeout=300)
+    res = run_pinned([exe, src, dst])
     assert res.returncode == 0, res.stdout + res.stderr
     return np.fromfile(dst, dtype="<u4").tolist(), res.stdout
 

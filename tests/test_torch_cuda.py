@@ -907,3 +907,110 @@ def test_optional_path_ec_scan_fused_shapes(dev, shape):
                          ids=lambda s: "x".join(map(str, s)))
 def test_optional_path_jacobian_add_shapes(dev, shape):
     test_new_path_jacobian_add_shapes(dev, shape)
+
+
+# Call shapes that the column path adds (chip_smoke.py's recorded calls of
+# the three k = 16 column proofs): K1 on 11 x 2^18 (the d8 columns of the
+# MultiLogUp); K6 on the 9-column commit (mixed at 24 x 9 x 65,537 as 216
+# rows, general at 24 x 9 x 2,047); K7 and K2 at that commit's shapes; K4 on
+# the 9 chunk evaluations' inverses.
+@pytest.mark.parametrize("name,n,arg", [("mont_mul", 11 << 18, None)], ids=str)
+def test_column_path_field_shapes_match_plain(dev, name, n, arg):
+    test_new_path_field_shapes_match_plain(dev, name, n, arg)
+
+
+@pytest.mark.parametrize("mixed,rows,n", [(True, 24 * 9, 65537), (False, 24 * 9, 2047)], ids=str)
+def test_column_path_msm_scan_matches_plain(dev, mixed, rows, n):
+    """K6 at the 9-column commit's shapes as the wrapper launches it,
+    against the plain version as group elements."""
+    rng = random.Random(625)
+    dc, pts = _k6_rows(rng, dev, rows, n, mixed)
+    want_p, want_e, want_cp = kernels.ec_prefix_scan_parts_plain(dc.F, *pts, mixed=mixed)
+    part, excl, cp = kernels.ec_prefix_scan_parts(dc.F, *pts, mixed=mixed)
+    assert cp == want_cp
+    assert _same_points(dc, part, want_p) and _same_points(dc, excl, want_e)
+
+
+@pytest.mark.parametrize("shape", [(24, 9, 2047)], ids=lambda s: "x".join(map(str, s)))
+def test_column_path_ec_scan_fused_shapes(dev, shape):
+    test_new_path_ec_scan_fused_shapes(dev, shape)
+
+
+@pytest.mark.parametrize("shape", [(24, 9, 4096), (24, 9, 2048), (24, 9, 1), (16, 9), (8, 9),
+                                   (4, 9), (2, 9), (1, 9)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_column_path_jacobian_add_shapes(dev, shape):
+    test_new_path_jacobian_add_shapes(dev, shape)
+
+
+@pytest.mark.parametrize("field", [Fp, Fq], ids=["Fp", "Fq"])
+def test_column_path_mont_pow_shape(dev, field):
+    test_mont_pow_shapes_match_plain(dev, field, 9, "p-2")
+
+
+def _column_trace(n: int, device):
+    """tests/test_torch_pickles.py's cyclic trace at n rows with a boundary
+    row at 0: (columns, constraints, domain)."""
+    from proof_systems_tpu_torch.circuits import expr as E
+    from proof_systems_tpu_torch.circuits.domains import EvaluationDomains
+    from proof_systems_tpu_torch.o1vm.pickles import col
+
+    rng = random.Random(611)
+    domain = EvaluationDomains.create(Fp, n, device=device)
+    omega, p = domain.d1.group_gen, Fp.p
+    c0 = [pow(omega, i, p) for i in range(n)]
+    c1 = [rng.randrange(p) for _ in range(n)]
+    c2 = [a * b % p for a, b in zip(c0, c1)]
+    cols = limb.device_field(Fp).pack_mont(c0 + c1 + c2, shape=(3, n), device=device)
+    cell = lambda i, row=E.CURR: E.Cell(col(i), row)  # noqa: E731
+    cons = [cell(2) - cell(0) * cell(1), cell(0, E.NEXT) - E.Literal(omega) * cell(0),
+            E.UnnormalizedLagrangeBasis(0) * (cell(0) - E.Literal(1))]
+    return cols, cons, domain
+
+
+def test_column_boundary_rows_match_cpu(dev):
+    """The boundary row's d8 values at n = 2^11 (a row of 16,384: K12, then
+    K4's inverse and K1) on the card equal the CPU's, n * w^0 at point 0."""
+    from proof_systems_tpu_torch.o1vm import pickles
+
+    F = limb.device_field(Fp)
+    n = 1 << 11
+    out = {}
+    for d in (dev, torch.device("cpu")):
+        _, cons, domain = _column_trace(n, d)
+        before = kernels.launch_counts()
+        out[d.type] = pickles._unnormalized_lagrange_evals(
+            F, cons, n, domain.d1.group_gen, domain.d8, Fp.p, device=d)[0]
+        if d.type == "cuda":
+            assert kernels.launch_counts()["mont_prefix_scan_parts"] > before[
+                "mont_prefix_scan_parts"]
+    assert torch.equal(out["cuda"].cpu(), out["cpu"])
+    assert F.unpack_mont(out["cpu"][:, :1]) == [n]
+
+
+def test_column_proof_matches_cpu(dev):
+    """A column proof at n = 2^11 on the card, field for field the CPU's,
+    verified on the card; every kernel launches but K3 (the basis is built
+    before), K9 (no division by x - c) and the endo ladder (n = 2^11 is
+    IPA_FOLD_TAIL: the opening has no fold step)."""
+    from proof_systems_tpu_torch.convert import column_proof_fields
+    from proof_systems_tpu_torch.o1vm.pickles import prove_columns, verify_columns
+    from proof_systems_tpu_torch.ops import msm
+    from proof_systems_tpu_torch.poly_commitment.srs import SRS, derive_g, derive_h
+    from proof_systems_tpu_torch.utils.rng import TestRng
+
+    n = 1 << 11
+    g, h = [derive_g(Vesta, i) for i in range(n)], derive_h(Vesta)
+    proofs = {}
+    for d in (dev, torch.device("cpu")):
+        cols, cons, domain = _column_trace(n, d)
+        srs = SRS(Vesta, g, h, d)
+        srs.scaled_basis(msm.default_window_bits(n + 1))  # K3, outside the counted proof
+        before = kernels.launch_counts()
+        proofs[d.type] = prove_columns(domain, srs, Vesta, cols, cons, TestRng(612), device=d)
+        if d.type == "cuda":
+            used = {k: v - before[k] for k, v in kernels.launch_counts().items()}
+            assert verify_columns(domain, srs, Vesta, cons, proofs["cuda"], TestRng(613))
+            assert [k for k, v in used.items() if v == 0] == ["jacobian_double", "linear_scan",
+                                                              "endo_ladder"]
+    assert column_proof_fields(proofs["cuda"]) == column_proof_fields(proofs["cpu"])

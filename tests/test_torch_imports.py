@@ -56,7 +56,7 @@ def test_importing_every_module_loads_no_jax():
 # and the snarky front end (each a copy of the JAX package's host code).
 HOST_MODULES = ["circuits.polynomials.optional_gates", "circuits.polynomials.optional_witness",
                 "circuits.polynomials.witness_gen", "circuits.checker", "circuits.snarky",
-                "circuits.gate_mix"]
+                "circuits.gate_mix", "o1vm", "o1vm.pickles", "o1vm.logup"]
 
 
 @pytest.mark.parametrize("module", HOST_MODULES)
@@ -127,7 +127,41 @@ def _entry_points(tmp_path):
         _stub_vk_file(path)
         return VerifierIndex.from_file(path, SRS(Vesta, g, h, None))
 
+    def column_proof():
+        from proof_systems_tpu_torch.circuits import expr as E
+        from proof_systems_tpu_torch.circuits.domains import EvaluationDomains
+        from proof_systems_tpu_torch.o1vm.pickles import col, prove_columns
+
+        cpu = torch.device("cpu")
+        cols = limb.device_field(Fp).pack_mont([1] * 4, shape=(1, 4), device=cpu)
+        return prove_columns(EvaluationDomains.create(Fp, 4, device=cpu),
+                             SRS(Vesta, g[:4], h, cpu), Vesta, cols,
+                             [E.Cell(col(0), E.CURR) - E.Literal(1)], TestRng(0))
+
+    def logup_instance():
+        from proof_systems_tpu_torch.circuits.domains import EvaluationDomains
+        from proof_systems_tpu_torch.o1vm import logup
+
+        cpu = torch.device("cpu")
+        inst = logup.LogupInstance(Fp, [[i % 4] for i in range(4)], logup.range_table(2, 4))
+        return inst.prove(EvaluationDomains.create(Fp, 4, device=cpu), SRS(Vesta, g[:4], h, cpu),
+                          Vesta, TestRng(0))
+
+    def package_prove():
+        import proof_systems_tpu_torch as port
+        from proof_systems_tpu_torch.circuits.builders import bench_circuit, bench_witness
+        from proof_systems_tpu_torch.prover_index import ProverIndex
+
+        cpu = torch.device("cpu")
+        cs = ConstraintSystem.create(Fp, bench_circuit(Fp, 6), public=0, max_poly_size=32,
+                                     device=cpu)
+        return port.prove(ProverIndex(cs, Vesta, SRS(Vesta, g, h, cpu)), bench_witness(6),
+                          TestRng(0))
+
     return {
+        "prove_columns": column_proof,
+        "LogupInstance.prove": logup_instance,
+        "prove": package_prove,
         "SRS.create": lambda: SRS.create(Vesta, 4),
         "ntt_plan": lambda: ntt.ntt_plan(Fp, 3),
         "msm.msm": lambda: msm.msm(Vesta, scal),
@@ -141,7 +175,8 @@ def _entry_points(tmp_path):
     }
 
 
-@pytest.mark.parametrize("name", ["SRS.create", "ntt_plan", "msm.msm", "convert.limbs_from_numpy",
+@pytest.mark.parametrize("name", ["prove_columns", "LogupInstance.prove", "prove",
+                                  "SRS.create", "ntt_plan", "msm.msm", "convert.limbs_from_numpy",
                                   "ConstraintSystem.create[lookup]",
                                   "ConstraintSystem.create[optional]", "VerifierIndex.from_file",
                                   "batch_verify"])
@@ -163,3 +198,23 @@ def test_chip_smoke_fails_without_cuda():
     )
     assert out.returncode != 0
     assert '"ok"' not in out.stdout
+
+
+def test_package_level_prove_and_verify():
+    """The JAX package's package-level prove and verify have counterparts
+    of the same parameters, and a device besides."""
+    import inspect
+
+    import proof_systems_tpu_torch as port
+
+    assert list(inspect.signature(port.prove).parameters) == [
+        "index", "witness", "rng", "prev_challenges", "runtime_tables", "device"]
+    assert list(inspect.signature(port.verify).parameters) == [
+        "vk", "proof", "public_input", "rng", "device"]
+    from proof_systems_tpu_torch.o1vm import ColumnProof, prove_columns, verify_columns
+
+    assert "device" in inspect.signature(prove_columns).parameters
+    assert ColumnProof.__dataclass_fields__.keys() == {
+        "commitments", "zeta_evaluations", "zeta_omega_evaluations", "quotient_commitment",
+        "quotient_evaluations", "opening"}
+    assert callable(verify_columns)

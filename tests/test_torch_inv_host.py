@@ -29,6 +29,7 @@ from proof_systems_tpu.ops import pallas_field
 from proof_systems_tpu_torch.curves import Pallas, Vesta
 from proof_systems_tpu_torch.fields import Fp, Fq
 from proof_systems_tpu_torch.ops import kernels, limb
+from torch_host_harness import run_pinned
 
 torch.set_num_threads(1)
 
@@ -67,8 +68,7 @@ def _run(exe, tmp_path, field, xs, endo: int = 0, challenges=()) -> list[int]:
         words += list(bits)
     src, dst = tmp_path / "in.bin", tmp_path / "out.bin"
     np.array(words, dtype="<u4").tofile(src)
-    res = subprocess.run([str(exe), str(src), str(dst)], capture_output=True, text=True,
-                         timeout=300)
+    res = run_pinned([exe, src, dst])
     assert res.returncode == 0, res.stdout + res.stderr
     return _ints(np.fromfile(dst, dtype="<u4").tolist())
 

@@ -15,6 +15,7 @@ import pytest
 
 from proof_systems_tpu_torch.curves import Pallas, Vesta
 from proof_systems_tpu_torch.ops import limb
+from torch_host_harness import run_pinned
 
 HERE = pathlib.Path(__file__).resolve().parent
 CSRC = HERE.parent / "proof_systems_tpu_torch" / "csrc"
@@ -29,6 +30,6 @@ def test_k8_device_code_on_the_host(tmp_path, curve):
     subprocess.run(["g++", "-std=c++20", "-O1", "-w", "-I", str(HERE / "cuda_host"),
                     "-I", str(CSRC), "-o", str(exe), str(HERE / "cuda_host" / "k8_host.cpp"),
                     "-lpthread"], check=True, capture_output=True, timeout=300)
-    out = subprocess.run([str(exe), str(params)], capture_output=True, text=True, timeout=300)
+    out = run_pinned([exe, params])
     assert out.returncode == 0, out.stdout + out.stderr
     assert out.stdout.count("equal") == 3, out.stdout

@@ -33,6 +33,7 @@ from proof_systems_tpu_torch.curves import Pallas, Vesta
 from proof_systems_tpu_torch.ops import kernels
 from proof_systems_tpu_torch.ops.curve_ops import JPoint, device_curve
 from proof_systems_tpu_torch.poseidon.sponge import ScalarChallenge
+from torch_host_harness import run_pinned
 
 torch.set_num_threads(1)
 
@@ -123,8 +124,7 @@ def test_ladder_and_k2_device_code_on_the_host(tmp_path, name):
     subprocess.run(["g++", "-std=c++20", "-O1", "-w", "-I", str(HERE / "cuda_host"),
                     "-I", str(CSRC), "-o", str(exe), str(HERE / "cuda_host" / "ladder_host.cpp")],
                    check=True, capture_output=True, timeout=300)
-    run = subprocess.run([str(exe), str(src), str(out)], capture_output=True, text=True,
-                         timeout=300)
+    run = run_pinned([exe, src, out])
     assert run.returncode == 0, run.stdout + run.stderr
     assert run.stdout.count("equal") == len(patterns) + 2, run.stdout
 

@@ -32,6 +32,7 @@ import pytest
 
 from proof_systems_tpu_torch.fields import Fp, Fq
 from proof_systems_tpu_torch.ops import kernels, limb
+from torch_host_harness import run_pinned
 
 HERE = pathlib.Path(__file__).resolve().parent
 CSRC = HERE.parent / "proof_systems_tpu_torch" / "csrc"
@@ -71,8 +72,7 @@ def _run(exe, tmp_path, field, words) -> np.ndarray:
     src, dst = tmp_path / "in.bin", tmp_path / "out.bin"
     head = np.array(list(F.kernel_params.tolist()), dtype="<u4")
     np.concatenate([head, np.asarray(words, dtype="<u4")]).tofile(src)
-    res = subprocess.run([str(exe), str(src), str(dst)], capture_output=True, text=True,
-                         timeout=300)
+    res = run_pinned([exe, src, dst])
     assert res.returncode == 0, res.stdout + res.stderr
     return np.fromfile(dst, dtype="<u4")
 
