@@ -104,7 +104,19 @@ Phases, each fatal on failure:
      phase-1 commitments against the native host MSM, prove_col_ms with the
      host's phi and h stages apart, verify_col_ms, peak memory, launches;
      every kernel but K3 and K9 must launch; `--only column` runs this
-     phase alone);
+     phase alone); o1vm's Keccak-f proof of tests/test_keccak.py's
+     statement (n = 32, 4,225 columns), field by field the JAX package's
+     proof tests/vectors/column_keccak_2^5, verified, rejected with a
+     changed final and a changed initial state, prove_keccak_ms and
+     verify_keccak_ms with the host sponge's absorptions apart (`--only
+     keccak`); o1vm's RV32IM proofs: tests/test_riscv.py's program at
+     n = 256, field by field tests/vectors/column_riscv_2^8, verified,
+     rejected with regs[3] = 14, then rv_loop_program (every instruction, a
+     loop of n / 2 steps) at Layout(4) over 2^14 rows, where every kernel but
+     K3 and K9 must launch, verified, rejected with a changed final
+     register, prove_rv_ms with the host's execute, build_columns,
+     phase1_columns and phase2_host apart (`--only riscv`; with it,
+     `--log-n` sets that domain);
      one batch_verify over the bench, public-input, recursion, lookup and
      chunked proofs beside the five single verifications (rejected when one
      has ft_eval1 + 1); and the bench, lookup, chunked and gate-mix
@@ -1056,6 +1068,49 @@ def k8_note(kernels) -> str:
             f"{local} B local")
 
 
+# The plain curve kernels hold a few kilobytes of float64 temporaries a lane
+# they compute side by side: every position for K2 and K3, which are
+# elementwise, and up to LANES a row for K6 and K7, which scan each row
+# along its last axis. A call wider than this runs its plain version on
+# slices of its rows, so that short rows in their thousands (the Keccak
+# commit's bucket reduction) fit beside the kernel's own output; long rows
+# (the main path's commits) stay whole, as wide as the float64 path wants.
+PLAIN_WIDTH = 1 << 22
+SLICED_PLAIN = {"ec_prefix_scan_parts": 3, "ec_prefix_scan_fused": 3, "jacobian_add": 6,
+                "jacobian_double": 3}  # kernel -> its point tensors after the field
+
+
+def plain_call(ref, name: str, args, kw):
+    """The plain version of a recorded call: K2's, K3's, K6's and K7's on
+    slices of rows at most PLAIN_WIDTH lanes wide, concatenated."""
+    from proof_systems_tpu_torch.ops import kernels
+
+    x = args[1] if name in SLICED_PLAIN else None
+    if x is None:
+        return ref(*args, **kw)
+    n, lead = x.shape[-1], x.shape[1:-1]
+    row_width = n if name.startswith("jacobian") else min(n, kernels.LANES)
+    step = max(1, PLAIN_WIDTH // row_width)
+    nrows = x[0].numel() // n
+    if nrows <= step:
+        return ref(*args, **kw)
+    rows = [t.reshape(t.shape[0], nrows, n) for t in args[1 : 1 + SLICED_PLAIN[name]]]
+    parts = [ref(args[0], *(t[:, lo : lo + step].contiguous() for t in rows), **kw)
+             for lo in range(0, nrows, step)]
+
+    def cat(items):
+        if torch.is_tensor(items[0]):
+            t = torch.cat(items, dim=1)
+            return t.reshape(t.shape[0], *lead, t.shape[-1])
+        if isinstance(items[0], tuple):
+            return tuple(cat([it[i] for it in items]) for i in range(len(items[0])))
+        if any(it != items[0] for it in items):
+            raise AssertionError(f"{name}: the slices' plain versions disagree on {items}")
+        return items[0]
+
+    return cat(parts)
+
+
 def hold_against_plain(kernels, key: str, args, kw, device) -> tuple[dict, int]:
     """One recorded call of a kernel against its plain version on the same
     inputs (fatal if they differ), timed; returns its JSON row (launches 0)
@@ -1063,7 +1118,7 @@ def hold_against_plain(kernels, key: str, args, kw, device) -> tuple[dict, int]:
     name = key.split("[")[0]
     kern, ref = kernels.WRAPPERS[name], getattr(kernels, name + "_plain")
     got = kern(*args, **kw)
-    want, plain_s = wall(lambda: ref(*args, **kw), device)
+    want, plain_s = wall(lambda: plain_call(ref, name, args, kw), device)
     err = outputs_err(name, args[0], got, want)
     if err:
         raise AssertionError(f"{key}: kernel != plain at a recorded path shape (max err {err})")
@@ -1426,6 +1481,8 @@ def check_path_calls(kernels, recorded: dict, tag: str, device, checked: set) ->
     every call shape of the kernels recorded by shape, BY_SHAPE) against
     its plain version, unless an earlier check held that shape
     (`checked`: call_sig of every call held so far)."""
+    if device.type == "cuda":  # the plain versions' temporaries need the cached blocks
+        torch.cuda.empty_cache()
     for key in sorted(recorded):
         size, args, kw = recorded[key]
         sig = call_sig(key, args, kw)
@@ -1842,6 +1899,16 @@ def optional_steady(run, device) -> None:
             times[f"prove_opt_{stage}_ms"] = times.get(f"prove_opt_{stage}_ms", 0.0) + secs * 1e3
 
 
+def peak_gib(device, reset: bool = False) -> float:
+    """Peak device memory since the last reset, GiB (0 on the CPU); with
+    reset, start a new peak."""
+    if device.type != "cuda":
+        return 0.0
+    if reset:
+        torch.cuda.reset_peak_memory_stats(device)
+    return torch.cuda.max_memory_allocated(device) / 2**30
+
+
 # The column phase (o1vm/pickles.py, o1vm/logup.py) at k = 16: the toy cyclic
 # trace of tests/test_o1vm_pickles.py widened to 2^16 rows with a boundary row;
 # a LogupInstance over range_table(16, 2^16) with two lookups a row; a
@@ -1943,14 +2010,13 @@ def column_path(run, log_n: int, device, nat) -> dict:
                 cols1 = case["ml"].phase1_columns(case["trace"])
                 case["cols"] = F.pack_mont([v for c in cols1 for v in c],
                                            shape=(len(cols1), n), device=device)
-            if device.type == "cuda":
-                torch.cuda.reset_peak_memory_stats(device)
+            peak_gib(device, reset=True)
             before = kernels.launch_counts()
             proof, prove_s = wall(lambda: prove_columns(
                 domain, srs, Vesta, case["cols"], case["constraints"], TestRng(COL_SEED + k),
                 device=device, **case["kw"]), device)
         counts = {key: v - before[key] for key, v in kernels.launch_counts().items()}
-        peak = torch.cuda.max_memory_allocated(device) / 2**30 if device.type == "cuda" else 0.0
+        peak = peak_gib(device)
         host_s = {**clock.seconds, **mclock.seconds}
         times[f"prove_col_{name}_ms"] = prove_s * 1e3
         for stage, secs in host_s.items():
@@ -1995,6 +2061,221 @@ def column_path(run, log_n: int, device, nat) -> dict:
         out[f"col_{name}_proof"] = proof
         del case["cols"]
     return out
+
+
+# o1vm's Keccak-f and RV32IM proofs (o1vm/keccak.py, o1vm/riscv.py). The
+# vector cases are the JAX package's proofs on the CPU at the inputs of its
+# heavy end-to-end tests (tests/test_torch_column_vectors.py); the full-width
+# RV32IM case runs rv_loop_program for n / 2 steps at the default Layout(4)
+# on a domain of 2^RV_LOG_N rows.
+COLUMN_VECTORS = {"keccak": "tests/vectors/column_keccak_2^5",
+                  "riscv": "tests/vectors/column_riscv_2^8"}
+RV_LOG_N = 14
+RV_SEED = SEED + 110
+# The kernels an n = 32 Keccak proof launches: the column phase's but the
+# endo ladder (an opening of 32 points has no fold step) and K12 (its rows of
+# 256 elements go to K5).
+KECCAK_KERNELS = tuple(k for k in COLUMN_KERNELS
+                       if k not in ("endo_ladder", "mont_prefix_scan_parts"))
+
+
+def rv_loop_program():
+    """A loop of RV32IM instructions, run until execute's default of n / 2
+    steps: every instruction of riscv.OPS (the ALU with registers and
+    immediates, shifts by constants and by registers of 0 to 31, the M
+    extension with DIVU and REMU by zero every 32nd pass, word, half-word
+    and byte stores and loads over 16 words, every branch taken and not,
+    JAL, and JALR to an odd target), then a jump back."""
+    from proof_systems_tpu_torch.o1vm.riscv import Instr as I  # noqa: E741
+
+    body = [
+        I("ADDI", rd=1, rs1=1, imm=1), I("ADD", rd=2, rs1=2, rs2=1), I("SUB", rd=4, rs1=3, rs2=2),
+        I("SLT", rd=5, rs1=4, rs2=1), I("SLTU", rd=6, rs1=4, rs2=1), I("SLTI", rd=7, rs1=4, imm=-2),
+        I("SLTIU", rd=8, rs1=1, imm=100), I("XOR", rd=9, rs1=2, rs2=4),
+        I("OR", rd=10, rs1=9, rs2=1), I("AND", rd=11, rs1=10, rs2=2),
+        I("XORI", rd=12, rs1=11, imm=-1), I("ORI", rd=13, rs1=1, imm=0x700),
+        I("ANDI", rd=14, rs1=2, imm=255), I("SLLI", rd=15, rs1=1, imm=4),
+        I("SRLI", rd=16, rs1=2, imm=3), I("SRAI", rd=17, rs1=4, imm=2),
+        I("ANDI", rd=18, rs1=1, imm=31), I("SLL", rd=19, rs1=2, rs2=18),
+        I("SRL", rd=20, rs1=4, rs2=18), I("SRA", rd=21, rs1=4, rs2=18), I("AUIPC", rd=22, imm=1),
+        I("MUL", rd=23, rs1=2, rs2=4), I("MULH", rd=24, rs1=4, rs2=2),
+        I("MULHU", rd=25, rs1=4, rs2=2), I("MULHSU", rd=26, rs1=4, rs2=2),
+        I("DIV", rd=27, rs1=4, rs2=1), I("DIVU", rd=28, rs1=2, rs2=18),
+        I("REM", rd=29, rs1=4, rs2=1), I("REMU", rd=30, rs1=2, rs2=18),
+        I("ANDI", rd=31, rs1=1, imm=15), I("SLLI", rd=31, rs1=31, imm=2),
+        I("SW", rs1=31, rs2=2, imm=64), I("LW", rd=5, rs1=31, imm=64),
+        I("SB", rs1=31, rs2=4, imm=65), I("LB", rd=6, rs1=31, imm=65),
+        I("SH", rs1=31, rs2=9, imm=66), I("LHU", rd=7, rs1=31, imm=66),
+        I("LBU", rd=8, rs1=31, imm=67), I("LH", rd=9, rs1=31, imm=66),
+        I("BEQ", rs1=1, rs2=0, imm=8), I("BNE", rs1=1, rs2=0, imm=8),
+        I("ADDI", rd=10, rs1=0, imm=77),
+        I("BLT", rs1=4, rs2=1, imm=8), I("ADDI", rd=10, rs1=10, imm=1),
+        I("BGE", rs1=4, rs2=1, imm=8), I("ADDI", rd=11, rs1=11, imm=1),
+        I("BLTU", rs1=1, rs2=4, imm=8), I("ADDI", rd=12, rs1=12, imm=1),
+        I("BGEU", rs1=1, rs2=4, imm=8), I("ADDI", rd=13, rs1=13, imm=1),
+        I("JAL", rd=14, imm=8), I("ADDI", rd=14, rs1=0, imm=99),
+        I("AUIPC", rd=15, imm=0), I("JALR", rd=16, rs1=15, imm=13),
+        I("ADDI", rd=16, rs1=0, imm=99), I("FENCE"), I("ECALL"),
+    ]
+    head = [I("ADDI", rd=1, rs1=0, imm=0), I("LUI", rd=2, imm=0x12345),
+            I("ADDI", rd=3, rs1=0, imm=-7)]
+    return head + body + [I("JAL", rd=0, imm=-4 * len(body))]
+
+
+def column_vector(name: str) -> tuple[bytes, dict]:
+    """A committed column-proof vector: its .bin bytes and its .json."""
+    import pathlib
+
+    stem = pathlib.Path(__file__).resolve().parent / COLUMN_VECTORS[name]
+    return stem.with_suffix(".bin").read_bytes(), json.loads(stem.with_suffix(".json").read_text())
+
+
+def keccak_path(run, device) -> dict:
+    """o1vm's Keccak-f proof of tests/test_keccak.py's statement (n = 32,
+    4,225 columns, the first 32 points of the path's SRS, TestRng(61)):
+    every field equal to tests/vectors/column_keccak_2^5 (the JAX package's
+    proof), final state as its statement says; verified, rejected with a
+    changed final and a changed initial state. prove_keccak_ms and
+    verify_keccak_ms with the host sponge's absorptions apart, and the
+    proof's peak device memory."""
+    from proof_systems_tpu_torch.circuits.domains import EvaluationDomains
+    from proof_systems_tpu_torch.convert import column_proof_fields
+    from proof_systems_tpu_torch.curves import Vesta
+    from proof_systems_tpu_torch.fields import Fp
+    from proof_systems_tpu_torch.o1vm import keccak
+    from proof_systems_tpu_torch.poly_commitment.srs import SRS
+    from proof_systems_tpu_torch.poseidon.sponge import FqSponge
+    from proof_systems_tpu_torch.serialization import serialize_column_proof
+    from proof_systems_tpu_torch.utils.rng import TestRng
+
+    raw, st = column_vector("keccak")
+    n, times = st["n"], run["times"]
+    srs = SRS(Vesta, run["srs"].g[:n], run["srs"].h, device)
+    domain = EvaluationDomains.create(Fp, n, device=device)
+    peak_gib(device, reset=True)
+    with HostClock(FqSponge, ("absorb_g",)) as clock:
+        (proof, final), secs = wall(lambda: keccak.prove_keccak(
+            domain, srs, Vesta, st["state0"], TestRng(61), device=device), device)
+    times["peak_keccak_gib"] = peak_gib(device)
+    times["prove_keccak_ms"] = secs * 1e3
+    times["prove_keccak_absorb_ms"] = clock.seconds["absorb_g"] * 1e3
+    if final != st["final"]:
+        raise AssertionError("prove_keccak's final state differs from the vector's")
+    if serialize_column_proof(Vesta, column_proof_fields(proof)) != raw:
+        raise AssertionError(f"the Keccak proof differs from {COLUMN_VECTORS['keccak']}")
+
+    def verify(state0, fin, seed):
+        return keccak.verify_keccak(domain, srs, Vesta, proof, state0, fin, TestRng(seed),
+                                    device=device)
+
+    with HostClock(FqSponge, ("absorb_g",)) as clock:
+        ok, secs = wall(lambda: verify(st["state0"], final, 62), device)
+    times["verify_keccak_ms"] = secs * 1e3
+    times["verify_keccak_absorb_ms"] = clock.seconds["absorb_g"] * 1e3
+    if not ok:
+        raise AssertionError("verify_keccak rejected the honest proof")
+    bad = [row[:] for row in final]
+    bad[1][2] ^= 1 << 7
+    bad0 = [row[:] for row in st["state0"]]
+    bad0[0][0] ^= 1
+    if verify(st["state0"], bad, 63) or verify(bad0, final, 64):
+        raise AssertionError("verify_keccak accepted a changed final or initial state")
+    log(f"keccak: {len(proof.commitments)} columns, prove_keccak_ms {times['prove_keccak_ms']:.1f}"
+        f" (host absorptions {times['prove_keccak_absorb_ms']:.1f}), verify_keccak_ms "
+        f"{times['verify_keccak_ms']:.1f} (host absorptions {times['verify_keccak_absorb_ms']:.1f})"
+        f", peak {times['peak_keccak_gib']:.2f} GiB")
+    log(f"check: the Keccak-f proof (n = {n}) equals {COLUMN_VECTORS['keccak']} field by field; "
+        "it verifies and is rejected with a changed final and a changed initial state")
+    return {}
+
+
+def riscv_path(run, device, log_n: int = RV_LOG_N) -> dict:
+    """o1vm's RV32IM execution proofs. The vector case: tests/test_riscv.py's
+    program at Layout(2), n = 256, TestRng(81), every field equal to
+    tests/vectors/column_riscv_2^8, its statement as the vector's; verified,
+    rejected with regs[3] = 14. The full-width case: rv_loop_program at the
+    default Layout(4) over 2^log_n rows (n / 2 steps), every kernel but K3
+    and K9 launched, verified, rejected with a changed final register;
+    prove_rv_ms with the host's execute, build_columns, phase1_columns and
+    phase2_host apart, verify_rv_ms and the proof's peak device memory."""
+    from proof_systems_tpu_torch.circuits.domains import EvaluationDomains
+    from proof_systems_tpu_torch.convert import column_proof_fields
+    from proof_systems_tpu_torch.curves import Vesta
+    from proof_systems_tpu_torch.fields import Fp
+    from proof_systems_tpu_torch.o1vm import logup, riscv
+    from proof_systems_tpu_torch.ops import kernels
+    from proof_systems_tpu_torch.poly_commitment.srs import SRS
+    from proof_systems_tpu_torch.serialization import serialize_column_proof
+    from proof_systems_tpu_torch.utils.rng import TestRng
+
+    times = run["times"]
+
+    def setup(n):
+        return (EvaluationDomains.create(Fp, n, device=device),
+                SRS(Vesta, run["srs"].g[:n], run["srs"].h, device))
+
+    def rejects_changed_register(domain, srs, proof, statement, r, seed):
+        bad = dict(statement, final=dict(statement["final"], regs=list(statement["final"]["regs"])))
+        bad["final"]["regs"][r] = 14 if r == 3 else (bad["final"]["regs"][r] + 1) % riscv.TWO32
+        return not riscv.verify_execution(domain, srs, Vesta, proof, bad, TestRng(seed),
+                                          device=device)
+
+    raw, st = column_vector("riscv")
+    n = st["n"]
+    want = riscv.statement_from_json(st["statement"])
+    domain, srs = setup(n)
+    (proof, statement), secs = wall(lambda: riscv.prove_execution(
+        domain, srs, Vesta, want["program"], n, TestRng(81),
+        L=riscv.Layout(want["bitwise_bits"]), device=device), device)
+    times["prove_rv_vector_ms"] = secs * 1e3
+    if riscv.statement_to_json(statement) != st["statement"]:
+        raise AssertionError("prove_execution's statement differs from the vector's")
+    if serialize_column_proof(Vesta, column_proof_fields(proof)) != raw:
+        raise AssertionError(f"the RV32IM proof differs from {COLUMN_VECTORS['riscv']}")
+    if not riscv.verify_execution(domain, srs, Vesta, proof, statement, TestRng(82),
+                                  device=device):
+        raise AssertionError("verify_execution rejected the honest vector proof")
+    if not rejects_changed_register(domain, srs, proof, statement, 3, 83):
+        raise AssertionError("verify_execution accepted the vector statement with regs[3] = 14")
+    log(f"check: the RV32IM proof (n = {n}, Layout({want['bitwise_bits']})) equals "
+        f"{COLUMN_VECTORS['riscv']} field by field; it verifies and is rejected with regs[3] = 14")
+
+    n = 1 << log_n
+    domain, srs = setup(n)
+    program = rv_loop_program()
+    before = kernels.launch_counts()
+    peak_gib(device, reset=True)
+    with HostClock(riscv, ("execute", "build_columns")) as clock, HostClock(
+            logup.MultiLogup, ("phase1_columns", "phase2_host")) as mclock:
+        (proof, statement), secs = wall(lambda: riscv.prove_execution(
+            domain, srs, Vesta, program, n, TestRng(RV_SEED), device=device), device)
+    times["peak_rv_gib"] = peak_gib(device)
+    counts = {k: v - before[k] for k, v in kernels.launch_counts().items()}
+    times["prove_rv_ms"] = secs * 1e3
+    host_s = {**clock.seconds, **mclock.seconds}
+    for stage, s in host_s.items():
+        times[f"prove_rv_{stage}_ms"] = s * 1e3
+    times["prove_rv_rest_ms"] = (secs - sum(host_s.values())) * 1e3
+    zero = [k for k, v in counts.items() if v == 0 and k not in ("jacobian_double", "linear_scan")]
+    if zero and device.type == "cuda":  # the CPU's plain versions launch nothing
+        raise AssertionError(f"kernels not launched by the RV32IM proof at n = {n}: {zero}")
+    if statement["k_steps"] != n // 2:
+        raise AssertionError(f"the loop ran {statement['k_steps']} steps, not {n // 2}")
+    ok, secs = wall(lambda: riscv.verify_execution(domain, srs, Vesta, proof, statement,
+                                                   TestRng(RV_SEED + 1), device=device), device)
+    times["verify_rv_ms"] = secs * 1e3
+    if not ok:
+        raise AssertionError(f"verify_execution rejected the honest proof at n = {n}")
+    if not rejects_changed_register(domain, srs, proof, statement, 2, RV_SEED + 2):
+        raise AssertionError("verify_execution accepted a changed final register")
+    inside = ", ".join(f"{stage} {s * 1e3:.1f}" for stage, s in host_s.items())
+    log(f"riscv: n = {n}, {statement['k_steps']} steps, {len(proof.commitments)} columns, "
+        f"prove_rv_ms {times['prove_rv_ms']:.1f} (on the host: {inside}), verify_rv_ms "
+        f"{times['verify_rv_ms']:.1f}, peak {times['peak_rv_gib']:.2f} GiB, launches "
+        f"{json.dumps(counts)}")
+    log(f"check: the RV32IM proof of rv_loop_program (n = {n}, Layout(4)) launches every kernel "
+        "but K3 and K9, verifies and is rejected with a changed final register")
+    return {}
 
 
 def batch_path(run, device) -> dict:
@@ -2534,6 +2815,10 @@ def new_paths(kernels, result, device, log_n: int, checked: set, verify_kernels)
          lambda: optional_path(result, log_n, device), None),
         ("column", f"o1vm's column prover, k = {log_n}: a cyclic trace, LogUp, MultiLogUp",
          COLUMN_KERNELS, lambda: column_path(result, log_n, device, nat), None),
+        ("keccak", "o1vm's Keccak-f proof, n = 32, the JAX package's vector", KECCAK_KERNELS,
+         lambda: keccak_path(result, device), None),
+        ("riscv", f"o1vm's RV32IM proofs, n = 256 (the JAX package's vector) and 2^{RV_LOG_N}",
+         COLUMN_KERNELS, lambda: riscv_path(result, device), None),
         ("batch", "five proofs of four circuits", verify_kernels,
          lambda: batch_path(result, device), ("batch_verify_ms", "single_verify_sum_ms")),
         ("vk files", "bench, lookup, chunked, gate mix", verify_kernels,
@@ -2555,24 +2840,27 @@ def new_paths(kernels, result, device, log_n: int, checked: set, verify_kernels)
                 log(f"{tag} path {k}: {times[k]:.4f}")
 
 
-def column_alone(device, log_n: int) -> None:
-    """The column phase by itself (`--only column`): SRS.create(2^k) on the
-    card, the three column proofs counted, their kernel calls held against
-    the plain versions, every number printed; no result line."""
+def phase_alone(name: str, device, log_n: int) -> None:
+    """One phase by itself (`--only column`, `keccak` or `riscv`):
+    SRS.create(2^k) on the card, the phase counted, its kernel calls held
+    against the plain versions, every number printed; no result line. For
+    riscv, 2^k is also the full-width case's domain."""
     from proof_systems_tpu_torch.curves import Vesta
     from proof_systems_tpu_torch.native import native_curve
     from proof_systems_tpu_torch.ops import kernels
     from proof_systems_tpu_torch.poly_commitment.srs import SRS
 
     result = dict(srs=SRS.create(Vesta, 1 << log_n, device=device), times={})
-    log(f"== column path alone, k = {log_n}, counted")
-    before = set(result["times"])
-    _, counts, calls = counted(kernels, "column",
-                               lambda: column_path(result, log_n, device, native_curve(Vesta)),
-                               device, COLUMN_KERNELS)
-    for k in sorted(set(result["times"]) - before):
-        log(f"column path {k}: {result['times'][k]:.4f}")
-    check_path_calls(kernels, calls, "column", device, set())
+    fn, expect = {
+        "column": (lambda: column_path(result, log_n, device, native_curve(Vesta)),
+                   COLUMN_KERNELS),
+        "keccak": (lambda: keccak_path(result, device), KECCAK_KERNELS),
+        "riscv": (lambda: riscv_path(result, device, log_n), COLUMN_KERNELS)}[name]
+    log(f"== {name} path alone, k = {log_n}, counted")
+    _, _, calls = counted(kernels, name, fn, device, expect)
+    for k in sorted(result["times"]):
+        log(f"{name} path {k}: {result['times'][k]:.4f}")
+    check_path_calls(kernels, calls, name, device, set())
 
 
 def card_line() -> str:
@@ -2697,10 +2985,11 @@ def main() -> int:
     import argparse
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--log-n", type=int, default=LOG_N,
-                    help="log2 of the SRS depth and domain (default 16; from 14 on "
-                         "every kernel is on the path)")
-    ap.add_argument("--only", choices=["column"],
+    ap.add_argument("--log-n", type=int,
+                    help=f"log2 of the SRS depth and domain (default {LOG_N}; from 14 on "
+                         "every kernel is on the path); with --only riscv, of the full-width "
+                         f"RV32IM domain (default {RV_LOG_N})")
+    ap.add_argument("--only", choices=["column", "keccak", "riscv"],
                     help="run one phase by itself and print its numbers (no result line)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -2725,11 +3014,12 @@ def main() -> int:
 
     card = card_line()
     log(f"== card: {torch.cuda.get_device_name(0)} | {card}")
-    if args.only == "column":
-        column_alone(device, args.log_n)
+    log_n = args.log_n or (RV_LOG_N if args.only == "riscv" else LOG_N)
+    if args.only:
+        phase_alone(args.only, device, log_n)
         log(f"== card: {card}")
         return 0
-    table = run(device, args.log_n)
+    table = run(device, log_n)
     print(json.dumps({"kernels": table}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

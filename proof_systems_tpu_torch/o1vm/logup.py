@@ -33,7 +33,7 @@ from collections import Counter
 
 from ..circuits import expr as E
 from ..runtime import resolve_device
-from .pickles import col
+from .pickles import col, pinned_columns_match
 
 
 def range_table(bits: int, n: int) -> list[int]:
@@ -428,19 +428,9 @@ class MultiLogup:
         must be caught here (the reference pins them via precomputed
         setup commitments). Trace commitments are hiding but table
         commitments are committed with the same +H blinder=1 mask, so we
-        reproduce it exactly. The commits run on the SRS's device."""
-        from ..ops import limb as limb_mod
-
-        F = limb_mod.device_field(self.f)
+        reproduce it exactly. The commit runs on the SRS's device."""
+        pinned = {}
         for t in self.tables:
-            flat = []
-            for c in t.columns:
-                flat.extend(list(c) + [0] * (self.n - t.length))
-            packed = F.pack_mont(flat, shape=(t.width, self.n), device=srs.device)
-            coeffs = domain.d1.intt(packed)
-            comms = [srs.mask(c, [1]) for c in srs.commit_coeffs_dev(coeffs, 1)]
-            for w, expected in enumerate(comms):
-                got = proof.commitments[self.table_col[t.table_id][w]]
-                if got.chunks != expected.chunks:
-                    return False
-        return True
+            for w, c in enumerate(t.columns):
+                pinned[self.table_col[t.table_id][w]] = list(c) + [0] * (self.n - t.length)
+        return pinned_columns_match(domain, srs, proof, pinned, srs.device)

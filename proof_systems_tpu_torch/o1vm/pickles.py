@@ -253,6 +253,19 @@ def prove_columns(
     )
 
 
+def pinned_columns_match(domain, srs, proof: ColumnProof, pinned: dict, device) -> bool:
+    """Whether the proof's commitments at the pinned indices are those of
+    the public columns `pinned` (index -> values over d1), recommitted in
+    one commit on `device` with the blinder 1 that prove_columns' hiding
+    uses: how a verifier pins fixed tables, selectors and boundary rows."""
+    idx = list(pinned)
+    F = limb.device_field(srs.curve.scalar)
+    packed = F.pack_mont([v for i in idx for v in pinned[i]], shape=(len(idx), domain.d1.n),
+                         device=device)
+    comms = srs.commit_coeffs_dev(domain.d1.intt(packed), 1)
+    return all(proof.commitments[i].chunks == srs.mask(c, [1]).chunks for i, c in zip(idx, comms))
+
+
 def verify_columns(
     domain, srs, curve: CurveParams, constraints, proof: ColumnProof, rng,
     num_beta_columns: int = 0, with_joint_combiner: bool = False,

@@ -252,8 +252,10 @@ def msm(
             return msm_affine(curve, part, points, c)
     else:
         raise ValueError("msm needs the points or their scaled basis")
+    # a row of a pass holds W·n gathered points and, in the bucket
+    # reduction, W·2^(c+1) bucket boundaries: the latter rule short rows
     split = b
-    while split > 1 and windows * split * n > MAX_WINDOW_ELEMS:
+    while split > 1 and windows * split * max(n, 2 << c) > MAX_WINDOW_ELEMS:
         split = -(-split // 2)
     out = []
     for lo in range(0, b, split):

@@ -625,3 +625,77 @@ def deserialize_verifier_index(data: bytes, srs):
         rot_comm=opt[5],
         lookup_index=lookup_vk,
     )
+
+
+# ---------------------------------------------------------------------------
+# o1vm column proofs
+# ---------------------------------------------------------------------------
+
+
+def serialize_column_proof(curve: CurveParams, fields: dict) -> bytes:
+    """An o1vm ColumnProof, given as convert.column_proof_fields (of either
+    package), in the primitives above: a MessagePack array of the
+    commitments (an array, each commitment one bin of its 33-byte
+    compressed chunks), the zeta and zeta*omega evaluations (one bin each
+    of 32-byte LE elements), the quotient commitment (one bin of its
+    chunks), its zeta and zeta*omega chunk evaluations (one bin each), and
+    the opening [lr (an array of 66-byte bins), delta, z1, z2, sg]."""
+
+    def points(pts) -> bytes:
+        return b"".join(point_bytes(curve, pt) for pt in pts)
+
+    def elems(xs) -> bytes:
+        return b"".join(field_bytes(int(x)) for x in xs)
+
+    pk = Packer()
+    pk.array(7)
+    pk.array(len(fields["commitments"]))
+    for chunks in fields["commitments"]:
+        pk.bin(points(chunks))
+    pk.bin(elems(fields["zeta_evaluations"]))
+    pk.bin(elems(fields["zeta_omega_evaluations"]))
+    pk.bin(points(fields["quotient_commitment"]))
+    for ev in fields["quotient_evaluations"]:
+        pk.bin(elems(ev))
+    op = fields["opening"]
+    pk.array(5)
+    pk.array(len(op["lr"]))
+    for lr in op["lr"]:
+        pk.bin(points(lr))
+    pk.bin(points([op["delta"]]))
+    pk.bin(field_bytes(op["z1"]))
+    pk.bin(field_bytes(op["z2"]))
+    pk.bin(points([op["sg"]]))
+    return pk.getvalue()
+
+
+def deserialize_column_proof(curve: CurveParams, data: bytes) -> dict:
+    """serialize_column_proof's bytes -> the fields of
+    convert.column_proof_fields (column_proof_from_fields makes the proof)."""
+    up = Unpacker(data)
+    if up.array() != 7:
+        raise ValueError("not a column proof")
+
+    def points() -> list:
+        raw = up.bin()
+        return [point_from_bytes(curve, raw[i : i + 33]) for i in range(0, len(raw), 33)]
+
+    def elems() -> list[int]:
+        raw = up.bin()
+        return [int.from_bytes(raw[i : i + 32], "little") for i in range(0, len(raw), 32)]
+
+    commitments = [points() for _ in range(up.array())]
+    zeta, zeta_omega = elems(), elems()
+    quotient = points()
+    q_evals = (elems(), elems())
+    if up.array() != 5:
+        raise ValueError("not a column proof's opening")
+    lr = [tuple(points()) for _ in range(up.array())]
+    delta = points()[0]
+    z1, z2 = (int.from_bytes(up.bin(), "little") for _ in range(2))
+    sg = points()[0]
+    if up.pos != len(data):
+        raise ValueError(f"{len(data) - up.pos} bytes after the column proof")
+    return dict(commitments=commitments, zeta_evaluations=zeta, zeta_omega_evaluations=zeta_omega,
+                quotient_commitment=quotient, quotient_evaluations=q_evals,
+                opening=dict(lr=lr, delta=delta, z1=z1, z2=z2, sg=sg))

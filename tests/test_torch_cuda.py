@@ -1014,3 +1014,82 @@ def test_column_proof_matches_cpu(dev):
             assert [k for k, v in used.items() if v == 0] == ["jacobian_double", "linear_scan",
                                                               "endo_ladder"]
     assert column_proof_fields(proofs["cuda"]) == column_proof_fields(proofs["cpu"])
+
+
+# The o1vm Keccak-f and RV32IM paths (chip_smoke.py's keccak and riscv
+# phases): the port's proofs of the JAX package's vectors on the card, and
+# the call shapes these paths add: K6 mixed on a pass of the Keccak commit
+# (37 x 2,113 x 33) and of the RV32IM commit at n = 2^14 (29 x 69 x 16,385),
+# its plain version on slices of rows as chip_smoke.plain_call holds it; K1
+# on the d8 transform's stage of the RV32IM proof at n = 2^15 (300 x 2^17).
+def _vector_setup(n: int, dev):
+    from proof_systems_tpu_torch.circuits.domains import EvaluationDomains
+    from proof_systems_tpu_torch.poly_commitment.srs import SRS, derive_g, derive_h
+
+    return (EvaluationDomains.create(Fp, n, device=dev),
+            SRS(Vesta, [derive_g(Vesta, i) for i in range(n)], derive_h(Vesta), dev))
+
+
+def test_keccak_vector_proof_on_the_card(dev):
+    """tests/test_keccak.py's statement proved on the card equals
+    tests/vectors/column_keccak_2^5 byte for byte; it verifies, and a
+    changed final or initial state is rejected."""
+    from proof_systems_tpu_torch.convert import column_proof_fields
+    from proof_systems_tpu_torch.o1vm import keccak
+    from proof_systems_tpu_torch.serialization import serialize_column_proof
+    from proof_systems_tpu_torch.utils.rng import TestRng
+
+    raw, st = chip_smoke.column_vector("keccak")
+    domain, srs = _vector_setup(st["n"], dev)
+    proof, final = keccak.prove_keccak(domain, srs, Vesta, st["state0"], TestRng(61))
+    assert final == st["final"]
+    assert serialize_column_proof(Vesta, column_proof_fields(proof)) == raw
+    assert keccak.verify_keccak(domain, srs, Vesta, proof, st["state0"], final, TestRng(62))
+    bad = [row[:] for row in final]
+    bad[1][2] ^= 1 << 7
+    assert not keccak.verify_keccak(domain, srs, Vesta, proof, st["state0"], bad, TestRng(63))
+    bad0 = [row[:] for row in st["state0"]]
+    bad0[0][0] ^= 1
+    assert not keccak.verify_keccak(domain, srs, Vesta, proof, bad0, final, TestRng(64))
+
+
+def test_riscv_vector_proof_on_the_card(dev):
+    """tests/test_riscv.py's program proved on the card (Layout(2), n = 256)
+    equals tests/vectors/column_riscv_2^8 byte for byte with the same
+    statement; it verifies, and regs[3] = 14 is rejected."""
+    from proof_systems_tpu_torch.convert import column_proof_fields
+    from proof_systems_tpu_torch.o1vm import riscv
+    from proof_systems_tpu_torch.serialization import serialize_column_proof
+    from proof_systems_tpu_torch.utils.rng import TestRng
+
+    raw, st = chip_smoke.column_vector("riscv")
+    want = riscv.statement_from_json(st["statement"])
+    domain, srs = _vector_setup(st["n"], dev)
+    proof, statement = riscv.prove_execution(domain, srs, Vesta, want["program"], st["n"],
+                                             TestRng(81), L=riscv.Layout(want["bitwise_bits"]))
+    assert riscv.statement_to_json(statement) == st["statement"]
+    assert serialize_column_proof(Vesta, column_proof_fields(proof)) == raw
+    assert riscv.verify_execution(domain, srs, Vesta, proof, statement, TestRng(82))
+    bad = dict(statement, final=dict(statement["final"], regs=list(statement["final"]["regs"])))
+    bad["final"]["regs"][3] = 14
+    assert not riscv.verify_execution(domain, srs, Vesta, proof, bad, TestRng(83))
+
+
+@pytest.mark.parametrize("name,n,arg", [("mont_mul", 300 << 17, None)], ids=str)
+def test_o1vm_path_field_shapes_match_plain(dev, name, n, arg):
+    test_new_path_field_shapes_match_plain(dev, name, n, arg)
+
+
+@pytest.mark.parametrize("rows,n", [(37 * 2113, 33), (29 * 69, 16385)], ids=str)
+def test_o1vm_path_msm_scan_matches_plain(dev, rows, n):
+    """K6 (mixed) at a pass of the Keccak commit and of the RV32IM commit as
+    the wrapper launches it, against the plain version (on slices of rows)
+    as group elements."""
+    rng = random.Random(626)
+    dc, pts = _k6_rows(rng, dev, rows, n, True)
+    want_p, want_e, want_cp = chip_smoke.plain_call(
+        kernels.ec_prefix_scan_parts_plain, "ec_prefix_scan_parts", [dc.F, *pts],
+        {"mixed": True})
+    part, excl, cp = kernels.ec_prefix_scan_parts(dc.F, *pts, mixed=True)
+    assert cp == want_cp
+    assert _same_points(dc, part, want_p) and _same_points(dc, excl, want_e)

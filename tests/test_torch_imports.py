@@ -56,7 +56,8 @@ def test_importing_every_module_loads_no_jax():
 # and the snarky front end (each a copy of the JAX package's host code).
 HOST_MODULES = ["circuits.polynomials.optional_gates", "circuits.polynomials.optional_witness",
                 "circuits.polynomials.witness_gen", "circuits.checker", "circuits.snarky",
-                "circuits.gate_mix", "o1vm", "o1vm.pickles", "o1vm.logup"]
+                "circuits.gate_mix", "o1vm", "o1vm.pickles", "o1vm.logup", "o1vm.keccak",
+                "o1vm.riscv"]
 
 
 @pytest.mark.parametrize("module", HOST_MODULES)
@@ -147,6 +148,29 @@ def _entry_points(tmp_path):
         return inst.prove(EvaluationDomains.create(Fp, 4, device=cpu), SRS(Vesta, g[:4], h, cpu),
                           Vesta, TestRng(0))
 
+    def o1vm_entry(name):
+        """keccak's and riscv's entry points on a 32-row CPU domain and SRS,
+        the device left to its default."""
+        from proof_systems_tpu_torch.circuits.domains import EvaluationDomains
+        from proof_systems_tpu_torch.o1vm import keccak, riscv
+
+        cpu = torch.device("cpu")
+        domain, srs = EvaluationDomains.create(Fp, 32, device=cpu), SRS(Vesta, g, h, cpu)
+        state0 = [[0] * 5 for _ in range(5)]
+        program = [riscv.Instr("ADDI", rd=1, rs1=0, imm=1)]
+        statement = dict(program=program, k_steps=1, regs0=[0] * 32, init_memory={},
+                         bitwise_bits=2, final=dict(regs=[0, 1] + [0] * 30, pc=4, memory={},
+                                                    last_access={}))
+        return {
+            "prove_keccak": lambda: keccak.prove_keccak(domain, srs, Vesta, state0, TestRng(0)),
+            "verify_keccak": lambda: keccak.verify_keccak(domain, srs, Vesta, None, state0,
+                                                          keccak.keccak_f(state0), TestRng(0)),
+            "prove_execution": lambda: riscv.prove_execution(domain, srs, Vesta, program, 32,
+                                                             TestRng(0), L=riscv.Layout(2)),
+            "verify_execution": lambda: riscv.verify_execution(domain, srs, Vesta, None,
+                                                               statement, TestRng(0)),
+        }[name]()
+
     def package_prove():
         import proof_systems_tpu_torch as port
         from proof_systems_tpu_torch.circuits.builders import bench_circuit, bench_witness
@@ -172,6 +196,8 @@ def _entry_points(tmp_path):
             Fp, gate_mix.optional_circuit(gate_mix.OPTIONAL_SEED)[0]),
         "VerifierIndex.from_file": from_file,
         "batch_verify": batch_verify,
+        **{name: (lambda name=name: o1vm_entry(name))
+           for name in ("prove_keccak", "verify_keccak", "prove_execution", "verify_execution")},
     }
 
 
@@ -179,7 +205,8 @@ def _entry_points(tmp_path):
                                   "SRS.create", "ntt_plan", "msm.msm", "convert.limbs_from_numpy",
                                   "ConstraintSystem.create[lookup]",
                                   "ConstraintSystem.create[optional]", "VerifierIndex.from_file",
-                                  "batch_verify"])
+                                  "batch_verify", "prove_keccak", "verify_keccak",
+                                  "prove_execution", "verify_execution"])
 def test_entry_points_default_to_cuda(name, tmp_path):
     """With no device given, an entry point asks for the card; without one
     it raises instead of running on the CPU. The verifier's entry points run
@@ -218,3 +245,12 @@ def test_package_level_prove_and_verify():
         "commitments", "zeta_evaluations", "zeta_omega_evaluations", "quotient_commitment",
         "quotient_evaluations", "opening"}
     assert callable(verify_columns)
+    from proof_systems_tpu_torch.o1vm import (
+        prove_execution,
+        prove_keccak,
+        verify_execution,
+        verify_keccak,
+    )
+
+    for fn in (prove_keccak, verify_keccak, prove_execution, verify_execution):
+        assert list(inspect.signature(fn).parameters)[-1] == "device", fn.__name__
