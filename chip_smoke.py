@@ -68,7 +68,7 @@ Phases, each fatal on failure:
      SRS), and bench_torch's own set-up and proof at
      k = 11, where n = IPA_FOLD_TAIL and the opening has no fold step (the
      endo ladder must not launch, every kernel of the tail rounds must),
-     verified, its size 4,949 bytes; then eight more phases, each with the
+     verified, its size 4,949 bytes; then eleven more phases, each with the
      counts zeroed just before and read just after (a proof's must launch
      every kernel but K3, a verification's what one verification does) and
      with each kernel's largest call on it held against the plain version
@@ -112,11 +112,22 @@ Phases, each fatal on failure:
      keccak`); o1vm's RV32IM proofs: tests/test_riscv.py's program at
      n = 256, field by field tests/vectors/column_riscv_2^8, verified,
      rejected with regs[3] = 14, then rv_loop_program (every instruction, a
-     loop of n / 2 steps) at Layout(4) over 2^14 rows, where every kernel but
-     K3 and K9 must launch, verified, rejected with a changed final
-     register, prove_rv_ms with the host's execute, build_columns,
-     phase1_columns and phase2_host apart (`--only riscv`; with it,
-     `--log-n` sets that domain);
+     loop of n / 2 steps) at Layout(4) over 2^12 rows (2^14 alone), where
+     every kernel but K3 and K9 must launch, verified, rejected with a
+     changed final register, prove_rv_ms with the host's execute,
+     build_columns, phase1_columns and phase2_host apart (`--only riscv`;
+     with it, `--log-n` sets that domain); o1vm's MIPS proofs:
+     tests/test_mips.py's program at n = 256, field by field
+     tests/vectors/column_mips_2^8, verified, rejected with regs[5] = 43 and
+     with init_memory[32] = 9; the Cannon snapshot of
+     tests/vectors/column_mips_cannon_2^9 run by the port's CannonVM, proved
+     at n = 512 field by field equal to the vector with the VM's final
+     registers, verified, rejected with the preimage's last byte changed;
+     then mips_loop_program (every op and syscall kind, a loop of n / 2
+     steps ending in exit_group) at Layout(4) over 2^13 rows (2^14 alone),
+     where every kernel but K3 and K9 must launch, verified, rejected with a
+     changed final register, prove_mips_ms with the same host stages apart
+     (`--only mips`; with it, `--log-n` sets that domain);
      one batch_verify over the bench, public-input, recursion, lookup and
      chunked proofs beside the five single verifications (rejected when one
      has ft_eval1 + 1); and the bench, lookup, chunked and gate-mix
@@ -2069,8 +2080,13 @@ def column_path(run, log_n: int, device, nat) -> dict:
 # RV32IM case runs rv_loop_program for n / 2 steps at the default Layout(4)
 # on a domain of 2^RV_LOG_N rows.
 COLUMN_VECTORS = {"keccak": "tests/vectors/column_keccak_2^5",
-                  "riscv": "tests/vectors/column_riscv_2^8"}
+                  "riscv": "tests/vectors/column_riscv_2^8",
+                  "mips": "tests/vectors/column_mips_2^8",
+                  "mips_cannon": "tests/vectors/column_mips_cannon_2^9"}
 RV_LOG_N = 14
+# the full-width RV32IM case's domain inside the whole script, which also
+# runs MIPS's at 2^MIPS_LOG_N (`--only riscv` runs RV_LOG_N or --log-n)
+RV_COMBINED_LOG_N = 12
 RV_SEED = SEED + 110
 # The kernels an n = 32 Keccak proof launches: the column phase's but the
 # endo ladder (an opening of 32 points has no fold step) and K12 (its rows of
@@ -2120,6 +2136,154 @@ def rv_loop_program():
     head = [I("ADDI", rd=1, rs1=0, imm=0), I("LUI", rd=2, imm=0x12345),
             I("ADDI", rd=3, rs1=0, imm=-7)]
     return head + body + [I("JAL", rd=0, imm=-4 * len(body))]
+
+
+# MIPS's full-width case: mips_loop_program over 2^MIPS_LOG_N rows at the
+# default Layout(4), its preimage oracle one key of MIPS_KEY_WORD eight times;
+# inside the whole script over 2^MIPS_COMBINED_LOG_N rows, for its clock
+# (`--only mips` runs MIPS_LOG_N or --log-n).
+MIPS_LOG_N = 14
+MIPS_COMBINED_LOG_N = 13
+MIPS_SEED = SEED + 130
+MIPS_KEY_WORD = 0x0A0B0C0D
+MIPS_KEY_ADDR = 0x4300
+MIPS_PREIMAGES = {MIPS_KEY_WORD.to_bytes(4, "big") * 8: b"o1vm on H100"}
+
+
+def mips_loop_program(steps: int):
+    """A MIPS program of exactly `steps` steps whose last is exit_group: a
+    head (constants, the preimage key stored and written to fd 6 eight
+    times), a loop body run as often as it fits, SYNC padding, then
+    exit_group(3). The body runs every op of mips.OPS: the ALU with
+    registers and immediates, shifts by constants and by registers of 0 to
+    31, MULT/MULTU, DIV and DIVU (by zero every 32nd pass), MTHI/MTLO,
+    MOVZ/MOVN, word and sub-word loads and stores (LWL/LWR/SWL/SWR, LL/SC)
+    over 16 words (data from 0x4000, above the code, which the Cannon VM
+    keeps in the same memory; LBU and LHU read values below their top bit,
+    which the JAX package's constraints, copied, cannot prove: ROADMAP
+    Queue 3), every branch taken or not, J, JAL, JR and JALR; then a
+    syscall of each kind but exit (mmap with and without an address, brk,
+    clone, the fcntl cases, stdout, hint and bad-fd writes, stdin, hint and
+    bad-fd reads, an unknown number) and a preimage key write of one word
+    (the key stays MIPS_KEY_WORD eight times) with four reads of its stream,
+    one unaligned."""
+    from proof_systems_tpu_torch.o1vm import mips
+    from proof_systems_tpu_torch.o1vm.mips import Instr as I  # noqa: E741
+
+    def build(passes: int, pad: int):
+        head = [I("ADDIU", rt=27, rs=0, imm=-1), I("ADDIU", rt=28, rs=0, imm=1),
+                I("ADDIU", rt=3, rs=0, imm=passes),
+                I("LUI", rt=5, imm=MIPS_KEY_WORD >> 16),
+                I("ORI", rt=5, rs=5, imm=MIPS_KEY_WORD & 0xFFFF),
+                I("SW", rt=5, rs=0, imm=MIPS_KEY_ADDR),
+                I("ADDIU", rt=4, rs=0, imm=6), I("ADDIU", rt=5, rs=0, imm=MIPS_KEY_ADDR),
+                I("ADDIU", rt=6, rs=0, imm=4)]
+        for _ in range(8):
+            head += [I("ADDIU", rt=2, rs=0, imm=mips.SYS_WRITE), I("SYSCALL")]
+        top = len(head)
+        body = [
+            I("ADDIU", rt=1, rs=1, imm=1), I("ADDU", rd=8, rs=1, rt=1), I("ADD", rd=9, rs=8, rt=1),
+            I("SUBU", rd=10, rs=0, rt=1), I("SUB", rd=11, rs=9, rt=8),
+            I("ADDI", rt=12, rs=10, imm=-5), I("LUI", rt=13, imm=0x7654),
+            I("ORI", rt=13, rs=13, imm=0x4321), I("ADDU", rd=13, rs=13, rt=1),
+            I("SLT", rd=14, rs=10, rt=1), I("SLTU", rd=14, rs=10, rt=1),
+            I("SLTI", rt=14, rs=10, imm=-3), I("SLTIU", rt=14, rs=1, imm=50),
+            I("SLL", rd=15, rt=13, imm=3), I("SRL", rd=15, rt=13, imm=5),
+            I("SRA", rd=15, rt=10, imm=7), I("ANDI", rt=16, rs=1, imm=31),
+            I("SLLV", rd=17, rs=16, rt=13), I("SRLV", rd=17, rs=16, rt=13),
+            I("SRAV", rd=17, rs=16, rt=10), I("MULT", rs=10, rt=13), I("MFLO", rd=18),
+            I("MFHI", rd=19), I("MULTU", rs=10, rt=13), I("MFHI", rd=19),
+            I("AND", rd=20, rs=13, rt=1), I("OR", rd=20, rs=20, rt=10),
+            I("XOR", rd=21, rs=20, rt=13), I("NOR", rd=21, rs=21, rt=1),
+            I("ANDI", rt=22, rs=13, imm=0xFF0F), I("XORI", rt=22, rs=22, imm=0x5555),
+            I("DIV", rs=10, rt=16), I("MFLO", rd=18), I("DIVU", rs=13, rt=16), I("MFHI", rd=19),
+            I("MTHI", rs=1), I("MTLO", rs=13), I("MFLO", rd=18),
+            I("MOVZ", rd=23, rs=13, rt=16), I("MOVN", rd=23, rs=1, rt=16), I("SYNC"),
+            I("ANDI", rt=24, rs=1, imm=15), I("SLL", rd=24, rt=24, imm=2),
+            I("SW", rt=13, rs=24, imm=0x4100), I("LW", rt=25, rs=24, imm=0x4100),
+            I("SB", rt=10, rs=24, imm=0x4101), I("LB", rt=25, rs=24, imm=0x4101),
+            I("LBU", rt=25, rs=24, imm=0x4100), I("SH", rt=10, rs=24, imm=0x4102),
+            I("LH", rt=25, rs=24, imm=0x4102), I("LHU", rt=25, rs=24, imm=0x4100),
+            I("LWL", rt=25, rs=24, imm=0x4102), I("LWR", rt=25, rs=24, imm=0x4101),
+            I("SWL", rt=13, rs=24, imm=0x4141), I("SWR", rt=13, rs=24, imm=0x4142),
+            I("LL", rt=26, rs=24, imm=0x4140), I("SC", rt=26, rs=24, imm=0x4144),
+            # branches: each delay slot runs, a taken branch skips one op
+            I("BEQ", rs=1, rt=0, imm=1), I("SYNC"),
+            I("BNE", rs=28, rt=0, imm=1), I("ADDIU", rt=29, rs=0, imm=1),
+            I("ADDIU", rt=29, rs=0, imm=99),
+            I("BLTZ", rs=27, imm=1), I("SYNC"), I("SYNC"),
+            I("BGEZ", rs=27, imm=1), I("SYNC"),
+            I("BLEZ", rs=0, imm=1), I("SYNC"), I("SYNC"),
+            I("BGTZ", rs=27, imm=1), I("SYNC"),
+            I("BLTZAL", rs=27, imm=1), I("SYNC"), I("SYNC"),
+            I("BGEZAL", rs=28, imm=1), I("SYNC"), I("SYNC"),
+        ]
+        at = top + len(body)  # word index of the next op
+        body += [I("J", imm=at + 3), I("SYNC"), I("SYNC"),
+                 I("JAL", imm=at + 6), I("SYNC"), I("SYNC"),
+                 I("ADDIU", rt=30, rs=0, imm=4 * (at + 10)), I("JR", rs=30), I("SYNC"),
+                 I("SYNC"),
+                 I("ADDIU", rt=30, rs=0, imm=4 * (at + 14)), I("JALR", rd=29, rs=30),
+                 I("SYNC"), I("SYNC")]
+
+        def call(num, *sets):
+            """Set the (register, value) pairs, then v0 = num and SYSCALL."""
+            return [I("ADDIU", rt=r, rs=0, imm=v) for r, v in sets] + [
+                I("ADDIU", rt=2, rs=0, imm=num), I("SYSCALL")]
+
+        body += (call(mips.SYS_MMAP, (4, 0), (5, 5000)) + call(mips.SYS_MMAP, (4, 0x3000))
+                 + call(mips.SYS_BRK) + call(mips.SYS_CLONE)
+                 + call(mips.SYS_FCNTL, (4, 5), (5, 3)) + call(mips.SYS_FCNTL, (4, 1))
+                 + call(mips.SYS_FCNTL, (4, 9)) + call(mips.SYS_FCNTL, (5, 1))
+                 + call(mips.SYS_WRITE, (4, 1), (5, 0x4200), (6, 5))
+                 + call(mips.SYS_WRITE, (4, 4)) + call(mips.SYS_WRITE, (4, 9))
+                 + call(mips.SYS_READ, (4, 0)) + call(mips.SYS_READ, (4, 3))
+                 + call(mips.SYS_READ, (4, 9)) + call(4999)
+                 + call(mips.SYS_WRITE, (4, 6), (5, MIPS_KEY_ADDR), (6, 4))
+                 + call(mips.SYS_READ, (4, 5), (5, 0x4220)) + call(mips.SYS_READ, (5, 0x4224))
+                 + call(mips.SYS_READ, (5, 0x422A)) + call(mips.SYS_READ, (5, 0x422C)))
+        back = top - (top + len(body) + 2)  # the BNE's target, relative to its delay slot
+        body += [I("ADDIU", rt=3, rs=3, imm=-1), I("BNE", rs=3, rt=0, imm=back), I("SYNC")]
+        return head + body + [I("SYNC")] * pad + [
+            I("ADDIU", rt=2, rs=0, imm=mips.SYS_EXIT), I("ADDIU", rt=4, rs=0, imm=3),
+            I("SYSCALL")]
+
+    def count(program):
+        rows, state = mips.execute(program, 1 << 20, preimages=MIPS_PREIMAGES)
+        assert state["exited"], "the loop program did not reach exit_group"
+        return len(rows)
+
+    base = count(build(1, 0))
+    per_pass = count(build(2, 0)) - base
+    passes = 1 + (steps - base) // per_pass
+    program = build(passes, steps - base - (passes - 1) * per_pass)
+    assert passes >= 1 and count(program) == steps
+    return program
+
+
+def mips_encode(ins) -> int:
+    """A MIPS instruction word of an Instr (the inverse of mips.decode), for
+    loading a program into the Cannon VM's memory."""
+    r_funct = {"SLL": 0x00, "SRL": 0x02, "SRA": 0x03, "SLLV": 0x04, "SRLV": 0x06, "SRAV": 0x07,
+               "JR": 0x08, "JALR": 0x09, "MOVZ": 0x0A, "MOVN": 0x0B, "SYSCALL": 0x0C,
+               "SYNC": 0x0F, "MFHI": 0x10, "MTHI": 0x11, "MFLO": 0x12, "MTLO": 0x13,
+               "MULT": 0x18, "MULTU": 0x19, "DIV": 0x1A, "DIVU": 0x1B, "ADD": 0x20,
+               "ADDU": 0x21, "SUB": 0x22, "SUBU": 0x23, "AND": 0x24, "OR": 0x25, "XOR": 0x26,
+               "NOR": 0x27, "SLT": 0x2A, "SLTU": 0x2B}
+    i_opcode = {"BEQ": 0x04, "BNE": 0x05, "BLEZ": 0x06, "BGTZ": 0x07, "ADDI": 0x08,
+                "ADDIU": 0x09, "SLTI": 0x0A, "SLTIU": 0x0B, "ANDI": 0x0C, "ORI": 0x0D,
+                "XORI": 0x0E, "LUI": 0x0F, "LB": 0x20, "LH": 0x21, "LWL": 0x22, "LW": 0x23,
+                "LBU": 0x24, "LHU": 0x25, "LWR": 0x26, "SB": 0x28, "SH": 0x29, "SWL": 0x2A,
+                "SW": 0x2B, "SWR": 0x2E, "LL": 0x30, "SC": 0x38}
+    regimm = {"BLTZ": 0x00, "BGEZ": 0x01, "BLTZAL": 0x10, "BGEZAL": 0x11}
+    if ins.op in r_funct:
+        sa = ins.imm if ins.op in ("SLL", "SRL", "SRA") else 0
+        return (ins.rs << 21) | (ins.rt << 16) | (ins.rd << 11) | (sa << 6) | r_funct[ins.op]
+    if ins.op in regimm:
+        return (0x01 << 26) | (ins.rs << 21) | (regimm[ins.op] << 16) | (ins.imm & 0xFFFF)
+    if ins.op in ("J", "JAL"):
+        return ({"J": 0x02, "JAL": 0x03}[ins.op] << 26) | ins.imm
+    return (i_opcode[ins.op] << 26) | (ins.rs << 21) | (ins.rt << 16) | (ins.imm & 0xFFFF)
 
 
 def column_vector(name: str) -> tuple[bytes, dict]:
@@ -2275,6 +2439,136 @@ def riscv_path(run, device, log_n: int = RV_LOG_N) -> dict:
         f"{json.dumps(counts)}")
     log(f"check: the RV32IM proof of rv_loop_program (n = {n}, Layout(4)) launches every kernel "
         "but K3 and K9, verifies and is rejected with a changed final register")
+    return {}
+
+
+def mips_path(run, device, log_n: int = MIPS_LOG_N) -> dict:
+    """o1vm's MIPS execution proofs. The vector case: tests/test_mips.py's
+    nine instructions at Layout(2), n = 256, TestRng(71), every field equal
+    to tests/vectors/column_mips_2^8, its statement as the vector's;
+    verified, rejected with regs[5] = 43 and with init_memory[32] = 9. The
+    Cannon snapshot: the vector column_mips_cannon_2^9's segment (pc0 =
+    0x1000, a preimage key write, reads of its stream, exit_group(3)) run by
+    the port's CannonVM on the host, then proved at n = 512, TestRng(81):
+    every field equal to the vector, the final registers the VM's, verified,
+    rejected when the preimage's last byte changes. The full-width case:
+    mips_loop_program at the default Layout(4) over 2^log_n rows (n / 2
+    steps, exit_group last), every kernel but K3 and K9 launched, verified,
+    rejected with a changed final register; prove_mips_ms with the host's
+    execute, build_columns, phase1_columns and phase2_host apart,
+    verify_mips_ms and the proof's peak device memory."""
+    from proof_systems_tpu_torch.circuits.domains import EvaluationDomains
+    from proof_systems_tpu_torch.convert import column_proof_fields
+    from proof_systems_tpu_torch.curves import Vesta
+    from proof_systems_tpu_torch.fields import Fp
+    from proof_systems_tpu_torch.o1vm import cannon, logup, mips
+    from proof_systems_tpu_torch.ops import kernels
+    from proof_systems_tpu_torch.poly_commitment.srs import SRS
+    from proof_systems_tpu_torch.serialization import serialize_column_proof
+    from proof_systems_tpu_torch.utils.rng import TestRng
+
+    times = run["times"]
+
+    def setup(n):
+        return (EvaluationDomains.create(Fp, n, device=device),
+                SRS(Vesta, run["srs"].g[:n], run["srs"].h, device))
+
+    def verify(domain, srs, proof, statement, seed):
+        return mips.verify_execution(domain, srs, Vesta, proof, statement, TestRng(seed),
+                                     device=device)
+
+    def with_final_reg(statement, r, value):
+        return dict(statement, final=dict(statement["final"], regs=[
+            value if i == r else v for i, v in enumerate(statement["final"]["regs"])]))
+
+    def prove_vector(name, seed, **kw):
+        raw, st = column_vector(name)
+        want = mips.statement_from_json(st["statement"])
+        domain, srs = setup(st["n"])
+        (proof, statement), secs = wall(lambda: mips.prove_execution(
+            domain, srs, Vesta, want["program"], st["n"], TestRng(seed),
+            L=mips.Layout(want["bitwise_bits"]), pc0=want["init"]["pc"],
+            preimages=want["preimages"], device=device, **kw), device)
+        times[f"prove_{name}_vector_ms"] = secs * 1e3
+        if mips.statement_to_json(statement) != st["statement"]:
+            raise AssertionError(f"prove_execution's statement differs from the {name} vector's")
+        if serialize_column_proof(Vesta, column_proof_fields(proof)) != raw:
+            raise AssertionError(f"the MIPS proof differs from {COLUMN_VECTORS[name]}")
+        if not verify(domain, srs, proof, statement, seed + 1):
+            raise AssertionError(f"verify_execution rejected the honest {name} vector proof")
+        return domain, srs, proof, statement
+
+    domain, srs, proof, statement = prove_vector("mips", 71)
+    bad_memory = dict(statement, init_memory={**statement["init_memory"], 32: 9})
+    if verify(domain, srs, proof, with_final_reg(statement, 5, 43), 73) or verify(
+            domain, srs, proof, bad_memory, 74):
+        raise AssertionError("verify_execution accepted regs[5] = 43 or init_memory[32] = 9")
+    log(f"check: the MIPS proof (n = 256, Layout(2)) equals {COLUMN_VECTORS['mips']} field by "
+        "field; it verifies and is rejected with regs[5] = 43 and with init_memory[32] = 9")
+
+    want = mips.statement_from_json(column_vector("mips_cannon")[1]["statement"])
+    pc0, data = want["init"]["pc"], {a: v for a, v in want["init_memory"].items() if v}
+    state = cannon.State(memory={}, pc=pc0, next_pc=pc0 + 4)
+    vm = cannon.CannonVM(state, oracle=cannon.InMemoryPreImageOracle(want["preimages"]))
+    for w, ins in enumerate(want["program"]):
+        vm.mem.write_word(pc0 + 4 * w, mips_encode(ins))
+    for addr, val in data.items():
+        vm.mem.write_word(addr, val)
+    vm.run(max_steps=100)
+    domain, srs, proof, statement = prove_vector("mips_cannon", 81, memory=data)
+    fin = statement["final"]
+    if not (state.exited and fin["exited"] and fin["regs"] == state.registers
+            and (fin["hi"], fin["lo"], fin["pk"], fin["exit_code"]) == (
+                state.hi, state.lo, state.preimage_key, state.exit)):
+        raise AssertionError("the Cannon VM's final state differs from the proof's statement")
+    key = next(iter(statement["preimages"]))
+    data_bytes = statement["preimages"][key]
+    bad = dict(statement, preimages={key: data_bytes[:-1] + bytes([data_bytes[-1] ^ 1])})
+    if verify(domain, srs, proof, bad, 83):
+        raise AssertionError("verify_execution accepted a changed preimage")
+    log(f"check: the Cannon snapshot (pc0 = {pc0:#x}, exit {state.exit} after {state.step} "
+        f"steps of the CannonVM) proves at n = 512 equal to {COLUMN_VECTORS['mips_cannon']} "
+        "field by field, with the VM's final registers; it verifies and is rejected with the "
+        "preimage's last byte changed")
+
+    n = 1 << log_n
+    domain, srs = setup(n)
+    program = mips_loop_program(n // 2)
+    before = kernels.launch_counts()
+    peak_gib(device, reset=True)
+    with HostClock(mips, ("execute", "build_columns")) as clock, HostClock(
+            logup.MultiLogup, ("phase1_columns", "phase2_host")) as mclock:
+        (proof, statement), secs = wall(lambda: mips.prove_execution(
+            domain, srs, Vesta, program, n, TestRng(MIPS_SEED), preimages=MIPS_PREIMAGES,
+            device=device), device)
+    times["peak_mips_gib"] = peak_gib(device)
+    counts = {k: v - before[k] for k, v in kernels.launch_counts().items()}
+    times["prove_mips_ms"] = secs * 1e3
+    host_s = {**clock.seconds, **mclock.seconds}
+    for stage, s in host_s.items():
+        times[f"prove_mips_{stage}_ms"] = s * 1e3
+    times["prove_mips_rest_ms"] = (secs - sum(host_s.values())) * 1e3
+    zero = [k for k, v in counts.items() if v == 0 and k not in ("jacobian_double", "linear_scan")]
+    if zero and device.type == "cuda":  # the CPU's plain versions launch nothing
+        raise AssertionError(f"kernels not launched by the MIPS proof at n = {n}: {zero}")
+    if statement["k_steps"] != n // 2 or not statement["final"]["exited"]:
+        raise AssertionError(f"the loop ran {statement['k_steps']} steps, not {n // 2} to its exit")
+    ok, secs = wall(lambda: verify(domain, srs, proof, statement, MIPS_SEED + 1), device)
+    times["verify_mips_ms"] = secs * 1e3
+    if not ok:
+        raise AssertionError(f"verify_execution rejected the honest MIPS proof at n = {n}")
+    regs = statement["final"]["regs"]
+    if verify(domain, srs, proof, with_final_reg(statement, 8, (regs[8] + 1) % mips.TWO32),
+              MIPS_SEED + 2):
+        raise AssertionError("verify_execution accepted a changed final register")
+    inside = ", ".join(f"{stage} {s * 1e3:.1f}" for stage, s in host_s.items())
+    log(f"mips: n = {n}, {statement['k_steps']} steps, {len(proof.commitments)} columns, "
+        f"prove_mips_ms {times['prove_mips_ms']:.1f} (on the host: {inside}), verify_mips_ms "
+        f"{times['verify_mips_ms']:.1f}, peak {times['peak_mips_gib']:.2f} GiB, launches "
+        f"{json.dumps(counts)}")
+    log(f"check: the MIPS proof of mips_loop_program (n = {n}, Layout(4), exit_group last) "
+        "launches every kernel but K3 and K9, verifies and is rejected with a changed final "
+        "register")
     return {}
 
 
@@ -2817,8 +3111,12 @@ def new_paths(kernels, result, device, log_n: int, checked: set, verify_kernels)
          COLUMN_KERNELS, lambda: column_path(result, log_n, device, nat), None),
         ("keccak", "o1vm's Keccak-f proof, n = 32, the JAX package's vector", KECCAK_KERNELS,
          lambda: keccak_path(result, device), None),
-        ("riscv", f"o1vm's RV32IM proofs, n = 256 (the JAX package's vector) and 2^{RV_LOG_N}",
-         COLUMN_KERNELS, lambda: riscv_path(result, device), None),
+        ("riscv", f"o1vm's RV32IM proofs, n = 256 (the JAX package's vector) and "
+         f"2^{RV_COMBINED_LOG_N}", COLUMN_KERNELS,
+         lambda: riscv_path(result, device, RV_COMBINED_LOG_N), None),
+        ("mips", f"o1vm's MIPS proofs, n = 256 and 512 (the JAX package's vectors) and "
+         f"2^{MIPS_COMBINED_LOG_N}", COLUMN_KERNELS,
+         lambda: mips_path(result, device, MIPS_COMBINED_LOG_N), None),
         ("batch", "five proofs of four circuits", verify_kernels,
          lambda: batch_path(result, device), ("batch_verify_ms", "single_verify_sum_ms")),
         ("vk files", "bench, lookup, chunked, gate mix", verify_kernels,
@@ -2841,10 +3139,10 @@ def new_paths(kernels, result, device, log_n: int, checked: set, verify_kernels)
 
 
 def phase_alone(name: str, device, log_n: int) -> None:
-    """One phase by itself (`--only column`, `keccak` or `riscv`):
+    """One phase by itself (`--only column`, `keccak`, `riscv` or `mips`):
     SRS.create(2^k) on the card, the phase counted, its kernel calls held
     against the plain versions, every number printed; no result line. For
-    riscv, 2^k is also the full-width case's domain."""
+    riscv and mips, 2^k is also the full-width case's domain."""
     from proof_systems_tpu_torch.curves import Vesta
     from proof_systems_tpu_torch.native import native_curve
     from proof_systems_tpu_torch.ops import kernels
@@ -2855,7 +3153,8 @@ def phase_alone(name: str, device, log_n: int) -> None:
         "column": (lambda: column_path(result, log_n, device, native_curve(Vesta)),
                    COLUMN_KERNELS),
         "keccak": (lambda: keccak_path(result, device), KECCAK_KERNELS),
-        "riscv": (lambda: riscv_path(result, device, log_n), COLUMN_KERNELS)}[name]
+        "riscv": (lambda: riscv_path(result, device, log_n), COLUMN_KERNELS),
+        "mips": (lambda: mips_path(result, device, log_n), COLUMN_KERNELS)}[name]
     log(f"== {name} path alone, k = {log_n}, counted")
     _, _, calls = counted(kernels, name, fn, device, expect)
     for k in sorted(result["times"]):
@@ -2987,9 +3286,9 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--log-n", type=int,
                     help=f"log2 of the SRS depth and domain (default {LOG_N}; from 14 on "
-                         "every kernel is on the path); with --only riscv, of the full-width "
-                         f"RV32IM domain (default {RV_LOG_N})")
-    ap.add_argument("--only", choices=["column", "keccak", "riscv"],
+                         "every kernel is on the path); with --only riscv or mips, of the "
+                         f"full-width RV32IM or MIPS domain (default {RV_LOG_N}, {MIPS_LOG_N})")
+    ap.add_argument("--only", choices=["column", "keccak", "riscv", "mips"],
                     help="run one phase by itself and print its numbers (no result line)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -3014,7 +3313,7 @@ def main() -> int:
 
     card = card_line()
     log(f"== card: {torch.cuda.get_device_name(0)} | {card}")
-    log_n = args.log_n or (RV_LOG_N if args.only == "riscv" else LOG_N)
+    log_n = args.log_n or {"riscv": RV_LOG_N, "mips": MIPS_LOG_N}.get(args.only, LOG_N)
     if args.only:
         phase_alone(args.only, device, log_n)
         log(f"== card: {card}")

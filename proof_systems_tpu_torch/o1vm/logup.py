@@ -22,14 +22,20 @@ constraint. The constraint is degree-cleared (logup.rs eq. (5)):
 beta is squeezed AFTER committing f, t, m (two-phase prove_columns);
 phi is the only beta-dependent column.
 
-Multiplicity counting, phi and the h columns are host setup per proof, one
-Python inverse a lookup; limb.batch_inverse and a prefix sum are the path
-that would move them to the device.
+Multiplicity counting, phi and the h columns are host setup per proof;
+limb.batch_inverse and a prefix sum are the path that would move them to
+the device. Where the JAX package takes a Python inverse a lookup and walks
+each slot's expressions once a row, the port inverts a column's
+denominators together (Montgomery's trick: one inverse, three products an
+element) and evaluates each expression once over numpy arrays of Python
+integers that hold every row: the same integers, mod p.
 """
 
 from __future__ import annotations
 
 from collections import Counter
+
+import numpy as np
 
 from ..circuits import expr as E
 from ..runtime import resolve_device
@@ -57,19 +63,37 @@ def multiplicities(lookups: list[list[int]], table: list[int], p: int) -> list[i
     return m
 
 
+def inverses(values: list[int], p: int) -> list[int]:
+    """[pow(v, -1, p) for v in values], for values reduced mod p, by one
+    inverse and three products an element (Montgomery's trick); a zero
+    raises as pow does."""
+    if 0 in values:
+        raise ValueError("base is not invertible for the given modulus")
+    prefix = [1] * (len(values) + 1)
+    for i, v in enumerate(values):
+        prefix[i + 1] = prefix[i] * v % p
+    inv = pow(prefix[-1], -1, p)
+    out = [0] * len(values)
+    for i in range(len(values) - 1, -1, -1):
+        out[i] = prefix[i] * inv % p
+        inv = inv * values[i] % p
+    return out
+
+
 def phi_column(
     lookups: list[list[int]], table: list[int], m: list[int], beta: int, p: int
 ) -> list[int]:
     """The running aggregator: phi[0] = 0, phi[i+1] = phi[i] + h[i];
     wraps to zero exactly when the lookup relation holds."""
     n = len(table)
+    inv = iter(inverses([(beta + v) % p for i in range(n) for v in [*lookups[i], table[i]]], p))
     phi = [0] * n
     acc = 0
     for i in range(n):
         h = 0
-        for v in lookups[i]:
-            h += pow((beta + v) % p, -1, p)
-        h -= m[i] * pow((beta + table[i]) % p, -1, p)
+        for _ in lookups[i]:
+            h += next(inv)
+        h -= m[i] * next(inv)
         phi[i] = acc
         acc = (acc + h) % p
     if acc != 0:
@@ -311,27 +335,35 @@ class MultiLogup:
     #    kimchi prover's hot loops — device batch-inversion is the
     #    documented scale-up path, ops/limb.batch_inverse) --------------
 
-    def _eval_rows(self, expr: E.Expr, cols: list[list[int]]):
-        """Evaluate a (deg-bounded) expr at every row; NEXT wraps."""
+    def _eval_rows(self, expr: E.Expr, cols: list[list[int]], shifted: dict | None = None):
+        """Evaluate a (deg-bounded) expr at every row; NEXT wraps. One
+        eval_host walk over numpy object arrays of every row's cells, Python
+        integers all through (the lookup expressions have no Pow node, which
+        an array could not take); `shifted` caches a column's rows rotated
+        by a cell's row offset across the calls of one phase."""
         from ..circuits.expr import HostEvalContext, eval_host
 
-        p = self.f.p
         n = self.n
-        out = []
-        for i in range(n):
-            ctx = HostEvalContext(
-                f=self.f,
-                get_cell=lambda c, row, i=i: cols[c[1]][(i + row) % n],
-                challenges={},
-                endo=0,
-                mds=[],
-                point=0,
-                domain_n=n,
-                omega=0,
-                zk_rows=0,
-            )
-            out.append(eval_host(expr, ctx))
-        return out
+        shifted = {} if shifted is None else shifted
+
+        def get_cell(c, row):
+            if (c[1], row) not in shifted:
+                colv, r = cols[c[1]], row % n
+                shifted[c[1], row] = np.array(colv[r:] + colv[:r], dtype=object)
+            return shifted[c[1], row]
+
+        ctx = HostEvalContext(
+            f=self.f,
+            get_cell=get_cell,
+            challenges={},
+            endo=0,
+            mds=[],
+            point=0,
+            domain_n=n,
+            omega=0,
+            zk_rows=0,
+        )
+        return np.broadcast_to(np.asarray(eval_host(expr, ctx), dtype=object), (n,)).tolist()
 
     def phase1_columns(self, trace_cols: list[list[int]]) -> list[list[int]]:
         """Given the C trace columns, append padded table components and
@@ -353,11 +385,12 @@ class MultiLogup:
             cols.append([0] * n)  # m, filled below
         m_counts: dict[int, list[int]] = {t.table_id: [0] * n for t in self.tables}
         ncaller = len(self.specs) - len(self.tables)
+        shifted: dict = {}
         for s in self.specs[:ncaller]:
             if s.table_id not in table_first:
                 continue  # RAM table: balances against its own writes
-            nums = self._eval_rows(s.numerator, cols)
-            vals = [self._eval_rows(v, cols) for v in s.values]
+            nums = self._eval_rows(s.numerator, cols, shifted)
+            vals = [self._eval_rows(v, cols, shifted) for v in s.values]
             first = table_first[s.table_id]
             for i in range(n):
                 if nums[i] == 0:
@@ -383,16 +416,18 @@ class MultiLogup:
         n = self.n
         cols = self._cols_phase1
         slot_terms = []
+        shifted: dict = {}
         for s in self.specs:
-            nums = self._eval_rows(s.numerator, cols)
-            vals = [self._eval_rows(v, cols) for v in s.values]
-            terms = []
-            for i in range(n):
-                combined = 0
-                for v in reversed(vals):
-                    combined = (combined * joint + v[i]) % p
-                den = (beta + combined * joint + s.table_id) % p
-                terms.append(nums[i] * pow(den, -1, p) % p if nums[i] else 0)
+            nums = self._eval_rows(s.numerator, cols, shifted)
+            combined = 0
+            for v in reversed(s.values):
+                combined = (combined * joint + np.array(self._eval_rows(v, cols, shifted),
+                                                        dtype=object)) % p
+            dens = np.broadcast_to((beta + combined * joint + s.table_id) % p, (n,)).tolist()
+            live = [i for i in range(n) if nums[i]]
+            terms = [0] * n
+            for i, inv in zip(live, inverses([dens[i] for i in live], p)):
+                terms[i] = nums[i] * inv % p
             slot_terms.append(terms)
         h_cols = []
         for ci in range(self.nchunks):

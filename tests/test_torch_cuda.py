@@ -1016,8 +1016,8 @@ def test_column_proof_matches_cpu(dev):
     assert column_proof_fields(proofs["cuda"]) == column_proof_fields(proofs["cpu"])
 
 
-# The o1vm Keccak-f and RV32IM paths (chip_smoke.py's keccak and riscv
-# phases): the port's proofs of the JAX package's vectors on the card, and
+# The o1vm Keccak-f, RV32IM and MIPS paths (chip_smoke.py's keccak, riscv and
+# mips phases): the port's proofs of the JAX package's vectors on the card, and
 # the call shapes these paths add: K6 mixed on a pass of the Keccak commit
 # (37 x 2,113 x 33) and of the RV32IM commit at n = 2^14 (29 x 69 x 16,385),
 # its plain version on slices of rows as chip_smoke.plain_call holds it; K1
@@ -1073,6 +1073,61 @@ def test_riscv_vector_proof_on_the_card(dev):
     bad = dict(statement, final=dict(statement["final"], regs=list(statement["final"]["regs"])))
     bad["final"]["regs"][3] = 14
     assert not riscv.verify_execution(domain, srs, Vesta, proof, bad, TestRng(83))
+
+
+def _mips_vector(name: str, seed: int, dev, **kw):
+    """A MIPS vector's statement proved on the card: the proof, its statement,
+    the domain and SRS; the bytes and statement equal the vector's, and it
+    verifies."""
+    from proof_systems_tpu_torch.convert import column_proof_fields
+    from proof_systems_tpu_torch.o1vm import mips
+    from proof_systems_tpu_torch.serialization import serialize_column_proof
+    from proof_systems_tpu_torch.utils.rng import TestRng
+
+    raw, st = chip_smoke.column_vector(name)
+    want = mips.statement_from_json(st["statement"])
+    domain, srs = _vector_setup(st["n"], dev)
+    proof, statement = mips.prove_execution(
+        domain, srs, Vesta, want["program"], st["n"], TestRng(seed),
+        L=mips.Layout(want["bitwise_bits"]), pc0=want["init"]["pc"],
+        preimages=want["preimages"], **kw)
+    assert mips.statement_to_json(statement) == st["statement"]
+    assert serialize_column_proof(Vesta, column_proof_fields(proof)) == raw
+    assert mips.verify_execution(domain, srs, Vesta, proof, statement, TestRng(seed + 1))
+    return proof, statement, domain, srs
+
+
+def test_mips_vector_proof_on_the_card(dev):
+    """tests/test_mips.py's program proved on the card (Layout(2), n = 256)
+    equals tests/vectors/column_mips_2^8 byte for byte with the same
+    statement; it verifies, and regs[5] = 43 and init_memory[32] = 9 are
+    rejected."""
+    from proof_systems_tpu_torch.o1vm import mips
+    from proof_systems_tpu_torch.utils.rng import TestRng
+
+    proof, statement, domain, srs = _mips_vector("mips", 71, dev)
+    bad = dict(statement, final=dict(statement["final"], regs=list(statement["final"]["regs"])))
+    bad["final"]["regs"][5] = 43
+    assert not mips.verify_execution(domain, srs, Vesta, proof, bad, TestRng(73))
+    bad = dict(statement, init_memory={**statement["init_memory"], 32: 9})
+    assert not mips.verify_execution(domain, srs, Vesta, proof, bad, TestRng(74))
+
+
+def test_mips_cannon_vector_proof_on_the_card(dev):
+    """The Cannon snapshot segment (pc0 = 0x1000, a preimage read, exit 3)
+    proved on the card (Layout(2), n = 512) equals
+    tests/vectors/column_mips_cannon_2^9 byte for byte; it verifies, and a
+    preimage with its last byte changed is rejected."""
+    from proof_systems_tpu_torch.o1vm import mips
+    from proof_systems_tpu_torch.utils.rng import TestRng
+
+    data = {0x100 + 4 * w: int.from_bytes(bytes(range(64 + 4 * w, 68 + 4 * w)), "big")
+            for w in range(8)}
+    proof, statement, domain, srs = _mips_vector("mips_cannon", 81, dev, memory=data)
+    assert statement["final"]["exit_code"] == 3 and statement["final"]["regs"][9] == 0x11223344
+    key = bytes(range(64, 96))
+    bad = dict(statement, preimages={key: b"\x11\x22\x33\x45"})
+    assert not mips.verify_execution(domain, srs, Vesta, proof, bad, TestRng(83))
 
 
 @pytest.mark.parametrize("name,n,arg", [("mont_mul", 300 << 17, None)], ids=str)

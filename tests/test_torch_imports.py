@@ -57,7 +57,7 @@ def test_importing_every_module_loads_no_jax():
 HOST_MODULES = ["circuits.polynomials.optional_gates", "circuits.polynomials.optional_witness",
                 "circuits.polynomials.witness_gen", "circuits.checker", "circuits.snarky",
                 "circuits.gate_mix", "o1vm", "o1vm.pickles", "o1vm.logup", "o1vm.keccak",
-                "o1vm.riscv"]
+                "o1vm.riscv", "o1vm.mips", "o1vm.cannon", "o1vm.elf", "o1vm.cli"]
 
 
 @pytest.mark.parametrize("module", HOST_MODULES)
@@ -149,10 +149,10 @@ def _entry_points(tmp_path):
                           Vesta, TestRng(0))
 
     def o1vm_entry(name):
-        """keccak's and riscv's entry points on a 32-row CPU domain and SRS,
-        the device left to its default."""
+        """keccak's, riscv's and mips's entry points on a 32-row CPU domain
+        and SRS, the device left to its default."""
         from proof_systems_tpu_torch.circuits.domains import EvaluationDomains
-        from proof_systems_tpu_torch.o1vm import keccak, riscv
+        from proof_systems_tpu_torch.o1vm import keccak, mips, riscv
 
         cpu = torch.device("cpu")
         domain, srs = EvaluationDomains.create(Fp, 32, device=cpu), SRS(Vesta, g, h, cpu)
@@ -169,6 +169,11 @@ def _entry_points(tmp_path):
                                                              TestRng(0), L=riscv.Layout(2)),
             "verify_execution": lambda: riscv.verify_execution(domain, srs, Vesta, None,
                                                                statement, TestRng(0)),
+            "prove_mips": lambda: mips.prove_execution(
+                domain, srs, Vesta, [mips.Instr("ADDIU", rt=1, rs=0, imm=1)], 32, TestRng(0),
+                L=mips.Layout(2)),
+            "verify_mips": lambda: mips.verify_execution(domain, srs, Vesta, None, {},
+                                                         TestRng(0)),
         }[name]()
 
     def package_prove():
@@ -197,7 +202,8 @@ def _entry_points(tmp_path):
         "VerifierIndex.from_file": from_file,
         "batch_verify": batch_verify,
         **{name: (lambda name=name: o1vm_entry(name))
-           for name in ("prove_keccak", "verify_keccak", "prove_execution", "verify_execution")},
+           for name in ("prove_keccak", "verify_keccak", "prove_execution", "verify_execution",
+                        "prove_mips", "verify_mips")},
     }
 
 
@@ -206,7 +212,8 @@ def _entry_points(tmp_path):
                                   "ConstraintSystem.create[lookup]",
                                   "ConstraintSystem.create[optional]", "VerifierIndex.from_file",
                                   "batch_verify", "prove_keccak", "verify_keccak",
-                                  "prove_execution", "verify_execution"])
+                                  "prove_execution", "verify_execution", "prove_mips",
+                                  "verify_mips"])
 def test_entry_points_default_to_cuda(name, tmp_path):
     """With no device given, an entry point asks for the card; without one
     it raises instead of running on the CPU. The verifier's entry points run
@@ -246,11 +253,23 @@ def test_package_level_prove_and_verify():
         "quotient_evaluations", "opening"}
     assert callable(verify_columns)
     from proof_systems_tpu_torch.o1vm import (
+        mips,
         prove_execution,
         prove_keccak,
+        prove_mips,
+        riscv,
         verify_execution,
         verify_keccak,
+        verify_mips,
     )
 
-    for fn in (prove_keccak, verify_keccak, prove_execution, verify_execution):
+    for fn in (prove_keccak, verify_keccak, prove_execution, verify_execution, prove_mips,
+               verify_mips):
         assert list(inspect.signature(fn).parameters)[-1] == "device", fn.__name__
+    # RV32IM's names stay RV32IM's; MIPS's are its own
+    assert (prove_execution, verify_execution) == (riscv.prove_execution, riscv.verify_execution)
+    assert (prove_mips, verify_mips) == (mips.prove_execution, mips.verify_execution)
+    from proof_systems_tpu.o1vm import mips as jmips
+
+    assert list(inspect.signature(prove_mips).parameters)[:-1] == list(
+        inspect.signature(jmips.prove_execution).parameters)

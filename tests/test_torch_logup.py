@@ -2,8 +2,9 @@
 kernels run, against the JAX package's.
   - tests/test_logup.py's inputs: multiplicities and phi (random.Random(70),
     n = 16, two lookups a row into range_table(4, 16)) equal the JAX
-    package's, and both refuse a corrupted multiplicity and a value that is
-    not in the table; the LogupInstance of random.Random(71) is proved once
+    package's, and both refuse a corrupted multiplicity, a value that is not
+    in the table and a denominator of 0; the port's batched inverses equal
+    pow's; the LogupInstance of random.Random(71) is proved once
     by each package (TestRng(72)) and every ColumnProof field is equal.
   - A MultiLogup with bitwise_table(1, bits=2) (64 rows, so n = 64, the
     smallest domain that holds it) and the joint combiner over four trace
@@ -58,6 +59,22 @@ def test_multiplicities_and_phi_equal_jax():
     beta = rng.randrange(1, P)
     phi = logup.phi_column(lookups, table, m, beta, P)
     assert phi == jlogup.phi_column(lookups, table, m, beta, P) and phi[0] == 0
+
+
+def test_inverses_equal_pow_and_a_zero_raises_in_both():
+    """logup.inverses (the port's batch of a column's inverses) is pow(v, -1,
+    p) element by element; a denominator of 0 (beta = -v) raises ValueError
+    in phi_column in both packages."""
+    rng = random.Random(75)
+    vals = [rng.randrange(1, P) for _ in range(200)] + [1, P - 1]
+    assert logup.inverses(vals, P) == [pow(v, -1, P) for v in vals]
+    assert logup.inverses([], P) == []
+    table = logup.range_table(4, 16)
+    lookups = [[i % 16] for i in range(16)]
+    m = logup.multiplicities(lookups, table, P)
+    for mod in (logup, jlogup):
+        with pytest.raises(ValueError, match="not invertible"):
+            mod.phi_column(lookups, table, m, P - 5, P)
 
 
 def test_corrupt_witness_raises():

@@ -9,8 +9,9 @@ instruction class; Layout(2); n = 256):
     equal the JAX package's; so does every constraint under eval_host at
     seeded cell values;
   - every constraint holds on every row of rich_program's trace with its
-    phase-2 columns, checked by this file's host checker (the port's own
-    expr.eval_host, with the boundary rows' Lagrange values on the domain);
+    phase-2 columns, checked by tests/test_torch_mips.py's host checker (the
+    port's own expr.eval_host, with the boundary rows' Lagrange values on the
+    domain);
   - a corrupted memory value makes phase2_host raise "does not hold", and a
     corrupted DIVU quotient fails the check.
 Every comparison is exact. The proof itself runs on the card (chip_smoke.py,
@@ -34,6 +35,7 @@ from proof_systems_tpu_torch.fields import Fp
 from proof_systems_tpu_torch.o1vm import riscv
 from proof_systems_tpu_torch.ops import limb
 from tests.test_riscv import rich_program as jrich_program
+from tests.test_torch_mips import first_violation as mips_first_violation
 
 P = Fp.p
 N = 256
@@ -143,31 +145,9 @@ def test_constraints_equal_jax(rich):
 
 def first_violation(allcols, cons, beta: int, joint: int):
     """(constraint, row) of the first constraint that does not vanish on a
-    row of the domain (rows cyclic), or None: each boundary row's
-    UnnormalizedLagrangeBasis(i) takes its value on the domain, n * w^-i at
-    row i and 0 elsewhere."""
-    offsets = set()
-    stack, seen = list(cons), set()
-    while stack:
-        e = stack.pop()
-        if id(e) in seen:
-            continue
-        seen.add(id(e))
-        if isinstance(e, E.UnnormalizedLagrangeBasis):
-            offsets.add(e.offset % N)
-        stack.extend(c for c in (getattr(e, "a", None), getattr(e, "b", None))
-                     if isinstance(c, E.Expr))
-    for j in range(N):
-        ctx = E.HostEvalContext(
-            f=Fp, get_cell=lambda c, row, j=j: allcols[c[1]][(j + row) % N],
-            challenges={"alpha": 1, "beta": beta, "gamma": 0, "joint_combiner": joint},
-            endo=0, mds=[], point=pow(OMEGA, j, P), domain_n=N, omega=OMEGA, zk_rows=0,
-            lagrange_overrides={i: N * pow(OMEGA, (N - i) % N, P) % P if i == j else 0
-                                for i in offsets})
-        for k, con in enumerate(cons):
-            if E.eval_host(con, ctx):
-                return k, j
-    return None
+    row of the n = 256 domain, or None (tests/test_torch_mips.py's checker:
+    the port's expr.eval_host over arrays of every row)."""
+    return mips_first_violation(allcols, cons, N, OMEGA, beta, joint)
 
 
 def test_every_constraint_holds_on_every_row(rich):
