@@ -5,10 +5,11 @@ verification path, and a whole Kimchi proof, on one GPU.
     python3 chip_smoke.py
 
 Phases, each fatal on failure:
-  1. build the CUDA kernels of proof_systems_tpu_torch/csrc (nvcc, sm_90a)
-     and the native host library (MSM, Poseidon); print build times and
-     ptxas's register, stack and spill lines of every function (the full
-     ptxas log goes to build/kernels/<hash>/ptxas.log);
+  1. build the CUDA kernels of proof_systems_tpu_torch/csrc (nvcc, sm_90a;
+     one process a translation unit, all started together, one library)
+     and the native host library (MSM, Poseidon); print build times (each
+     unit's too) and ptxas's register, stack and spill lines of every
+     function (the full ptxas log goes to build/kernels/<hash>/ptxas.log);
   2. print the card; one thread's chain of dependent products on the card
      for field.cuh's CIOS fe_mul and for chain_field.cuh's product, square
      and dot3 (us a step), and the registers and local memory of K10, K4
@@ -124,10 +125,26 @@ Phases, each fatal on failure:
      at n = 512 field by field equal to the vector with the VM's final
      registers, verified, rejected with the preimage's last byte changed;
      then mips_loop_program (every op and syscall kind, a loop of n / 2
-     steps ending in exit_group) at Layout(4) over 2^13 rows (2^14 alone),
+     steps ending in exit_group) at Layout(4) over 2^12 rows (2^14 alone),
      where every kernel but K3 and K9 must launch, verified, rejected with a
      changed final register, prove_mips_ms with the same host stages apart
-     (`--only mips`; with it, `--log-n` sets that domain);
+     (`--only mips`; with it, `--log-n` sets that domain); the
+     foreign-field MSM circuit: tests/test_msm_circuit.py's statement at
+     n = 256 field by field tests/vectors/column_msm_2^8, then Layout()
+     (16-bit limbs, 256-bit elements, 519 committed columns) over secp256k1
+     at n = 2^16 with 16 seeded points and scalars, its result the host's
+     double-and-add sum, verified, rejected with a changed result and
+     changed scalars, every kernel but K3 and K9 launched, prove_msm_ms
+     with build_columns, phase1_columns and phase2_host apart, verify_msm_ms
+     and a peak under 80 GiB (`--only msm [--points K]`); arrabbiata
+     folding: tests/test_ivc.py's statement (n = 256, two steps, decide),
+     both decider proofs (Vesta / Fp, Pallas / Fq) field by field
+     tests/vectors/column_ivc_*_2^8, then six IVC steps over both curves
+     (two folds a side) and the decider, each side's proof rejected with a
+     changed evaluation, the steps', folds' and each side's decision's
+     times, then folding/cli.py's `execute --zkapp square -n 4
+     --srs-size 8` (every kernel but K3, K9 and the endo ladder launched:
+     at n = 256 the opening has no fold step; `--only folding`);
      one batch_verify over the bench, public-input, recursion, lookup and
      chunked proofs beside the five single verifications (rejected when one
      has ft_eval1 + 1); and the bench, lookup, chunked and gate-mix
@@ -146,7 +163,15 @@ Phases, each fatal on failure:
      proof's rejection with a public value + 1, the prover's public
      commitment equal to the verifier's masked -sum p_i L_i, and the 5
      Lagrange commitments equal to the native host MSM over g;
-  6. the kernels' JSON line, the card line, and the result line.
+  6. the seconds of each part (the build, the plain checks, each phase and
+     its plain checks apart), the kernels' JSON line, the card line, and the
+     result line.
+
+The plain checks compute the plain versions of calls that share a batch key
+(K4's exponent, the ladder's and K11's curve, K8's c and windows, a row
+scan's length) in one plain call and split the outputs back
+(plain_outputs): each kernel call is still held against the plain version
+on its own inputs.
 
 Exits non-zero without a CUDA device. Imports nothing of JAX.
 """
@@ -158,6 +183,7 @@ import concurrent.futures
 import gc
 import json
 import random
+import re
 import subprocess
 import sys
 import time
@@ -191,26 +217,24 @@ LADDER_PRODUCTS = 1 + PRODUCTS["add"] + PRODUCTS["dbl"] + 64 * (PRODUCTS["dbl"] 
 INV_BATCHES, INV_STEPS = 17, 30
 INV_OPS = INV_BATCHES * (INV_STEPS * 16 + 2 * 8 * 2 + 2 * 8 * 3)
 
-FIELD_CU = "proof_systems_tpu_torch/csrc/field_kernels.cu"
-CURVE_CU = "proof_systems_tpu_torch/csrc/curve_kernels.cu"
+CSRC = "proof_systems_tpu_torch/csrc/"
 PALLAS = "proof_systems_tpu/ops/pallas_field.py"
 # kernel -> (CUDA source, the TPU code it replaces)
 SOURCES = {
-    "mont_mul": (FIELD_CU, f"{PALLAS}:398"),
-    "jacobian_add": (CURVE_CU, f"{PALLAS}:412"),
-    "jacobian_double": (CURVE_CU, f"{PALLAS}:439"),
-    "mont_pow": (FIELD_CU, f"{PALLAS}:481"),
-    "mont_prefix_scan": (FIELD_CU, f"{PALLAS}:1019"),
-    "ec_prefix_scan_parts": (CURVE_CU, f"{PALLAS}:1333"),
-    "ec_prefix_scan_fused": (CURVE_CU, f"{PALLAS}:1410"),
-    "combine_windows": (CURVE_CU, f"{PALLAS}:560"),
-    "linear_scan": (FIELD_CU, f"{PALLAS}:1069"),
-    "sponge_squeeze2": (FIELD_CU, f"{PALLAS}:646"),
-    "endo_inv": (FIELD_CU, f"{PALLAS}:742"),
-    "mont_prefix_scan_parts": (FIELD_CU, f"{PALLAS}:956"),
+    "mont_mul": (CSRC + "field_kernels.cu", f"{PALLAS}:398"),
+    "jacobian_add": (CSRC + "curve_kernels.cu", f"{PALLAS}:412"),
+    "jacobian_double": (CSRC + "curve_kernels.cu", f"{PALLAS}:439"),
+    "mont_pow": (CSRC + "field_kernels.cu", f"{PALLAS}:481"),
+    "mont_prefix_scan": (CSRC + "scan_kernels.cu", f"{PALLAS}:1019"),
+    "ec_prefix_scan_parts": (CSRC + "ec_scan_kernels.cu", f"{PALLAS}:1333"),
+    "ec_prefix_scan_fused": (CSRC + "ec_scan_kernels.cu", f"{PALLAS}:1410"),
+    "combine_windows": (CSRC + "k8_kernels.cu", f"{PALLAS}:560"),
+    "linear_scan": (CSRC + "scan_kernels.cu", f"{PALLAS}:1069"),
+    "sponge_squeeze2": (CSRC + "transcript_kernels.cu", f"{PALLAS}:646"),
+    "endo_inv": (CSRC + "transcript_kernels.cu", f"{PALLAS}:742"),
+    "mont_prefix_scan_parts": (CSRC + "scan_kernels.cu", f"{PALLAS}:956"),
     # the fori_loop of K2 (pallas_field.py:412) and K3 (:439)
-    "endo_ladder": ("proof_systems_tpu_torch/csrc/endo_ladder.cuh",
-                    "proof_systems_tpu/poly_commitment/ipa.py:566"),
+    "endo_ladder": (CSRC + "ladder_kernels.cu", "proof_systems_tpu/poly_commitment/ipa.py:566"),
 }
 # The call of a kernel reported in the JSON line where the main path makes
 # two kinds (the others are printed): K6's mixed bucket scan.
@@ -231,6 +255,23 @@ def log(msg: str) -> None:
     if msg.startswith("=="):
         msg += f" (t = {time.perf_counter() - T0:.1f} s)"
     print(msg, flush=True)
+
+
+# Seconds of each part of the script's wall time, printed as it ends and
+# together at the end (`part`).
+PARTS: dict[str, float] = {}
+
+
+def part(name: str, secs: float) -> None:
+    PARTS[name] = PARTS.get(name, 0.0) + secs
+    log(f"part {name}: {secs:.1f} s")
+
+
+def part_since(name: str, mark: float) -> float:
+    """part(name) of the seconds since `mark`; returns the new mark."""
+    now = time.perf_counter()
+    part(name, now - mark)
+    return now
 
 
 def sync(device) -> None:
@@ -274,11 +315,16 @@ def shape_of(t: torch.Tensor) -> str:
     return "x".join(str(d) for d in t.shape[1:])
 
 
+def kernel_of(key: str) -> str:
+    """The wrapper name of a Recorder key (name[variant...]@field[tag])."""
+    return key.split("[")[0].split("@")[0]
+
+
 class Recorder:
-    """Wraps the kernel wrappers in ops.kernels and keeps, per kernel (and
-    per K6 variant, each b = 1 window size of K8, and each call shape of
-    K2, K7 and the endo ladder apart), a copy of the inputs of its largest
-    call."""
+    """Wraps the kernel wrappers in ops.kernels and keeps, per kernel and
+    field (and per K6 variant, each b = 1 window size of K8, and each call
+    shape of K2, K7 and the endo ladder apart), a copy of the inputs of its
+    largest call."""
 
     def __init__(self, kernels) -> None:
         self.kernels = kernels
@@ -306,6 +352,7 @@ class Recorder:
                 key = k9_label(*args)
             elif name in BY_SHAPE:
                 key += f"[{shape_of(next(a for a in args if torch.is_tensor(a)))}]"
+            key += "@" + args[0].params.name  # a call over Fp and one over Fq are two
             size = sum(a.numel() for a in args if torch.is_tensor(a))
             if size > self.calls.get(key, (0,))[0]:
                 copy = [a.clone() if torch.is_tensor(a) else a for a in args]
@@ -1087,15 +1134,27 @@ def k8_note(kernels) -> str:
 # commit's bucket reduction) fit beside the kernel's own output; long rows
 # (the main path's commits) stay whole, as wide as the float64 path wants.
 PLAIN_WIDTH = 1 << 22
+# A kernel's time is the mean of enough calls to fill about this many ms
+# (at least 3, at most 20).
+TIMED_MS = 30
 SLICED_PLAIN = {"ec_prefix_scan_parts": 3, "ec_prefix_scan_fused": 3, "jacobian_add": 6,
                 "jacobian_double": 3}  # kernel -> its point tensors after the field
+ELEMENTWISE_PLAIN = {"mont_mul": 2, "mont_pow": 1}  # kernel -> its operand tensors
 
 
 def plain_call(ref, name: str, args, kw):
     """The plain version of a recorded call: K2's, K3's, K6's and K7's on
-    slices of rows at most PLAIN_WIDTH lanes wide, concatenated."""
+    slices of rows at most PLAIN_WIDTH lanes wide, K1's and K4's on slices
+    of at most PLAIN_WIDTH elements (their temporaries are tens of bytes an
+    element), concatenated."""
     from proof_systems_tpu_torch.ops import kernels
 
+    if name in ELEMENTWISE_PLAIN and args[1][0].numel() > PLAIN_WIDTH:
+        ops = [t.reshape(8, -1) for t in args[1 : 1 + ELEMENTWISE_PLAIN[name]]]
+        parts = [ref(args[0], *(t[:, lo : lo + PLAIN_WIDTH].contiguous() for t in ops),
+                     *args[1 + ELEMENTWISE_PLAIN[name] :], **kw)
+                 for lo in range(0, ops[0].shape[1], PLAIN_WIDTH)]
+        return torch.cat(parts, dim=1).reshape(args[1].shape)
     x = args[1] if name in SLICED_PLAIN else None
     if x is None:
         return ref(*args, **kw)
@@ -1122,24 +1181,136 @@ def plain_call(ref, name: str, args, kw):
     return cat(parts)
 
 
-def hold_against_plain(kernels, key: str, args, kw, device) -> tuple[dict, int]:
-    """One recorded call of a kernel against its plain version on the same
-    inputs (fatal if they differ), timed; returns its JSON row (launches 0)
-    and the repetitions it was timed over."""
-    name = key.split("[")[0]
-    kern, ref = kernels.WRAPPERS[name], getattr(kernels, name + "_plain")
+# Kernels whose plain versions run several recorded calls as one call: the
+# plain versions are chains of small torch ops, whose time is the number of
+# ops and host round trips, nearly whatever the width, so calls that share a
+# batch key (batch_key) are joined along their lanes or rows (join_calls),
+# computed once and split back (split_outputs). The inputs of every call
+# are its own, and each call's kernel output is held against its own slice.
+ROW_KERNELS = ("ec_prefix_scan_parts", "ec_prefix_scan_fused", "mont_prefix_scan_parts",
+               "mont_prefix_scan", "linear_scan")
+
+
+def batch_key(name: str, args, kw):
+    """The calls of one kernel that one plain call can compute together
+    share this key (None: the call runs alone)."""
+    F = id(args[0])
+    if name == "mont_pow":
+        return F, args[2]
+    if name in ("endo_ladder", "endo_inv"):
+        return F, args[1]
+    if name == "combine_windows":
+        return (F,)
+    if name == "linear_scan":
+        return F, args[2], args[1].shape[-1]
+    if name in ROW_KERNELS:
+        return F, bool(kw.get("mixed", False)), args[1].shape[-1]
+    return None
+
+
+def join_calls(name: str, calls):
+    """(args, kw) of one plain call that computes the calls `calls` [(args,
+    kw)] side by side: flattened elements (K4), lanes with their own
+    challenge bits (the ladder, K11), columns with their own window width,
+    under identity windows up to the most windows (K8), or rows (the
+    scans)."""
+    args0, kw0 = calls[0]
+    if name == "mont_pow":
+        return [args0[0], torch.cat([a[1].reshape(8, -1) for a, _ in calls], -1), args0[2]], kw0
+    if name == "endo_ladder":
+        pts = [torch.cat([a[i] for a, _ in calls], -1) for i in (2, 3, 4)]
+        bits = torch.cat([a[5][:, None].expand(128, a[2].shape[-1]) for a, _ in calls], -1)
+        return [args0[0], args0[1], *pts, bits.contiguous()], kw0
+    if name == "endo_inv":
+        return [args0[0], args0[1], torch.stack([a[2] for a, _ in calls], -1)], kw0
+    if name == "combine_windows":  # identity windows on top; a window width a column
+        W = max(a[2].shape[1] for a, _ in calls)
+        wins = [torch.cat([torch.nn.functional.pad(a[i], (0, 0, 0, W - a[i].shape[1]))
+                           for a, _ in calls], 2) for i in (2, 3, 4)]
+        return [args0[0], [a[1] for a, _ in calls for _ in range(a[2].shape[2])], *wins], kw0
+    n, npts = args0[1].shape[-1], 3 if name.startswith("ec_") else 1
+    ts = [torch.cat([a[i].reshape(8, -1, n) for a, _ in calls], 1) for i in range(1, 1 + npts)]
+    return [args0[0], *ts, *args0[1 + npts:]], kw0
+
+
+def split_outputs(name: str, out, calls) -> list:
+    """The joined plain call's output `out`, cut into each call's."""
+    def cut(t, sizes, shapes):
+        flat, parts, off = t.reshape(8, -1, t.shape[-1]), [], 0
+        for size, shape in zip(sizes, shapes):
+            parts.append(flat[:, off : off + size].reshape(8, *shape, t.shape[-1]))
+            off += size
+        return parts
+
+    if name == "mont_pow":
+        sizes = [a[1][0].numel() for a, _ in calls]
+        offs = np.cumsum([0] + sizes)
+        return [out[:, o : o + m].reshape(a[1].shape) for (a, _), o, m in zip(calls, offs, sizes)]
+    if name in ("endo_ladder", "endo_inv", "combine_windows"):
+        sizes = [1 if name == "endo_inv" else a[2].shape[-1] for a, _ in calls]
+        offs = np.cumsum([0] + sizes)
+        return [tuple(t[..., o : o + m] for t in out) for o, m in zip(offs, sizes)]
+    x = [a[1] for a, _ in calls]
+    sizes, shapes = [t[0].numel() // t.shape[-1] for t in x], [t.shape[1:-1] for t in x]
+
+    def rows(obj):  # tensors (8, rows, m) cut by rows, tuples item by item
+        if torch.is_tensor(obj):
+            return cut(obj, sizes, shapes)
+        if isinstance(obj, tuple):
+            return list(zip(*(rows(o) for o in obj)))
+        return [obj] * len(calls)
+
+    return rows(out)
+
+
+def plain_outputs(kernels, calls, device):
+    """Yields, a batch key at a time, (i, output, seconds, calls joined) of
+    the plain version for each call i of `calls` [(name, args, kw)]: the
+    calls of a batch key computed by one plain call (plain_call), timed on
+    the host clock. A group's outputs are dropped before the next group's
+    are computed, so the caller holds each call as it comes."""
+    groups: dict = {}
+    for i, (name, args, kw) in enumerate(calls):
+        key = batch_key(name, args, kw)
+        groups.setdefault(("alone", i) if key is None else (name, key), []).append(i)
+    for idx in groups.values():
+        name = calls[idx[0]][0]
+        ref = getattr(kernels, name + "_plain")
+        members = [(calls[i][1], calls[i][2]) for i in idx]
+        if len(idx) == 1:
+            got, secs = wall(lambda: plain_call(ref, name, *members[0]), device)
+            parts = [got]
+        else:
+            args, kw = join_calls(name, members)
+            got, secs = wall(lambda: plain_call(ref, name, args, kw), device)
+            parts = split_outputs(name, got, members)
+            del args
+        del got
+        for i, part in zip(idx, parts):
+            yield i, part, secs, len(idx)
+        del parts
+
+
+def hold(kernels, key: str, args, kw, want, plain_s: float, joined: int, device
+         ) -> tuple[dict, int]:
+    """One recorded call of a kernel against its plain version's output
+    `want` on the same inputs (fatal if they differ), timed; returns its JSON
+    row (launches 0; plain_ms the time of the plain call that computed it,
+    with `joined` calls) and the repetitions it was timed over."""
+    name = kernel_of(key)
+    kern = kernels.WRAPPERS[name]
     got = kern(*args, **kw)
-    want, plain_s = wall(lambda: plain_call(ref, name, args, kw), device)
     err = outputs_err(name, args[0], got, want)
     if err:
         raise AssertionError(f"{key}: kernel != plain at a recorded path shape (max err {err})")
     once = elapsed_ms(lambda: kern(*args, **kw), device)
-    reps = int(min(50, max(3, 200 / max(once, 1e-3))))
+    reps = int(min(20, max(3, TIMED_MS / max(once, 1e-3))))
     ms = elapsed_ms(lambda: kern(*args, **kw), device, reps)
     b_ms, b_by = bound_ms(name, args, kw)
     shape = "x".join(str(s) for s in next(a for a in args if torch.is_tensor(a)).shape)
-    log(f"kernel {key:28s} shape {shape:22s} {ms:10.4f} ms  plain {plain_s * 1e3:10.1f} ms  "
-        f"bound {b_ms:.3g} ms ({b_by})  max_abs_err {err}{chain_note(name, args, ms)}")
+    calls = f" ({joined} calls)" if joined > 1 else ""
+    log(f"kernel {key:28s} shape {shape:22s} {ms:10.4f} ms  plain {plain_s * 1e3:10.1f} ms"
+        f"{calls}  bound {b_ms:.3g} ms ({b_by})  max_abs_err {err}{chain_note(name, args, ms)}")
     return {"name": name, "route": "cuda", "source": SOURCES[name][0],
             "replaces": SOURCES[name][1], "launches": 0, "max_abs_err": err,
             "ms": ms, "plain_ms": plain_s * 1e3, "bound_ms": b_ms, "bound_by": b_by,
@@ -1148,32 +1319,38 @@ def hold_against_plain(kernels, key: str, args, kw, device) -> tuple[dict, int]:
 
 def check_kernels(kernels, recorded, device, curve_params) -> list[dict]:
     """Each kernel against its plain version on the recorded main-path
-    inputs (timed) and on the edge cases."""
-    plain = {name: getattr(kernels, name + "_plain") for name in kernels.WRAPPERS}
+    inputs (timed) and on the edge cases, the plain versions of calls that
+    share a batch key computed together."""
     rows = {}
-    cases, (dc, P, Q, want_add) = edge_cases(device, curve_params)
-    for name, args, kw in cases:
-        got = kernels.WRAPPERS[name](*args, **kw)
-        err = outputs_err(name, args[0], got, plain[name](*args, **kw))
-        if err:
-            raise AssertionError(f"{name} edge cases: kernel != plain (max err {err})")
+    (cases, (dc, P, Q, want_add)), secs = wall(lambda: edge_cases(device, curve_params), device)
+    log(f"kernels: {len(cases)} edge cases made in {secs:.1f} s")
     got = dc.unpack_jacobian(type(P)(*kernels.WRAPPERS["jacobian_add"](dc.F, *P, *Q)))
     if got != want_add:
         raise AssertionError("jacobian_add edge cases disagree with the host curve")
-    log("kernels: edge cases agree with the plain versions (and K2 with the host curve)")
     prefix_dispatch_check(device)
+    keys = sorted(recorded)
+    calls = cases + [(kernel_of(k), recorded[k][1], recorded[k][2]) for k in keys]
 
-    sizes = {}
-    for key, (size, args, kw) in sorted(recorded.items()):
-        name = key.split("[")[0]
-        row, reps = hold_against_plain(kernels, key, args, kw, device)
+    sizes, edge_s = {}, collections.defaultdict(set)
+    for i, want, plain_s, joined in plain_outputs(kernels, calls, device):
+        if i < len(cases):  # an edge case: compared, not timed
+            name, args, kw = cases[i]
+            err = outputs_err(name, args[0], kernels.WRAPPERS[name](*args, **kw), want)
+            if err:
+                raise AssertionError(f"{name} edge cases: kernel != plain (max err {err})")
+            edge_s[name].add(plain_s)
+            continue
+        key = keys[i - len(cases)]
+        size, args, kw = recorded[key]
+        name = kernel_of(key)
+        row, reps = hold(kernels, key, args, kw, want, plain_s, joined, device)
         if name == "ec_prefix_scan_parts":
             log("  " + k6_note(kernels, args))
         if name == "ec_prefix_scan_fused":
             log("  " + k7_note(kernels, args))
         if name == "combine_windows":
             log("  " + k8_note(kernels))
-        reported = name in BY_SHAPE or key == JSON_KEY.get(name, name)
+        reported = name in BY_SHAPE or re.sub(r"@\w+", "", key) == JSON_KEY.get(name, name)
         if reported and size > sizes.get(name, 0):
             rows[name], sizes[name] = row, size
         if name == "mont_prefix_scan_parts":
@@ -1181,6 +1358,9 @@ def check_kernels(kernels, recorded, device, curve_params) -> list[dict]:
     missing = set(kernels.WRAPPERS) - set(rows)
     if missing:
         raise AssertionError(f"the main path never called {sorted(missing)}")
+    log("kernels: edge cases agree with the plain versions (and K2 with the host curve); "
+        "the plain calls that held them, s: "
+        + json.dumps({k: round(sum(v), 2) for k, v in sorted(edge_s.items())}))
     log("group law kernels: " + group_law_note(kernels))
     log("field scan kernels (K5, K12, K9): " + field_scan_note(kernels))
     local = [k for k, (_, b, *_) in kernels.field_scan_attrs().items() if b]
@@ -1491,16 +1671,20 @@ def check_path_calls(kernels, recorded: dict, tag: str, device, checked: set) ->
     """Each call shape of a path's kernels (a kernel's largest call, and
     every call shape of the kernels recorded by shape, BY_SHAPE) against
     its plain version, unless an earlier check held that shape
-    (`checked`: call_sig of every call held so far)."""
+    (`checked`: call_sig of every call held so far); the plain versions of
+    calls that share a batch key computed together."""
     if device.type == "cuda":  # the plain versions' temporaries need the cached blocks
         torch.cuda.empty_cache()
+    keys = []
     for key in sorted(recorded):
-        size, args, kw = recorded[key]
-        sig = call_sig(key, args, kw)
-        if sig in checked:
-            continue
-        hold_against_plain(kernels, f"{key}[{tag}]", args, kw, device)
-        checked.add(sig)
+        sig = call_sig(key, recorded[key][1], recorded[key][2])
+        if sig not in checked:
+            keys.append(key)
+            checked.add(sig)
+    calls = [(kernel_of(k), recorded[k][1], recorded[k][2]) for k in keys]
+    for i, want, plain_s, joined in plain_outputs(kernels, calls, device):
+        _, args, kw = recorded[keys[i]]
+        hold(kernels, f"{keys[i]}[{tag}]", args, kw, want, plain_s, joined, device)
 
 
 def recursion_path(run, log_n: int, device, nat) -> dict:
@@ -2143,7 +2327,7 @@ def rv_loop_program():
 # inside the whole script over 2^MIPS_COMBINED_LOG_N rows, for its clock
 # (`--only mips` runs MIPS_LOG_N or --log-n).
 MIPS_LOG_N = 14
-MIPS_COMBINED_LOG_N = 13
+MIPS_COMBINED_LOG_N = 12
 MIPS_SEED = SEED + 130
 MIPS_KEY_WORD = 0x0A0B0C0D
 MIPS_KEY_ADDR = 0x4300
@@ -2569,6 +2753,280 @@ def mips_path(run, device, log_n: int = MIPS_LOG_N) -> dict:
     log(f"check: the MIPS proof of mips_loop_program (n = {n}, Layout(4), exit_group last) "
         "launches every kernel but K3 and K9, verifies and is rejected with a changed final "
         "register")
+    return {}
+
+
+# ---------------------------------------------------------------------------
+# The foreign-field MSM circuit and arrabbiata folding
+# ---------------------------------------------------------------------------
+
+COLUMN_VECTORS.update({"msm": "tests/vectors/column_msm_2^8",
+                       "ivc_vesta": "tests/vectors/column_ivc_vesta_2^8",
+                       "ivc_pallas": "tests/vectors/column_ivc_pallas_2^8"})
+# The MSM circuit's production case: Layout() over secp256k1 (SEC 2, 2.4.1),
+# MSM_POINTS points and scalars from numpy.random.default_rng(MSM_SEED), on
+# a domain of 2^MSM_LOG_N rows (the 2^16-entry range table sets it).
+MSM_LOG_N = 16
+MSM_POINTS = 16
+MSM_SEED = SEED + 150
+SECP_F = (1 << 256) - (1 << 32) - 977
+SECP_ORDER = 0xFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFEBAAEDCE6AF48A03BBFD25E8CD0364141
+SECP_G = (0x79BE667EF9DCBBAC55A06295CE870B07029BFCDB2DCE28D959F2815B16F81798,
+          0x483ADA7726A3C4655DA4FBFC0E1108A8FD17B448A68554199C47D08FFB10D4B8)
+# The folding phase: six IVC steps over both curves at n = 2^FOLD_LOG_N (two
+# folds a side), the vector statement of tests/test_ivc.py, then the CLI.
+FOLD_LOG_N = 8
+FOLD_STEPS = 6
+FOLD_SEED = SEED + 170
+CLI_STEPS = 4
+# At n = 2^8 the IPA opening has no fold step (n <= ipa.IPA_FOLD_TAIL), so the
+# folding phase cannot launch the endo ladder, as the k = 11 bench path, and
+# no row of prefix products is longer than K5's 8,192 (d8 has 2,048 points),
+# so K12 does not launch either.
+FOLD_KERNELS = tuple(k for k in COLUMN_KERNELS
+                     if k not in ("endo_ladder", "mont_prefix_scan_parts"))
+
+
+def secp_add(p, q):
+    """Affine secp256k1 addition on Python ints, None the identity: the
+    MSM phase's independent host reference (not msm_circuit's planner)."""
+    f = SECP_F
+    if p is None:
+        return q
+    if q is None:
+        return p
+    if p[0] == q[0]:
+        if (p[1] + q[1]) % f == 0:
+            return None
+        lam = 3 * p[0] * p[0] * pow(2 * p[1], -1, f) % f
+    else:
+        lam = (q[1] - p[1]) * pow(q[0] - p[0], -1, f) % f
+    x = (lam * lam - p[0] - q[0]) % f
+    return x, (lam * (p[0] - x) - p[1]) % f
+
+
+def secp_mul(k: int, p):
+    """k * p by double-and-add from the low bit."""
+    acc = None
+    while k:
+        if k & 1:
+            acc = secp_add(acc, p)
+        p = secp_add(p, p)
+        k >>= 1
+    return acc
+
+
+def msm_statement(k: int, seed: int = MSM_SEED):
+    """k secp256k1 points (G, then G times multipliers below 2^63) and k
+    scalars below the group order, all from numpy.random.default_rng(seed)."""
+    rng = np.random.default_rng(seed)
+    points = [SECP_G] + [secp_mul(int(m), SECP_G)
+                         for m in rng.integers(1, 1 << 63, size=k - 1, dtype=np.int64)]
+    scalars = [int.from_bytes(rng.bytes(32), "little") % SECP_ORDER for _ in range(k)]
+    return scalars, points
+
+
+def msm_path(run, device, points: int = MSM_POINTS) -> dict:
+    """The foreign-field MSM circuit. The vector case: tests/
+    test_msm_circuit.py's statement (TOY_LAYOUT, scalars [11, 6] over
+    toy_points(2), n = 256, TestRng(41)), every field equal to
+    tests/vectors/column_msm_2^8, verified. The production case: Layout()
+    (16-bit limbs, 256-bit elements, 519 committed columns) over secp256k1
+    at n = 2^16, msm_statement(points): the result equal to the host sum of
+    per-point double-and-add products, the proof verified, rejected with a
+    changed result and with a changed scalar; prove_msm_ms with the host's
+    build_columns, phase1_columns and phase2_host apart, verify_msm_ms and
+    the proof's peak device memory (under the card's 80 GiB); every kernel
+    but K3 and K9 launched."""
+    from proof_systems_tpu_torch import msm_circuit
+    from proof_systems_tpu_torch.circuits.domains import EvaluationDomains
+    from proof_systems_tpu_torch.convert import column_proof_fields
+    from proof_systems_tpu_torch.curves import Vesta
+    from proof_systems_tpu_torch.fields import Fp
+    from proof_systems_tpu_torch.o1vm import logup
+    from proof_systems_tpu_torch.ops import kernels
+    from proof_systems_tpu_torch.poly_commitment.srs import SRS
+    from proof_systems_tpu_torch.serialization import serialize_column_proof
+    from proof_systems_tpu_torch.utils.rng import TestRng
+
+    times = run["times"]
+
+    def setup(n):
+        return (EvaluationDomains.create(Fp, n, device=device),
+                SRS(Vesta, run["srs"].g[:n], run["srs"].h, device))
+
+    raw, st = column_vector("msm")
+    toy = msm_circuit.ForeignCurve(*st["curve"])
+    toy_layout = msm_circuit.Layout(*st["layout"])
+    toy_points = [tuple(pt) for pt in st["points"]]
+    domain, srs = setup(st["n"])
+    (proof, result), secs = wall(lambda: msm_circuit.prove_msm(
+        domain, srs, Vesta, toy, st["scalars"], toy_points, TestRng(41), L=toy_layout,
+        device=device), device)
+    times["prove_msm_vector_ms"] = secs * 1e3
+    if list(result) != st["result"]:
+        raise AssertionError("prove_msm's result differs from the vector's")
+    if serialize_column_proof(Vesta, column_proof_fields(proof)) != raw:
+        raise AssertionError(f"the MSM proof differs from {COLUMN_VECTORS['msm']}")
+    if not msm_circuit.verify_msm(domain, srs, Vesta, toy, st["scalars"], toy_points, result,
+                                  proof, TestRng(42), L=toy_layout, device=device):
+        raise AssertionError("verify_msm rejected the honest vector proof")
+    log(f"check: the MSM proof (n = {st['n']}, {toy_layout.lb}-bit limbs, {toy_layout.fbits}-bit "
+        f"elements) equals {COLUMN_VECTORS['msm']} field by field and verifies")
+
+    n = 1 << MSM_LOG_N
+    domain, srs = setup(n)
+    curve = msm_circuit.ForeignCurve(SECP_F, 0, 7)
+    scalars, pts = msm_statement(points)
+    want = None
+    for s, pt in zip(scalars, pts):
+        want = secp_add(want, secp_mul(s, pt))
+    before = kernels.launch_counts()
+    peak_gib(device, reset=True)
+    with HostClock(msm_circuit, ("build_columns",)) as clock, HostClock(
+            logup.MultiLogup, ("phase1_columns", "phase2_host")) as mclock:
+        (proof, result), secs = wall(lambda: msm_circuit.prove_msm(
+            domain, srs, Vesta, curve, scalars, pts, TestRng(MSM_SEED), device=device), device)
+    times["peak_msm_gib"] = peak_gib(device)
+    counts = {k: v - before[k] for k, v in kernels.launch_counts().items()}
+    times["prove_msm_ms"] = secs * 1e3
+    host_s = {**clock.seconds, **mclock.seconds}
+    for stage, s in host_s.items():
+        times[f"prove_msm_{stage}_ms"] = s * 1e3
+    times["prove_msm_rest_ms"] = (secs - sum(host_s.values())) * 1e3
+    if tuple(result) != want:
+        raise AssertionError("the circuit's MSM differs from the host's double-and-add sum")
+    zero = [k for k, v in counts.items() if v == 0 and k not in ("jacobian_double", "linear_scan")]
+    if zero and device.type == "cuda":  # the CPU's plain versions launch nothing
+        raise AssertionError(f"kernels not launched by the MSM proof at n = {n}: {zero}")
+    if device.type == "cuda" and times["peak_msm_gib"] >= 80:
+        raise AssertionError(f"the MSM proof peaked at {times['peak_msm_gib']:.2f} GiB")
+    nrows = len(msm_circuit.plan_msm(curve, scalars, pts)[1])
+    ok, secs = wall(lambda: msm_circuit.verify_msm(domain, srs, Vesta, curve, scalars, pts,
+                                                   result, proof, TestRng(MSM_SEED + 1),
+                                                   device=device), device)
+    times["verify_msm_ms"] = secs * 1e3
+    if not ok:
+        raise AssertionError(f"verify_msm rejected the honest proof at n = {n}")
+    bad_result = ((result[0] + 1) % SECP_F, result[1])
+    bad_scalars = [scalars[0] ^ 1] + scalars[1:]
+    for what, s, r, seed in (("result", scalars, bad_result, 2), ("scalars", bad_scalars, result, 3)):
+        if msm_circuit.verify_msm(domain, srs, Vesta, curve, s, pts, r, proof,
+                                  TestRng(MSM_SEED + seed), device=device):
+            raise AssertionError(f"verify_msm accepted a changed {what}")
+    inside = ", ".join(f"{stage} {s * 1e3:.1f}" for stage, s in host_s.items())
+    log(f"msm: n = {n}, {points} points, {nrows} EC-op rows, {len(proof.commitments)} columns, "
+        f"prove_msm_ms {times['prove_msm_ms']:.1f} (on the host: {inside}), verify_msm_ms "
+        f"{times['verify_msm_ms']:.1f}, peak {times['peak_msm_gib']:.2f} GiB, launches "
+        f"{json.dumps(counts)}")
+    log(f"check: the MSM circuit at Layout() over secp256k1 (n = {n}, {points} points) proves "
+        "the host's double-and-add sum, verifies, and is rejected with a changed result and "
+        "with a changed scalar")
+    return {}
+
+
+def folding_path(run, device) -> dict:
+    """Arrabbiata folding with IVC over both Pasta curves at n = 2^8 (the
+    full verifier circuit: 15 absorbs, 196 rows, 33 columns, D = 6). The
+    vector case: tests/test_ivc.py's heavy statement (TestRng(9), two steps
+    from z = 2, decide with TestRng(10)): each side's decider proof, Vesta /
+    Fp and Pallas / Fq, equal to tests/vectors/column_ivc_*_2^8 field by
+    field. The full run: FOLD_STEPS steps from z = 2 (two folds a side),
+    every accumulator satisfied, its commitments open and its fixed columns
+    pinned, then the decider's two column proofs verified, and one rejected
+    with a changed zeta evaluation; the steps', folds' and deciders' times.
+    Then folding/cli.py's `execute --zkapp square -n CLI_STEPS --srs-size 8`
+    with its JSON line."""
+    import contextlib
+    import io
+
+    from proof_systems_tpu_torch.circuits.domains import EvaluationDomains
+    from proof_systems_tpu_torch.convert import column_proof_fields, column_proof_from_fields
+    from proof_systems_tpu_torch.curves import Pallas, Vesta
+    from proof_systems_tpu_torch.fields import Fp, Fq
+    from proof_systems_tpu_torch.folding import arrabbiata, cli, ivc
+    from proof_systems_tpu_torch.poly_commitment.srs import SRS, derive_points, derive_h
+    from proof_systems_tpu_torch.serialization import serialize_column_proof
+    from proof_systems_tpu_torch.utils.rng import TestRng
+
+    times = run["times"]
+    n = 1 << FOLD_LOG_N
+    srs = {Vesta: SRS(Vesta, run["srs"].g[:n], run["srs"].h, device),
+           Pallas: SRS(Pallas, derive_points(Pallas, n), derive_h(Pallas), device)}
+    domains = {f: EvaluationDomains.create(f, n, device=device) for f in (Fp, Fq)}
+
+    iv = ivc.IVC(srs[Vesta], srs[Pallas], n=n, rng=TestRng(9))
+    iv.run(2, steps=2)
+    proofs = []
+    ok, secs = wall(lambda: iv.decide(domains, TestRng(10), proofs), device)
+    if not ok:
+        raise AssertionError("decide rejected the vector statement's accumulators")
+    for (proof, _), curve, name in zip(proofs, (Vesta, Pallas), ("ivc_vesta", "ivc_pallas")):
+        raw, st = column_vector(name)
+        if serialize_column_proof(curve, column_proof_fields(proof)) != raw:
+            raise AssertionError(f"the {curve.name} decider proof differs from "
+                                 f"{COLUMN_VECTORS[name]}")
+        side = iv.sides[curve is Pallas]
+        if (side.acc.u, side.acc.alphas, side.kappa) != (st["u"], st["alphas"], st["kappa"]):
+            raise AssertionError(f"the {curve.name} accumulator differs from the vector's")
+    log(f"check: both decider proofs of tests/test_ivc.py's statement (Vesta / Fp, Pallas / Fq, "
+        f"n = {n}) equal {COLUMN_VECTORS['ivc_vesta']} and {COLUMN_VECTORS['ivc_pallas']} field "
+        "by field")
+
+    iv = ivc.IVC(srs[Vesta], srs[Pallas], n=n, rng=TestRng(FOLD_SEED))
+    peak_gib(device, reset=True)
+    with HostClock(arrabbiata.FoldingScheme, ("fold_committed",)) as fclock:
+        z, step_ms = 2, []
+        for i in range(FOLD_STEPS):
+            (z, _), secs = wall(lambda: iv.step(i, z), device)
+            step_ms.append(secs * 1e3)
+    times["fold_steps_ms"] = sum(step_ms)
+    times["fold_folds_ms"] = fclock.seconds["fold_committed"] * 1e3
+    proofs, marks = [], [time.perf_counter()]
+    real_verify = arrabbiata.decider_verify
+
+    def verify_marked(*args, **kw):  # a side's decision ends with its verification
+        out = real_verify(*args, **kw)
+        sync(device)
+        marks.append(time.perf_counter())
+        return out
+
+    arrabbiata.decider_verify = verify_marked
+    try:
+        ok, secs = wall(lambda: iv.decide(domains, TestRng(FOLD_SEED + 1), proofs), device)
+    finally:
+        arrabbiata.decider_verify = real_verify
+    times["decide_ms"] = secs * 1e3
+    times["decide_vesta_ms"], times["decide_pallas_ms"] = (
+        (b - a) * 1e3 for a, b in zip(marks, marks[1:]))
+    if not ok:
+        raise AssertionError("decide rejected the accumulators of the honest IVC run")
+    for (proof, cons), side in zip(proofs, iv.sides):
+        fields = column_proof_fields(proof)
+        fields["zeta_evaluations"][0] = (fields["zeta_evaluations"][0] + 1) % side.field.p
+        if arrabbiata.decider_verify(side.env, column_proof_from_fields(fields), cons,
+                                     domains[side.field], side.scheme.srs, side.curve,
+                                     TestRng(FOLD_SEED + 2)):
+            raise AssertionError(f"the {side.curve.name} decider accepted a changed evaluation")
+    times["peak_fold_gib"] = peak_gib(device)
+    log(f"folding: n = {n}, {FOLD_STEPS} steps (ms: {', '.join(f'{t:.1f}' for t in step_ms)}), "
+        f"folds {times['fold_folds_ms']:.1f} ms in all, decide_ms {times['decide_ms']:.1f} "
+        f"(Vesta / Fp {times['decide_vesta_ms']:.1f}, Pallas / Fq "
+        f"{times['decide_pallas_ms']:.1f}), peak {times['peak_fold_gib']:.2f} GiB, z = {z:#x}")
+    log(f"check: {FOLD_STEPS} IVC steps over Vesta / Fp and Pallas / Fq fold, both accumulators "
+        "are decided (relation, commitments, fixed columns, a column proof each) and each decider "
+        "rejects a changed evaluation")
+
+    out, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        (line, secs) = wall(lambda: cli.execute("square", CLI_STEPS, FOLD_LOG_N, device=device),
+                            device)
+    times["cli_ms"] = secs * 1e3
+    printed = json.loads(out.getvalue().strip().splitlines()[-1])
+    steps = [ln for ln in err.getvalue().splitlines() if ln.startswith("Iteration ")]
+    if printed != line or not line["decider_ok"] or len(steps) != CLI_STEPS:
+        raise AssertionError(f"the arrabbiata CLI printed {printed} after {len(steps)} steps")
+    log(f"cli: {json.dumps(printed)}")
     return {}
 
 
@@ -3117,6 +3575,12 @@ def new_paths(kernels, result, device, log_n: int, checked: set, verify_kernels)
         ("mips", f"o1vm's MIPS proofs, n = 256 and 512 (the JAX package's vectors) and "
          f"2^{MIPS_COMBINED_LOG_N}", COLUMN_KERNELS,
          lambda: mips_path(result, device, MIPS_COMBINED_LOG_N), None),
+        ("msm", f"the foreign-field MSM circuit, n = 256 (the JAX package's vector) and "
+         f"Layout() over secp256k1 at 2^{MSM_LOG_N}, {MSM_POINTS} points", COLUMN_KERNELS,
+         lambda: msm_path(result, device), None),
+        ("folding", f"arrabbiata IVC over Vesta / Fp and Pallas / Fq, n = 2^{FOLD_LOG_N}, "
+         f"{FOLD_STEPS} steps, the deciders (the JAX package's vectors) and the CLI",
+         FOLD_KERNELS, lambda: folding_path(result, device), None),
         ("batch", "five proofs of four circuits", verify_kernels,
          lambda: batch_path(result, device), ("batch_verify_ms", "single_verify_sum_ms")),
         ("vk files", "bench, lookup, chunked, gate mix", verify_kernels,
@@ -3125,11 +3589,14 @@ def new_paths(kernels, result, device, log_n: int, checked: set, verify_kernels)
     for tag, what, expect, fn, keys in phases:
         log(f"== {tag} path, {what}, counted")
         before = set(times)
-        out, _, calls = counted(kernels, tag, fn, device, expect)
+        (out, _, calls), secs = wall(lambda: counted(kernels, tag, fn, device, expect), device)
+        part(tag, secs)
         result.update(out)
         for k in keys or sorted(set(times) - before):
             log(f"{tag} path {k}: {times[k]:.4f}")
-        check_path_calls(kernels, calls, tag.replace(" ", "_"), device, checked)
+        _, secs = wall(lambda: check_path_calls(kernels, calls, tag.replace(" ", "_"), device,
+                                                checked), device)
+        part(f"{tag} plain checks", secs)
         del calls
         if tag in ("chunked", "optional gates"):
             before = set(times)
@@ -3138,11 +3605,12 @@ def new_paths(kernels, result, device, log_n: int, checked: set, verify_kernels)
                 log(f"{tag} path {k}: {times[k]:.4f}")
 
 
-def phase_alone(name: str, device, log_n: int) -> None:
-    """One phase by itself (`--only column`, `keccak`, `riscv` or `mips`):
-    SRS.create(2^k) on the card, the phase counted, its kernel calls held
-    against the plain versions, every number printed; no result line. For
-    riscv and mips, 2^k is also the full-width case's domain."""
+def phase_alone(name: str, device, log_n: int, points: int = MSM_POINTS) -> None:
+    """One phase by itself (`--only column`, `keccak`, `riscv`, `mips`, `msm`
+    or `folding`): SRS.create(2^k) on the card, the phase counted, its
+    kernel calls held against the plain versions, every number printed; no
+    result line. For riscv and mips, 2^k is also the full-width case's
+    domain; msm runs `points` points at 2^16."""
     from proof_systems_tpu_torch.curves import Vesta
     from proof_systems_tpu_torch.native import native_curve
     from proof_systems_tpu_torch.ops import kernels
@@ -3154,7 +3622,9 @@ def phase_alone(name: str, device, log_n: int) -> None:
                    COLUMN_KERNELS),
         "keccak": (lambda: keccak_path(result, device), KECCAK_KERNELS),
         "riscv": (lambda: riscv_path(result, device, log_n), COLUMN_KERNELS),
-        "mips": (lambda: mips_path(result, device, log_n), COLUMN_KERNELS)}[name]
+        "mips": (lambda: mips_path(result, device, log_n), COLUMN_KERNELS),
+        "msm": (lambda: msm_path(result, device, points), COLUMN_KERNELS),
+        "folding": (lambda: folding_path(result, device), FOLD_KERNELS)}[name]
     log(f"== {name} path alone, k = {log_n}, counted")
     _, _, calls = counted(kernels, name, fn, device, expect)
     for k in sorted(result["times"]):
@@ -3174,6 +3644,7 @@ def run(device, log_n: int = LOG_N, cache_dir=None) -> list[dict]:
     from proof_systems_tpu_torch.curves import Vesta
     from proof_systems_tpu_torch.ops import kernels
 
+    mark = time.perf_counter()
     if device.type == "cuda":
         log("== one product's latency")
         product_latency(kernels, device)
@@ -3199,9 +3670,11 @@ def run(device, log_n: int = LOG_N, cache_dir=None) -> list[dict]:
         checked.update(call_sig(k, c[1], c[2]) for k, c in rec.calls.items())
     del warm, rec
 
+    mark = part_since("warm-up", mark)
     log("== kernels against their plain versions")
     table = check_kernels(kernels, recorded, device, Vesta)
     del recorded
+    mark = part_since("plain checks", mark)
 
     log(f"== main path, k = {log_n}, Vesta, counted")
     if device.type == "cuda":
@@ -3222,6 +3695,7 @@ def run(device, log_n: int = LOG_N, cache_dir=None) -> list[dict]:
     for row in table:
         row["launches"] = counts[row["name"]]
 
+    mark = part_since("main path", mark)
     log(f"== public-input path, k = {log_n}, m = {PUBLIC_M}, counted")
     kernels.reset_launch_counts()
     result.update(public_path(result, log_n, device))
@@ -3235,6 +3709,7 @@ def run(device, log_n: int = LOG_N, cache_dir=None) -> list[dict]:
     if zero and device.type == "cuda":  # K3 builds the scaled basis, made once per SRS
         raise AssertionError(f"kernels not launched on the public-input path: {zero}")
 
+    mark = part_since("public path", mark)
     log(f"== bench path, k = {BENCH_K} (bench_torch.setup, prove_once), counted")
     bench = bench_path(device, cache_dir)
     log(f"bench path launches per proof: {json.dumps(bench['counts'])}")
@@ -3252,6 +3727,7 @@ def run(device, log_n: int = LOG_N, cache_dir=None) -> list[dict]:
     log(f"check: the k = {BENCH_K} proof verifies with no fold step (0 endo ladder launches, "
         f"{BENCH_K} tail rounds) and serializes to {bench['proof_bytes']} bytes")
 
+    mark = part_since("bench path", mark)
     kernels.reset_launch_counts()
     result["srs"].commit_coeffs_dev(result["w_coeffs"], 1, result["blinders"])
     log(f"launches per 15-column commit: {json.dumps(kernels.launch_counts())}")
@@ -3273,10 +3749,13 @@ def run(device, log_n: int = LOG_N, cache_dir=None) -> list[dict]:
         log(f"steady {k}: {v:.3f}")
     if device.type == "cuda":
         kernel_times(result, device)
+    part_since("launches, steady times and kernel times", mark)
     new_paths(kernels, result, device, log_n, checked, verify_kernels)
 
+    mark = time.perf_counter()
     log("== checks")
     golden_checks(result, device, log_n)
+    part_since("checks", mark)
     return table
 
 
@@ -3288,8 +3767,10 @@ def main() -> int:
                     help=f"log2 of the SRS depth and domain (default {LOG_N}; from 14 on "
                          "every kernel is on the path); with --only riscv or mips, of the "
                          f"full-width RV32IM or MIPS domain (default {RV_LOG_N}, {MIPS_LOG_N})")
-    ap.add_argument("--only", choices=["column", "keccak", "riscv", "mips"],
+    ap.add_argument("--only", choices=["column", "keccak", "riscv", "mips", "msm", "folding"],
                     help="run one phase by itself and print its numbers (no result line)")
+    ap.add_argument("--points", type=int, default=MSM_POINTS,
+                    help=f"with --only msm, the MSM's points (default {MSM_POINTS})")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3301,7 +3782,9 @@ def main() -> int:
     device = torch.device("cuda")
     log("== build")
     lib = kernels.LIBRARY.load()
-    log(f"build: CUDA kernels {lib.build_seconds:.1f} s (0 = already built)")
+    log(f"build: CUDA kernels {lib.build_seconds:.1f} s (0 = already built); each unit's nvcc: "
+        + ", ".join(f"{src} {secs:.1f} s" for src, secs in lib.unit_seconds.items()))
+    part("build", lib.build_seconds)
     for line in lib.ptxas_log.splitlines():
         if any(k in line for k in ("entry function", "Function properties", "registers",
                                     "spill")) or line.startswith("=="):
@@ -3310,15 +3793,20 @@ def main() -> int:
     if native_curve(Vesta) is None:
         raise AssertionError("the native host MSM did not build (g++)")
     log(f"build: native host MSM {time.perf_counter() - t0:.1f} s")
+    part("native build", time.perf_counter() - t0)
 
     card = card_line()
     log(f"== card: {torch.cuda.get_device_name(0)} | {card}")
-    log_n = args.log_n or {"riscv": RV_LOG_N, "mips": MIPS_LOG_N}.get(args.only, LOG_N)
+    log_n = args.log_n or {"riscv": RV_LOG_N, "mips": MIPS_LOG_N, "msm": MSM_LOG_N,
+                           "folding": FOLD_LOG_N}.get(args.only, LOG_N)
     if args.only:
-        phase_alone(args.only, device, log_n)
+        phase_alone(args.only, device, log_n, args.points)
         log(f"== card: {card}")
         return 0
     table = run(device, log_n)
+    log(f"parts: {json.dumps({k: round(v, 1) for k, v in PARTS.items()})}")
+    log(f"part build and plain checks: {PARTS['build'] + PARTS['plain checks']:.1f} s; "
+        f"whole script {time.perf_counter() - T0:.1f} s")
     print(json.dumps({"kernels": table}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

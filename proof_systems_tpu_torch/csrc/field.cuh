@@ -21,7 +21,9 @@
 // memory bound at large N. An EC add with 8-limb coordinates needs well over
 // 100 live registers per thread. The doubling and the complete add come
 // inlined (ec_double_inl, ec_add_inl) and as __noinline__ wrappers (ec_double,
-// ec_add); the results are the same limbs either way.
+// ec_add); the results are the same limbs either way. The wrappers are static:
+// each translation unit that includes this header keeps its own copy, and
+// the units link into one library (ops/kernels.py).
 
 #pragma once
 
@@ -194,7 +196,7 @@ __device__ __forceinline__ Jac ec_double_inl(const FieldParams &F, const Jac &p)
     return r;
 }
 
-__device__ __noinline__ Jac ec_double(const FieldParams &F, const Jac &p) {
+static __device__ __noinline__ Jac ec_double(const FieldParams &F, const Jac &p) {
     return ec_double_inl(F, p);
 }
 
@@ -244,13 +246,13 @@ __device__ __forceinline__ Jac ec_add_inl(const FieldParams &F, const Jac &p, co
     return ec_add_body<true>(F, p, q);
 }
 
-__device__ __noinline__ Jac ec_add(const FieldParams &F, const Jac &p, const Jac &q) {
+static __device__ __noinline__ Jac ec_add(const FieldParams &F, const Jac &p, const Jac &q) {
     return ec_add_body<false>(F, p, q);
 }
 
 // Mixed addition, q affine-encoded (z in {0, R}): madd-2007-bl with the
 // fallbacks of _kv_ec_madd (the doubling fallback doubles q).
-__device__ __noinline__ Jac ec_madd(const FieldParams &F, const Jac &p, const Jac &q) {
+static __device__ __noinline__ Jac ec_madd(const FieldParams &F, const Jac &p, const Jac &q) {
     bool p_inf = fe_is_zero(p.z);
     bool q_inf = fe_is_zero(q.z);
     Fe z1z1 = fe_mul(F, p.z, p.z);

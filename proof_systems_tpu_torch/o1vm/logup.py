@@ -201,6 +201,119 @@ class LogupInstance:
 # in its setup for the same reason.
 # ---------------------------------------------------------------------------
 
+
+# Rows of a slot whose looked-up values all fit in int64 are compared as
+# int64 arrays; larger field elements (a RAM address near p) stay Python
+# ints and take the dict.
+_I64 = 1 << 62
+
+
+def _as_int64(vals: list[np.ndarray]):
+    """The (rows, k) int64 matrix of the columns `vals` (int64 or object
+    arrays) when every value is in [0, 2^62), else None."""
+    out = np.empty((len(vals[0]) if vals else 0, len(vals)), dtype=np.int64)
+    for j, v in enumerate(vals):
+        if v.dtype != np.int64 and v.size and not bool(np.all((v >= 0) & (v < _I64))):
+            return None
+        out[:, j] = v
+    return out
+
+
+def _unique_rows(mat: np.ndarray):
+    """(distinct rows of the int64 matrix, each row's index into them), by
+    one lexicographic sort (np.unique with an axis sorts a byte view, many
+    times slower)."""
+    if not len(mat) or not mat.shape[1]:  # no rows, or every row the empty tuple
+        return mat[:1], np.zeros(len(mat), dtype=np.int64)
+    order = np.lexsort(mat.T[::-1])
+    ordered = mat[order]
+    new = np.ones(len(mat), dtype=bool)
+    new[1:] = np.any(ordered[1:] != ordered[:-1], axis=1)
+    group = np.cumsum(new) - 1
+    inverse = np.empty(len(mat), dtype=np.int64)
+    inverse[order] = group
+    return ordered[new], inverse
+
+
+def _distinct(vals: list[np.ndarray]):
+    """The distinct value tuples of the columns `vals` (int64 or object
+    arrays of equal length): (their int64 matrix or None, else their tuples
+    of Python ints, each row's index into them)."""
+    mat = _as_int64(vals)
+    if mat is not None:
+        keys, inverse = _unique_rows(mat)
+        return keys, None, inverse
+    at: dict[tuple, int] = {}
+    inverse = np.empty(len(vals[0]) if vals else 0, dtype=np.int64)
+    for i in range(len(inverse)):
+        inverse[i] = at.setdefault(tuple(int(v[i]) for v in vals), len(at))
+    return None, list(at), inverse
+
+
+class _TableIndex:
+    """Where each tuple of a padded fixed table first occurs (the table's
+    dict of tuple -> first row), and a vectorised `find` of many tuples:
+    -1 where a tuple is not in the table."""
+
+    def __init__(self, comp: list[list[int]], p: int):
+        self.first: dict[tuple, int] = {}
+        for i, key in enumerate(zip(*(map(lambda x: x % p, c) for c in comp))):
+            self.first.setdefault(key, i)
+        keys = list(self.first)
+        self.dense = None
+        if all(0 <= x < _I64 for key in keys for x in key):
+            mat = np.array(keys, dtype=np.int64).reshape(len(keys), len(comp))
+            self.radix = mat.max(axis=0) + 1
+            size = int(np.prod(self.radix.astype(object)))
+            if size <= 1 << 24:
+                self.dense = np.full(size, -1, dtype=np.int64)
+                self.dense[self._code(mat)] = list(self.first.values())
+
+    def _code(self, mat: np.ndarray) -> np.ndarray:
+        code = np.zeros(len(mat), dtype=np.int64)
+        for j in range(mat.shape[1]):
+            code = code * self.radix[j] + mat[:, j]
+        return code
+
+    def find(self, vals: list[np.ndarray]) -> np.ndarray:
+        rows = len(vals[0]) if vals else 0
+        mat = _as_int64(vals) if self.dense is not None else None
+        if mat is None:
+            return np.array([self.first.get(tuple(v[i] for v in vals), -1)
+                             for i in range(rows)], dtype=np.int64)
+        inside = np.all(mat < self.radix, axis=1)
+        out = np.full(rows, -1, dtype=np.int64)
+        out[inside] = self.dense[self._code(mat[inside])]
+        return out
+
+
+class _Counts:
+    """Multiplicities of one table: signed numerators summed by table row
+    (int64 while they are small, Python ints beside), read mod p."""
+
+    def __init__(self, n: int, p: int):
+        self.p = p
+        self.small = np.zeros(n, dtype=np.int64)
+        self.big = np.zeros(n, dtype=object)
+
+    def add(self, at: np.ndarray, nums: np.ndarray) -> None:
+        if not nums.size:
+            return
+        if bool(np.all(nums == 1)):
+            self.small += np.bincount(at, minlength=len(self.small))
+            return
+        if nums.dtype == np.int64:  # _fast_rows' values: in [0, 2^62)
+            signed = nums
+        else:
+            signed = np.where(nums > self.p // 2, nums - self.p, nums)
+        if bool(np.all((signed > -(1 << 31)) & (signed < 1 << 31))):
+            np.add.at(self.small, at, signed.astype(np.int64))
+        else:
+            np.add.at(self.big, at, nums.astype(object))
+
+    def values(self) -> list[int]:
+        return ((self.small.astype(object) + self.big) % self.p).tolist()
+
 CHUNK = 6  # slots per h column (MAX_SUPPORTED_DEGREE - 2, logup.rs:462)
 
 
@@ -335,22 +448,27 @@ class MultiLogup:
     #    kimchi prover's hot loops — device batch-inversion is the
     #    documented scale-up path, ops/limb.batch_inverse) --------------
 
-    def _eval_rows(self, expr: E.Expr, cols: list[list[int]], shifted: dict | None = None):
-        """Evaluate a (deg-bounded) expr at every row; NEXT wraps. One
-        eval_host walk over numpy object arrays of every row's cells, Python
-        integers all through (the lookup expressions have no Pow node, which
-        an array could not take); `shifted` caches a column's rows rotated
-        by a cell's row offset across the calls of one phase."""
+    def _eval_rows(self, expr: E.Expr, cols: list[list[int]], cache: dict) -> np.ndarray:
+        """Evaluate a (deg-bounded) expr at every row; NEXT wraps; the value
+        mod p of each row, as eval_host gives it. A literal, a cell or a
+        literal times a cell whose values all lie in [0, 2^62) is an int64
+        array (_fast_rows); anything else is one eval_host walk over numpy
+        object arrays of every row's cells, Python integers all through (the
+        lookup expressions have no Pow node, which an array could not take).
+        `cache` keeps a column's rows, rotated by a cell's row offset, across
+        the calls of one phase."""
         from ..circuits.expr import HostEvalContext, eval_host
 
         n = self.n
-        shifted = {} if shifted is None else shifted
+        fast = self._fast_rows(expr, cols, cache)
+        if fast is not None:
+            return fast
 
         def get_cell(c, row):
-            if (c[1], row) not in shifted:
+            if ("obj", c[1], row) not in cache:
                 colv, r = cols[c[1]], row % n
-                shifted[c[1], row] = np.array(colv[r:] + colv[:r], dtype=object)
-            return shifted[c[1], row]
+                cache["obj", c[1], row] = np.array(colv[r:] + colv[:r], dtype=object)
+            return cache["obj", c[1], row]
 
         ctx = HostEvalContext(
             f=self.f,
@@ -363,84 +481,162 @@ class MultiLogup:
             omega=0,
             zk_rows=0,
         )
-        return np.broadcast_to(np.asarray(eval_host(expr, ctx), dtype=object), (n,)).tolist()
+        return np.broadcast_to(np.asarray(eval_host(expr, ctx), dtype=object), (n,))
+
+    def _fast_rows(self, expr: E.Expr, cols: list[list[int]], cache: dict):
+        """_eval_rows' int64 path, or None: values in [0, 2^62) are below p
+        and equal their residues."""
+        if isinstance(expr, E.Literal):
+            v = expr.value % self.f.p
+            return np.full(self.n, v, dtype=np.int64) if v < _I64 else None
+        if isinstance(expr, E.Cell):
+            c, row = expr.col[1], expr.row % self.n
+            if ("i64", c, row) not in cache:
+                base = cache.get(("i64", c, 0))
+                if ("i64", c, 0) not in cache:
+                    try:
+                        base = np.array(cols[c], dtype=np.int64)
+                    except OverflowError:
+                        base = None
+                    if base is not None and base.size and not (base.min() >= 0 and
+                                                               base.max() < _I64):
+                        base = None
+                    cache["i64", c, 0] = base
+                cache["i64", c, row] = None if base is None else np.roll(base, -row)
+            return cache["i64", c, row]
+        if isinstance(expr, E.Mul):
+            lit, cell = expr.a, expr.b
+            if isinstance(cell, E.Literal):
+                lit, cell = cell, lit
+            if isinstance(lit, E.Literal) and isinstance(cell, E.Cell):
+                k = lit.value % self.f.p
+                arr = self._fast_rows(cell, cols, cache)
+                if arr is not None and (not arr.size or int(arr.max()) * k < _I64):
+                    return arr * k
+        return None
 
     def phase1_columns(self, trace_cols: list[list[int]]) -> list[list[int]]:
         """Given the C trace columns, append padded table components and
         multiplicity columns. Multiplicities are counted from the
-        caller-spec lookups (raw tuples, before joint combination)."""
+        caller-spec lookups (raw tuples, before joint combination): each
+        slot's looked-up rows are found in the table by one gather
+        (_TableIndex), and the counts are summed by table row, mod p."""
         n = self.n
         p = self.f.p
         assert len(trace_cols) == self.C
         cols = [list(c) for c in trace_cols]
-        table_first: dict[int, dict[tuple, int]] = {}
+        index: dict[int, _TableIndex] = {}
         for t in self.tables:
             comp = [c + [0] * (n - t.length) for c in t.columns]
             cols.extend(comp)
-            first: dict[tuple, int] = {}
-            for i in range(n):
-                key = tuple(c[i] % p for c in comp)
-                first.setdefault(key, i)
-            table_first[t.table_id] = first
+            index[t.table_id] = _TableIndex(comp, p)
             cols.append([0] * n)  # m, filled below
-        m_counts: dict[int, list[int]] = {t.table_id: [0] * n for t in self.tables}
+        counts = {t.table_id: _Counts(n, p) for t in self.tables}
         ncaller = len(self.specs) - len(self.tables)
-        shifted: dict = {}
+        cache: dict = {}
         for s in self.specs[:ncaller]:
-            if s.table_id not in table_first:
+            if s.table_id not in index:
                 continue  # RAM table: balances against its own writes
-            nums = self._eval_rows(s.numerator, cols, shifted)
-            vals = [self._eval_rows(v, cols, shifted) for v in s.values]
-            first = table_first[s.table_id]
-            for i in range(n):
-                if nums[i] == 0:
-                    continue
-                key = tuple(v[i] for v in vals)
-                if key not in first:
-                    raise ValueError(
-                        f"lookup {key} not in table {s.table_id} (row {i})"
-                    )
-                m_counts[s.table_id][first[key]] = (
-                    m_counts[s.table_id][first[key]] + nums[i]
-                ) % p
+            nums = self._eval_rows(s.numerator, cols, cache)
+            vals = [self._eval_rows(v, cols, cache) for v in s.values]
+            live = np.flatnonzero(nums != 0)
+            at = index[s.table_id].find([v[live] for v in vals])
+            missing = np.flatnonzero(at < 0)
+            if missing.size:
+                i = int(live[missing[0]])
+                key = tuple(int(v[i]) for v in vals)
+                raise ValueError(f"lookup {key} not in table {s.table_id} (row {i})")
+            counts[s.table_id].add(at, nums[live])
         for t in self.tables:
-            cols[self.m_col[t.table_id]] = m_counts[t.table_id]
+            cols[self.m_col[t.table_id]] = counts[t.table_id].values()
         self._cols_phase1 = cols
         return cols
 
     def phase2_host(self, beta: int, joint: int) -> list[list[int]]:
         """h chunk columns + phi given the squeezed challenges (host
         exact). Raises if the global signed sum is nonzero (the lookup
-        relation does not hold)."""
+        relation does not hold).
+
+        A slot's term num / (beta + combined * joint + table_id) depends only
+        on its numerator and its looked-up tuple: the denominators of the
+        distinct (table id, tuple) of all slots are inverted together once
+        (`inverses`), each slot's distinct (numerator, denominator) pairs
+        give its terms, and an h column, or a row's sum of them, is summed
+        once for each distinct pattern of terms, then gathered to the rows."""
         p = self.f.p
         n = self.n
         cols = self._cols_phase1
-        slot_terms = []
-        shifted: dict = {}
+        cache: dict = {}
+        found = []  # (live rows, their numerators, distinct tuples, each row's tuple)
         for s in self.specs:
-            nums = self._eval_rows(s.numerator, cols, shifted)
+            nums = self._eval_rows(s.numerator, cols, cache)
+            live = np.flatnonzero(nums != 0)
+            mat, keys, key_of = _distinct([self._eval_rows(v, cols, cache)[live]
+                                           for v in s.values])
+            found.append((s.table_id, live, nums[live], mat, keys, key_of))
+        # the distinct (table id, tuple) of all slots, one denominator each
+        width = max((len(s.values) for s in self.specs), default=1)
+        if all(f[3] is not None for f in found):
+            tagged = np.zeros((sum(len(f[3]) for f in found), 1 + width), dtype=np.int64)
+            off = 0
+            for tid, _, _, mat, _, _ in found:
+                tagged[off : off + len(mat), 0] = tid
+                tagged[off : off + len(mat), 1 : 1 + mat.shape[1]] = mat
+                off += len(mat)
+            distinct, den_of = _unique_rows(tagged)
+            # a narrower tuple's zero padding adds nothing to its combination
+            distinct = [(row[0], row[1:]) for row in distinct.tolist()]
+        else:
+            at: dict[tuple, int] = {}
+            den_of = np.array([at.setdefault((f[0], key), len(at))
+                               for f in found for key in (f[4] if f[4] is not None else
+                                                          [tuple(r) for r in f[3].tolist()])],
+                              dtype=np.int64)
+            distinct = list(at)
+        dens = []
+        for tid, key in distinct:
             combined = 0
-            for v in reversed(s.values):
-                combined = (combined * joint + np.array(self._eval_rows(v, cols, shifted),
-                                                        dtype=object)) % p
-            dens = np.broadcast_to((beta + combined * joint + s.table_id) % p, (n,)).tolist()
-            live = [i for i in range(n) if nums[i]]
-            terms = [0] * n
-            for i, inv in zip(live, inverses([dens[i] for i in live], p)):
-                terms[i] = nums[i] * inv % p
-            slot_terms.append(terms)
-        h_cols = []
+            for v in reversed(key):
+                combined = (combined * joint + v) % p
+            dens.append((beta + combined * joint + tid) % p)
+        inv = inverses(dens, p)  # a zero raises, as pow does
+        slots = []  # (live rows, each live row's term, terms)
+        off = 0
+        for _, live, nums, mat, keys, key_of in found:
+            count = len(mat) if mat is not None else len(keys)
+            pos = den_of[off : off + count]
+            off += count
+            if nums.dtype == np.int64 and bool(np.all(nums == 1)):  # one term a tuple
+                slots.append((live, key_of, [inv[b] for b in pos.tolist()]))
+                continue
+            num_mat, num_keys, num_of = _distinct([nums])
+            num_vals = num_mat[:, 0].tolist() if num_mat is not None else [k[0] for k in num_keys]
+            pairs, pair_of = _unique_rows(np.stack([num_of, pos[key_of]], 1))
+            slots.append((live, pair_of, [num_vals[a] * inv[b] % p for a, b in pairs.tolist()]))
+        h_sums, h_of = [], np.zeros((n, self.nchunks), dtype=np.int64)
         for ci in range(self.nchunks):
-            chunk = slot_terms[ci * CHUNK : (ci + 1) * CHUNK]
-            h_cols.append([sum(t[i] for t in chunk) % p for i in range(n)])
-        phi = [0] * n
-        acc = 0
-        for i in range(n):
-            phi[i] = acc
-            acc = (acc + sum(h[i] for h in h_cols)) % p
-        if acc != 0:
+            chunk = slots[ci * CHUNK : (ci + 1) * CHUNK]
+            terms, pattern = [0], np.zeros((n, len(chunk)), dtype=np.int64)
+            for c, (live, term_of, slot_terms) in enumerate(chunk):
+                pattern[live, c] = len(terms) + term_of
+                terms += slot_terms
+            rows, h_of[:, ci] = _unique_rows(pattern)
+            h_sums.append(np.array([sum(terms[t] for t in row) % p for row in rows.tolist()],
+                                   dtype=object))
+        # a row's sum of the h columns: the columns of few distinct values by
+        # their patterns together, the others row by row
+        few = [ci for ci in range(self.nchunks) if 4 * len(h_sums[ci]) <= n]
+        rows, total_of = _unique_rows(h_of[:, few])
+        totals = np.array([sum(h_sums[ci][t] for ci, t in zip(few, row))
+                           for row in rows.tolist()], dtype=object)[total_of]
+        for ci in range(self.nchunks):
+            if ci not in few:
+                totals = totals + h_sums[ci][h_of[:, ci]]
+        acc = np.cumsum(totals) % p
+        if acc[-1] != 0:
             raise ValueError("logup relation does not hold: phi != 0 wrap")
-        return h_cols + [phi]
+        phi = np.concatenate([np.zeros(1, dtype=object), acc[:-1]])
+        return [h_sums[ci][h_of[:, ci]].tolist() for ci in range(self.nchunks)] + [phi.tolist()]
 
     def make_phase2(self, F, device=None):
         """-> callable(beta, joint) returning packed (8, H+1, n) on `device`

@@ -14,7 +14,8 @@ Columns are a flat ordered batch; constraint cells reference ("o1vm", i)
 with CURR/NEXT rows. The MIPS/RISC-V interpreters lower their named column
 layouts onto this order.
 
-On the device: one batched iNTT and one batched MSM commit the trace, the
+On the device: batched iNTTs and one batched MSM commit the trace (the
+transforms a batch of columns at a time, TRANSFORM_BATCH_BYTES), the
 constraint walk (circuits/expr.eval_dev) runs batched limb ops over d8, and
 the boundary rows' (x^n - 1)/(x - w^i) are computed there too, as the
 Kimchi prover computes its own. Constants.endo_coefficient here is endo_r
@@ -45,6 +46,36 @@ from ..runtime import check_device, resolve_device
 from ..verifier_index import sponge_for
 
 DEGREE_QUOTIENT_POLYNOMIAL = 7
+# Bytes of (8, C, m) int32 words that one transform of a column batch takes
+# in: its stages' temporaries (16-bit limbs in int64, both halves) are a
+# few times that, so a wide trace's d8 transform stays a few GiB at a time
+# whatever its number of columns. The transform of a column does not depend
+# on the other columns of its batch: the results are the same.
+TRANSFORM_BATCH_BYTES = 1 << 30
+
+
+def column_batches(ncols: int, length: int) -> list[tuple[int, int]]:
+    """[lo, hi) column ranges of at most TRANSFORM_BATCH_BYTES of words."""
+    per = max(1, TRANSFORM_BATCH_BYTES // (NLIMBS * 4 * length))
+    return [(lo, min(ncols, lo + per)) for lo in range(0, ncols, per)]
+
+
+def intt_columns(d1, evals: torch.Tensor) -> torch.Tensor:
+    """d1.intt of (8, C, n) evaluations, a column batch at a time."""
+    out = torch.empty_like(evals)
+    for lo, hi in column_batches(evals.shape[1], evals.shape[2]):
+        out[:, lo:hi] = d1.intt(evals[:, lo:hi])
+    return out
+
+
+def d8_columns(d8, coeffs: torch.Tensor) -> torch.Tensor:
+    """(8, C, n) coefficients -> (8, C, 8n) evaluations over d8, a column
+    batch at a time."""
+    n = coeffs.shape[2]
+    out = torch.empty((NLIMBS, coeffs.shape[1], d8.n), dtype=coeffs.dtype, device=coeffs.device)
+    for lo, hi in column_batches(coeffs.shape[1], d8.n):
+        out[:, lo:hi] = d8.ntt(torch.nn.functional.pad(coeffs[:, lo:hi], (0, d8.n - n)))
+    return out
 
 
 def col(i: int):
@@ -150,7 +181,7 @@ def prove_columns(
     n = d1.n
     _, endo_r = curve.endos
 
-    coeffs = d1.intt(columns_evals)  # (8, C, n)
+    coeffs = intt_columns(d1, columns_evals)  # (8, C, n)
     comms_nh = srs.commit_coeffs_dev(coeffs, 1)
     comms = [srs.mask(c, [1]) for c in comms_nh]
 
@@ -170,7 +201,7 @@ def prove_columns(
             else make_beta_columns(beta)
         )
         check_device(extra_evals, dev, "the beta columns")
-        extra_coeffs = d1.intt(extra_evals)
+        extra_coeffs = intt_columns(d1, extra_evals)
         extra_nh = srs.commit_coeffs_dev(extra_coeffs, 1)
         extra_comms = [srs.mask(c, [1]) for c in extra_nh]
         for c in extra_comms:
@@ -181,7 +212,7 @@ def prove_columns(
 
     alpha = fq_sponge.challenge().value  # RAW 128-bit (prover.rs:230)
 
-    evals8 = d8.ntt(torch.nn.functional.pad(coeffs, (0, 7 * n)))
+    evals8 = d8_columns(d8, coeffs)
     columns = {col(i): evals8[:, i] for i in range(ncols)}
     ctx = expr_mod.DeviceEvalContext(
         F=F,
@@ -262,7 +293,7 @@ def pinned_columns_match(domain, srs, proof: ColumnProof, pinned: dict, device) 
     F = limb.device_field(srs.curve.scalar)
     packed = F.pack_mont([v for i in idx for v in pinned[i]], shape=(len(idx), domain.d1.n),
                          device=device)
-    comms = srs.commit_coeffs_dev(domain.d1.intt(packed), 1)
+    comms = srs.commit_coeffs_dev(intt_columns(domain.d1, packed), 1)
     return all(proof.commitments[i].chunks == srs.mask(c, [1]).chunks for i, c in zip(idx, comms))
 
 

@@ -9,19 +9,19 @@ signature and the same results:
   K2 jacobian_add             (pallas_field.py:412)   csrc/curve_kernels.cu
   K3 jacobian_double          (pallas_field.py:439)   csrc/curve_kernels.cu
   K4 mont_pow                 (pallas_field.py:481)   csrc/field_kernels.cu, chain_field.cuh
-  K5 mont_prefix_scan         (pallas_field.py:1019)  csrc/field_kernels.cu, scan_field.cuh
-  K6 ec_prefix_scan_parts     (pallas_field.py:1333)  csrc/curve_kernels.cu
-  K7 ec_prefix_scan_fused     (pallas_field.py:1410)  csrc/curve_kernels.cu
-  K8 combine_windows          (pallas_field.py:560)   csrc/curve_kernels.cu, k8_combine.cuh
-  K9 linear_scan              (pallas_field.py:1069)  csrc/field_kernels.cu, scan_field.cuh
-  K10 sponge_squeeze2         (pallas_field.py:646)   csrc/field_kernels.cu, chain_field.cuh
-  K11 endo_inv                (pallas_field.py:742)   csrc/field_kernels.cu, inv_field.cuh
-  K12 mont_prefix_scan_parts  (pallas_field.py:956)   csrc/field_kernels.cu, scan_field.cuh
+  K5 mont_prefix_scan         (pallas_field.py:1019)  csrc/scan_kernels.cu, scan_field.cuh
+  K6 ec_prefix_scan_parts     (pallas_field.py:1333)  csrc/ec_scan_kernels.cu
+  K7 ec_prefix_scan_fused     (pallas_field.py:1410)  csrc/ec_scan_kernels.cu
+  K8 combine_windows          (pallas_field.py:560)   csrc/k8_kernels.cu, k8_combine.cuh
+  K9 linear_scan              (pallas_field.py:1069)  csrc/scan_kernels.cu, scan_field.cuh
+  K10 sponge_squeeze2         (pallas_field.py:646)   csrc/transcript_kernels.cu, chain_field.cuh
+  K11 endo_inv                (pallas_field.py:742)   csrc/transcript_kernels.cu, inv_field.cuh
+  K12 mont_prefix_scan_parts  (pallas_field.py:956)   csrc/scan_kernels.cu, scan_field.cuh
 
 and one kernel for a loop of them: the IPA fold step's endo ladder
-(`endo_ladder`, csrc/endo_ladder.cuh), the reference's `fori_loop` of K2
-and K3 (proof_systems_tpu/poly_commitment/ipa.py:566). `bits128`
-(pallas_field.py:733) is a torch op.
+(`endo_ladder`, csrc/ladder_kernels.cu, endo_ladder.cuh), the reference's
+`fori_loop` of K2 and K3 (proof_systems_tpu/poly_commitment/ipa.py:566).
+`bits128` (pallas_field.py:733) is a torch op.
 
 A wrapper takes its plain version only for a tensor on the CPU. For a CUDA
 tensor it launches the kernel on the current stream or raises; there is no
@@ -36,9 +36,11 @@ the kernels' formulas and association order, so the two agree limb for
 limb; K6 and K7 where a team of threads shares a lane chunk agree as group
 elements.
 
-The library is built with nvcc (one process per source, all started
-together) into the gitignored build directory at first use, keyed by a
-hash of the sources, and loaded with ctypes.
+The library is built with nvcc into the gitignored build directory at first
+use, keyed by a hash of the sources, and loaded with ctypes: each source of
+SOURCES is one translation unit, compiled to an object by its own nvcc
+process, all started together, and the objects are linked into one shared
+library.
 """
 
 from __future__ import annotations
@@ -61,10 +63,14 @@ LANES = 128  # threads per block of the row-scan kernels (csrc/field.cuh)
 M16 = 0xFFFF
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("field_kernels.cu", "curve_kernels.cu")
+# One translation unit a kernel family (the kernels of a unit share its
+# launchers and attribute readers; a unit launches only its own kernels).
+SOURCES = ("field_kernels.cu", "scan_kernels.cu", "transcript_kernels.cu",
+           "curve_kernels.cu", "ladder_kernels.cu", "ec_scan_kernels.cu", "k8_kernels.cu")
+LIBRARY_NAME = "pst_kernels.so"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
 # ---------------------------------------------------------------------------
@@ -91,12 +97,14 @@ def _source_tag() -> str:
 
 
 class KernelLibrary:
-    """The two shared libraries of `csrc/`, built once and loaded once."""
+    """The shared library of `csrc/`, built once and loaded once. `field` and
+    `curve` are the same library, bound for the field and curve launchers."""
 
     def __init__(self) -> None:
         self.field: ctypes.CDLL | None = None
         self.curve: ctypes.CDLL | None = None
         self.build_seconds = 0.0  # 0 when the build directory was current
+        self.unit_seconds: dict[str, float] = {}  # each unit's nvcc, when built
         self.ptxas_log = ""
 
     def load(self) -> "KernelLibrary":
@@ -107,32 +115,43 @@ class KernelLibrary:
             self.build_seconds = time.perf_counter() - t0 if logs else 0.0
             cached = out / "ptxas.log"  # the build's, when this process did not build
             self.ptxas_log = "\n".join(logs) or (cached.read_text() if cached.exists() else "")
-            self.field = _bind_field(ctypes.CDLL(str(out / "field_kernels.so")))
-            self.curve = _bind_curve(ctypes.CDLL(str(out / "curve_kernels.so")))
+            lib = ctypes.CDLL(str(out / LIBRARY_NAME))
+            self.field = _bind_field(lib)
+            self.curve = _bind_curve(lib)
         return self
 
-    @staticmethod
-    def _build(out: Path) -> list[str]:
-        todo = [s for s in SOURCES if not (out / (Path(s).stem + ".so")).exists()]
-        if not todo:
+    def _build(self, out: Path) -> list[str]:
+        if (out / LIBRARY_NAME).exists():
             return []
         out.mkdir(parents=True, exist_ok=True)
         nvcc = _nvcc()
+        tag = os.getpid()
         procs = []
-        for src in todo:
-            tmp = out / f"{Path(src).stem}.{os.getpid()}.tmp.so"
-            cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / src)]
-            procs.append((src, tmp, subprocess.Popen(
+        for src in SOURCES:
+            obj = out / f"{Path(src).stem}.{tag}.o"
+            cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(CSRC / src)]
+            procs.append((src, obj, time.perf_counter(), subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
             )))
         logs, failed = [], []
-        for src, tmp, proc in procs:
+        for src, obj, t0, proc in procs:
             text, _ = proc.communicate()
+            self.unit_seconds[src] = time.perf_counter() - t0
             logs.append(f"== {src}\n{text}")
             if proc.returncode != 0:
                 failed.append(src)
+        if not failed:
+            tmp = out / f"{LIBRARY_NAME}.{tag}.tmp"
+            link = subprocess.run(
+                [nvcc, "-shared", "-o", str(tmp), *(str(obj) for _, obj, _, _ in procs)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            logs.append(f"== link\n{link.stdout}")
+            if link.returncode != 0:
+                failed.append("link")
             else:
-                os.replace(tmp, out / (Path(src).stem + ".so"))
+                os.replace(tmp, out / LIBRARY_NAME)
+        for _, obj, _, _ in procs:
+            obj.unlink(missing_ok=True)
         (out / "ptxas.log").write_text("\n".join(logs))
         if failed:
             raise RuntimeError(f"nvcc failed for {failed}:\n" + "\n".join(logs))
@@ -893,18 +912,22 @@ def group_law_attrs() -> dict[str, tuple[int, ...]]:
 # ---------------------------------------------------------------------------
 
 
-def _ladder_args(x, y, z, bits) -> torch.device:
+def _ladder_args(x, y, z, bits, per_lane: bool = False) -> torch.device:
     dev = _check(x, y, z)
-    _endo_args(bits)
+    _endo_args(bits, per_lane)
     if x.dim() != 2:
         raise ValueError(f"the ladder takes (8, n) points, got {tuple(x.shape)}")
+    if bits.dim() == 2 and bits.shape[1] != x.shape[1]:
+        raise ValueError(f"{bits.shape[1]} lanes of bits for {x.shape[1]} points")
     if bits.device != dev:
         raise ValueError(f"device mismatch {bits.device} vs {dev}")
     return dev
 
 
 def endo_ladder_plain(F, endo_q: int, x, y, z, bits):
-    _ladder_args(x, y, z, bits)
+    """The ladder's loop of K2 and K3; `bits` (128,), or (128, n) for a
+    challenge of each point's own."""
+    _ladder_args(x, y, z, bits, per_lane=True)
     P = field16(F, x.device)
     endo = torch.tensor(limbs16(endo_q % F.p * F.r_mod_p % F.p), device=x.device)
     phix = from16(mul16(P, to16(x), P.col(endo, 1)))
@@ -1489,14 +1512,19 @@ def ec_prefix_scan_fused(F, x, y, z):
 # ---------------------------------------------------------------------------
 
 
-def combine_windows_plain(F, c: int, wx, wy, wz):
+def combine_windows_plain(F, c, wx, wy, wz):
+    """K8's Horner chain; `c` the window width, or one for each of the b
+    columns (a sequence: a column stops doubling after its own c)."""
     _check(wx, wy, wz)
     P = field16(F, wx.device)
     win = [to16(t) for t in (wx, wy, wz)]
     acc = tuple(torch.zeros_like(t[:, 0]) for t in win)  # the identity
+    cs = None if isinstance(c, int) else torch.tensor(list(c), device=wx.device)
     for w in range(wx.shape[1] - 1, -1, -1):
-        for _ in range(c):
-            acc = ec_double16(P, acc)
+        for k in range(c if cs is None else int(cs.max())):
+            twice = ec_double16(P, acc)
+            acc = twice if cs is None else tuple(
+                torch.where(k < cs, d, a) for d, a in zip(twice, acc))
         acc = ec_add16(P, acc, tuple(t[:, w] for t in win))
     return tuple(from16(t.contiguous()) for t in acc)
 
@@ -1660,8 +1688,12 @@ def bits128(chal: torch.Tensor) -> torch.Tensor:
     return ((words[j // 32] >> (j % 32)) & 1).to(torch.int32)
 
 
-def _endo_args(bits) -> torch.device:
-    if bits.dtype != torch.int32 or tuple(bits.shape) != (128,) or not bits.is_contiguous():
+def _endo_args(bits, per_lane: bool = False) -> torch.device:
+    """Challenge bits: (128,) int32, or (128, m) (m challenges) where
+    `per_lane` allows it (the plain versions)."""
+    shape_ok = tuple(bits.shape) == (128,) or (per_lane and bits.dim() == 2
+                                              and bits.shape[0] == 128)
+    if bits.dtype != torch.int32 or not shape_ok or not bits.is_contiguous():
         raise ValueError(f"challenge bits are a contiguous (128,) int32 tensor, got {bits.shape}")
     if bits.device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {bits.device}")
@@ -1669,7 +1701,8 @@ def _endo_args(bits) -> torch.device:
 
 
 def endo_inv_plain(F, endo: int, bits):
-    _endo_args(bits)
+    """(u, u^-1), (8, 1); or (8, m) for bits (128, m), m challenges."""
+    _endo_args(bits, per_lane=True)
     P = field16(F, bits.device)
     one = P.col(P.one16, 1)
     a = b = add16(P, one, one)

@@ -43,11 +43,36 @@ def int_to_words(x: int) -> list[int]:
     return [(x >> (LIMB_BITS * i)) & 0xFFFFFFFF for i in range(NLIMBS)]
 
 
-def ints_to_limbs(xs: Sequence[int], shape=None) -> np.ndarray:
-    """Ints in [0, 2^256) -> (8, len(xs)) int32 limbs (or (8, *shape))."""
-    xs = list(xs)
-    buf = b"".join(int(x).to_bytes(32, "little") for x in xs)
-    out = np.frombuffer(buf, dtype="<u4").reshape(len(xs), NLIMBS).T.copy().view(np.int32)
+# Elements converted together by ints_to_limbs: a chunk whose values all fit
+# in int64 (the small witness values of a trace) converts as one numpy
+# array; the other elements of a chunk go through their bytes.
+PACK_CHUNK = 1 << 16
+
+
+def ints_to_limbs(xs: Sequence[int], shape=None, p: int | None = None) -> np.ndarray:
+    """Ints in [0, 2^256) -> (8, len(xs)) int32 limbs (or (8, *shape)).
+    With `p`, any ints, reduced mod p first."""
+    xs = xs if isinstance(xs, list) else list(xs)
+    out = np.zeros((NLIMBS, len(xs)), dtype=np.uint32)
+    for lo in range(0, len(xs), PACK_CHUNK):
+        part = xs[lo : lo + PACK_CHUNK]
+        hi = lo + len(part)
+        try:
+            small = np.array(part, dtype=np.int64)
+            if small.size and small.min() < 0:
+                raise OverflowError
+        except (OverflowError, TypeError):
+            obj = np.array(part, dtype=object)
+            fits = (obj >= 0) & (obj < 1 << 63)
+            small = np.where(fits, obj, 0).astype(np.int64)
+            big = np.flatnonzero(~fits)
+            vals = [int(part[i]) % p if p is not None else int(part[i]) for i in big]
+            buf = b"".join(x.to_bytes(32, "little") for x in vals)
+            out[:, lo + big] = np.frombuffer(buf, dtype="<u4").reshape(len(big), NLIMBS).T
+        u = small.view(np.uint64)
+        out[0, lo:hi] |= (u & 0xFFFFFFFF).astype(np.uint32)
+        out[1, lo:hi] |= (u >> 32).astype(np.uint32)
+    out = out.view(np.int32)
     if shape is not None:
         out = out.reshape((NLIMBS, *shape))
     return out
@@ -108,7 +133,7 @@ class DeviceField:
         return self.const(self.r_mod_p, batch_shape, device=device)
 
     def pack(self, xs: Sequence[int], shape=None, *, device) -> torch.Tensor:
-        return torch.from_numpy(ints_to_limbs([x % self.p for x in xs], shape)).to(device)
+        return torch.from_numpy(ints_to_limbs(xs, shape, self.p)).to(device)
 
     def pack_mont(self, xs: Sequence[int], shape=None, *, device) -> torch.Tensor:
         """Python ints (standard form) -> Montgomery form on `device`; the

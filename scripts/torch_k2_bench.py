@@ -101,9 +101,12 @@ def graph_ms(fn, reps: int = REPS) -> float:
 
 
 def sass_sizes(kernels, names) -> dict[str, int]:
-    """SASS instructions (16 bytes each) of each named kernel of the curve
+    """SASS instructions (16 bytes each) of each named kernel of the kernel
     library, from cuobjdump beside nvcc; empty where it cannot be read."""
-    so = kernels.BUILD_DIR / "kernels" / kernels._source_tag() / "curve_kernels.so"
+    # one library since the sources became translation units; a parent checkout
+    # (--root) may still build its curve kernels apart
+    name = getattr(kernels, "LIBRARY_NAME", "curve_kernels.so")
+    so = kernels.BUILD_DIR / "kernels" / kernels._source_tag() / name
     tool = pathlib.Path(kernels._nvcc()).with_name("cuobjdump")
     out = subprocess.run([str(tool), "-sass", str(so)], capture_output=True, text=True)
     counts, current = {}, None

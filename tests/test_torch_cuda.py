@@ -1148,3 +1148,57 @@ def test_o1vm_path_msm_scan_matches_plain(dev, rows, n):
     part, excl, cp = kernels.ec_prefix_scan_parts(dc.F, *pts, mixed=True)
     assert cp == want_cp
     assert _same_points(dc, part, want_p) and _same_points(dc, excl, want_e)
+
+
+# The foreign-field MSM circuit and arrabbiata folding (chip_smoke.py's msm
+# and folding phases): the port's proofs of the JAX package's vectors on the
+# card, the decider's over Vesta / Fp and over Pallas / Fq.
+def test_msm_vector_proof_on_the_card(dev):
+    """tests/test_msm_circuit.py's statement proved on the card equals
+    tests/vectors/column_msm_2^8 byte for byte; it verifies, and a changed
+    result and changed scalars are rejected."""
+    from proof_systems_tpu_torch import msm_circuit
+    from proof_systems_tpu_torch.convert import column_proof_fields
+    from proof_systems_tpu_torch.serialization import serialize_column_proof
+    from proof_systems_tpu_torch.utils.rng import TestRng
+
+    raw, st = chip_smoke.column_vector("msm")
+    curve, layout = msm_circuit.ForeignCurve(*st["curve"]), msm_circuit.Layout(*st["layout"])
+    pts = [tuple(pt) for pt in st["points"]]
+    domain, srs = _vector_setup(st["n"], dev)
+    proof, result = msm_circuit.prove_msm(domain, srs, Vesta, curve, st["scalars"], pts,
+                                          TestRng(41), L=layout)
+    assert list(result) == st["result"]
+    assert serialize_column_proof(Vesta, column_proof_fields(proof)) == raw
+
+    def verify(scalars, res, seed):
+        return msm_circuit.verify_msm(domain, srs, Vesta, curve, scalars, pts, res, proof,
+                                      TestRng(seed), L=layout)
+
+    assert verify(st["scalars"], result, 42)
+    assert not verify(st["scalars"], ((result[0] + 1) % curve.f, result[1]), 43)
+    assert not verify([11, 7], result, 44)
+
+
+def test_ivc_decider_vector_proofs_on_the_card(dev):
+    """tests/test_ivc.py's heavy statement (n = 256, TestRng(9), two steps,
+    decide with TestRng(10)) on the card: both decider proofs equal
+    tests/vectors/column_ivc_vesta_2^8 and column_ivc_pallas_2^8 byte for
+    byte."""
+    from proof_systems_tpu_torch.circuits.domains import EvaluationDomains
+    from proof_systems_tpu_torch.convert import column_proof_fields
+    from proof_systems_tpu_torch.folding import ivc
+    from proof_systems_tpu_torch.poly_commitment.srs import SRS, derive_g, derive_h
+    from proof_systems_tpu_torch.serialization import serialize_column_proof
+    from proof_systems_tpu_torch.utils.rng import TestRng
+
+    n = 256
+    iv = ivc.IVC(*(SRS(c, [derive_g(c, i) for i in range(n)], derive_h(c), dev)
+                   for c in (Vesta, Pallas)), n=n, rng=TestRng(9))
+    iv.run(2, steps=2)
+    proofs = []
+    assert iv.decide({f: EvaluationDomains.create(f, n, device=dev) for f in (Fp, Fq)},
+                     TestRng(10), proofs)
+    for (proof, _), curve, name in zip(proofs, (Vesta, Pallas), ("ivc_vesta", "ivc_pallas")):
+        raw, _ = chip_smoke.column_vector(name)
+        assert serialize_column_proof(curve, column_proof_fields(proof)) == raw

@@ -57,7 +57,8 @@ def test_importing_every_module_loads_no_jax():
 HOST_MODULES = ["circuits.polynomials.optional_gates", "circuits.polynomials.optional_witness",
                 "circuits.polynomials.witness_gen", "circuits.checker", "circuits.snarky",
                 "circuits.gate_mix", "o1vm", "o1vm.pickles", "o1vm.logup", "o1vm.keccak",
-                "o1vm.riscv", "o1vm.mips", "o1vm.cannon", "o1vm.elf", "o1vm.cli"]
+                "o1vm.riscv", "o1vm.mips", "o1vm.cannon", "o1vm.elf", "o1vm.cli", "msm_circuit",
+                "folding", "folding.mvpoly", "folding.arrabbiata", "folding.ivc", "folding.cli"]
 
 
 @pytest.mark.parametrize("module", HOST_MODULES)
@@ -176,6 +177,30 @@ def _entry_points(tmp_path):
                                                          TestRng(0)),
         }[name]()
 
+    def msm_entry(name):
+        """msm_circuit's and folding's entry points on CPU domains and SRSs,
+        the device left to its default."""
+        from proof_systems_tpu_torch import msm_circuit
+        from proof_systems_tpu_torch.circuits import expr as E
+        from proof_systems_tpu_torch.circuits.domains import EvaluationDomains
+        from proof_systems_tpu_torch.folding import arrabbiata, cli
+
+        cpu = torch.device("cpu")
+        domain, srs = EvaluationDomains.create(Fp, 32, device=cpu), SRS(Vesta, g, h, cpu)
+        curve, L = msm_circuit.ForeignCurve((1 << 63) - 25, 5, 7), msm_circuit.Layout(8, 64)
+        env = arrabbiata.FoldingEnv(Fp, 1, [E.Cell(0, E.CURR) - E.Literal(1)])
+        inst = env.fresh([[1] * 32], alpha=3)
+        return {
+            "prove_msm": lambda: msm_circuit.prove_msm(domain, srs, Vesta, curve, [1], [(1, 2)],
+                                                       TestRng(0), L=L),
+            "verify_msm": lambda: msm_circuit.verify_msm(domain, srs, Vesta, curve, [1],
+                                                         [(1, 2)], (1, 2), None, TestRng(0),
+                                                         L=L),
+            "decider_prove": lambda: arrabbiata.decider_prove(env, inst, domain, srs, Vesta,
+                                                              TestRng(0)),
+            "arrabbiata execute": lambda: cli.execute("square", 1, 8, decide=False),
+        }[name]()
+
     def package_prove():
         import proof_systems_tpu_torch as port
         from proof_systems_tpu_torch.circuits.builders import bench_circuit, bench_witness
@@ -204,6 +229,8 @@ def _entry_points(tmp_path):
         **{name: (lambda name=name: o1vm_entry(name))
            for name in ("prove_keccak", "verify_keccak", "prove_execution", "verify_execution",
                         "prove_mips", "verify_mips")},
+        **{name: (lambda name=name: msm_entry(name))
+           for name in ("prove_msm", "verify_msm", "decider_prove", "arrabbiata execute")},
     }
 
 
@@ -213,7 +240,8 @@ def _entry_points(tmp_path):
                                   "ConstraintSystem.create[optional]", "VerifierIndex.from_file",
                                   "batch_verify", "prove_keccak", "verify_keccak",
                                   "prove_execution", "verify_execution", "prove_mips",
-                                  "verify_mips"])
+                                  "verify_mips", "prove_msm", "verify_msm", "decider_prove",
+                                  "arrabbiata execute"])
 def test_entry_points_default_to_cuda(name, tmp_path):
     """With no device given, an entry point asks for the card; without one
     it raises instead of running on the CPU. The verifier's entry points run
