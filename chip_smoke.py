@@ -149,7 +149,17 @@ Phases, each fatal on failure:
      chunked proofs beside the five single verifications (rejected when one
      has ft_eval1 + 1); and the bench, lookup, chunked and gate-mix
      verifier indexes through to_file into build/vk/ and from_file (equal
-     digests, each verifies its proof);
+     digests, each verifies its proof); then the multi-device layer on a
+     world of one: a default process group over NCCL on this card, in this
+     process, from a file:// store (parallel/auto.data_mesh), torn down
+     after the phase: DistNttPlan forward and inverse at log_n = 16 against
+     ntt_plan(Fp, 16), sharded_ntt_step's own check, msm() at b = 15 over
+     the 2^16 + 1 scaled basis (it takes the batch-sharded route) and the
+     point-sharded route called directly at b = 1 on the scaled basis and
+     on the unscaled 2^16 points, each against msm() with the mesh off,
+     and the k = 16 bench proof made under the mesh with the main path's
+     rng, byte-identical to the main path's proof and verified, its
+     prove_mesh1_ms (`--only mesh`);
   5. every commitment against the native host MSM over g ++ [h], the iNTT
      against the CPU plain path, one b = 1 MSM at c = 10; the evaluations
      against host Horner; every round's L and R, sg, a0 and b0 against the
@@ -182,10 +192,13 @@ import collections
 import concurrent.futures
 import gc
 import json
+import os
 import random
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -3585,6 +3598,10 @@ def new_paths(kernels, result, device, log_n: int, checked: set, verify_kernels)
          lambda: batch_path(result, device), ("batch_verify_ms", "single_verify_sum_ms")),
         ("vk files", "bench, lookup, chunked, gate mix", verify_kernels,
          lambda: vk_file_path(result, device), None),
+        ("mesh", f"a world of one over NCCL: the distributed NTT at 2^{log_n}, both MSM "
+         f"routes, the k = {log_n} proof", every, lambda: mesh_path(result, log_n, device),
+         ("dist_ntt_ms", "msm15_mesh_ms", "msm1_point_z_ms", "msm1_point_verifier_ms",
+          "prove_mesh1_ms")),
     ]
     for tag, what, expect, fn, keys in phases:
         log(f"== {tag} path, {what}, counted")
@@ -3605,12 +3622,124 @@ def new_paths(kernels, result, device, log_n: int, checked: set, verify_kernels)
                 log(f"{tag} path {k}: {times[k]:.4f}")
 
 
+MESH_SEED = SEED + 190
+
+
+def mesh_path(run, log_n: int, device) -> dict:
+    """The multi-device layer on a world of one: the default process group
+    over NCCL on this card, in this process, initialised from a file://
+    store and torn down after the phase. The distributed NTT at log_n
+    forward and inverse against ntt_plan, sharded_ntt_step's own check,
+    msm() at b = 15 over the scaled basis of g ++ [h] (the batch-sharded
+    route, since 15 % 1 == 0) and the point-sharded route called directly
+    (msm() never takes it on one rank) at b = 1 on the scaled basis and on
+    the unscaled g, each against msm() with the mesh off (PST_MESH=0); then
+    the bench proof under the mesh with the main path's rng, byte for byte
+    the main path's proof, verified."""
+    import torch.distributed as dist
+
+    from proof_systems_tpu_torch.curves import Vesta
+    from proof_systems_tpu_torch.fields import Fp
+    from proof_systems_tpu_torch.ops import limb, msm, ntt
+    from proof_systems_tpu_torch.ops.curve_ops import device_curve
+    from proof_systems_tpu_torch.parallel import auto
+    from proof_systems_tpu_torch.parallel.mesh import sharded_ntt_step
+    from proof_systems_tpu_torch.parallel.ntt import DistNttPlan
+    from proof_systems_tpu_torch.serialization import serialize_proof
+
+    times, F = run["times"], limb.device_field(Fp)
+    if "kproof" not in run:  # --only mesh: the single-device proof first
+        run.update(prove_path({**run, "F": F}, log_n, device))
+    srs, n = run["srs"], 1 << log_n
+    store = tempfile.mkdtemp(prefix="pst_mesh_")
+    routes = collections.Counter()
+    batch_route = msm._batch_sharded_msm
+
+    def counted_route(*args, **kw):
+        routes["batch"] += 1
+        return batch_route(*args, **kw)
+
+    def unmeshed(fn):
+        os.environ["PST_MESH"] = "0"
+        try:
+            return fn()
+        finally:
+            del os.environ["PST_MESH"]
+
+    backend = "nccl" if device.type == "cuda" else "gloo"  # gloo for a CPU rehearsal
+    dist.init_process_group(backend, init_method=f"file://{store}/store", rank=0, world_size=1)
+    msm._batch_sharded_msm = counted_route
+    try:
+        auto.reset_mesh()
+        mesh = auto.data_mesh()
+        if mesh is None or mesh.size != 1 or mesh.device.type != device.type:
+            raise AssertionError(f"expected a world of one on {device}, got {mesh}")
+
+        dp = DistNttPlan(Fp, log_n, mesh)
+        plan = ntt.ntt_plan(Fp, log_n, device=device)
+        x = limb.to_mont(F, random_std_limbs(Fp.p, (n,), MESH_SEED, device))
+        got = dp.to_natural(dp.ntt(dp.shard_input(x)))  # the first collective sets NCCL up
+        _, secs = wall(lambda: dp.to_natural(dp.ntt(dp.shard_input(x))), device)
+        times["dist_ntt_ms"] = secs * 1e3
+        if not torch.equal(got, plan.ntt(x)):
+            raise AssertionError(f"DistNttPlan's NTT at log_n = {log_n} differs from ntt_plan's")
+        back = dp.to_natural(dp.intt(dp.shard_input(got)))
+        if not torch.equal(back, x) or not torch.equal(plan.intt(got), x):
+            raise AssertionError(f"DistNttPlan's iNTT at log_n = {log_n} does not invert")
+        sharded_ntt_step(mesh, 1)
+        log(f"check: DistNttPlan at log_n = {log_n} equals ntt_plan forward and inverse "
+            f"({times['dist_ntt_ms']:.3f} ms forward); sharded_ntt_step holds")
+
+        c = msm.default_window_bits(n + 1)
+        basis = srs.scaled_basis(c)
+        scal = random_std_limbs(Fp.p, (COLUMNS, n + 1), MESH_SEED + 1, device)
+        got, times["msm15_mesh_ms"] = wall(
+            lambda: msm.msm(Vesta, scal, c=c, scaled=basis, device=device), device)
+        times["msm15_mesh_ms"] *= 1e3
+        if routes["batch"] != 1:
+            raise AssertionError(f"msm() at b = {COLUMNS} took the batch-sharded route "
+                                 f"{routes['batch']} times, expected once")
+        if got != unmeshed(lambda: msm.msm(Vesta, scal, c=c, scaled=basis, device=device)):
+            raise AssertionError("the batch-sharded MSM differs from msm() without the mesh")
+        curve = device_curve(Vesta)
+        for tag, rows, source, scaled, cw in (
+                ("z commit", scal[:, :1], basis, True, c),
+                ("verifier", scal[:, :1, :n], srs.g_dev, False, msm.default_window_bits(n))):
+            pts, secs = wall(lambda: curve.unpack_affine(msm._point_sharded_msm(
+                curve, rows.contiguous(), source, cw, scaled, mesh)), device)
+            kw = dict(scaled=source) if scaled else dict(points=source)
+            if pts != unmeshed(lambda: msm.msm(Vesta, rows, c=cw, device=device, **kw)):
+                raise AssertionError(f"the point-sharded MSM ({tag}) differs from msm()")
+            times[f"msm1_point_{tag.split()[0]}_ms"] = secs * 1e3
+        log(f"check: msm() at b = {COLUMNS} over 2^{log_n} + 1 scaled points took the "
+            "batch-sharded route and the point-sharded route at b = 1 (scaled and unscaled) "
+            "equal msm() without the mesh")
+
+        proof, secs = wall(lambda: prove(run), device)
+        times["prove_mesh1_ms"] = secs * 1e3
+        if serialize_proof(Vesta, proof) != serialize_proof(Vesta, run["kproof"]):
+            raise AssertionError("the proof under the mesh differs from the main path's bytes")
+        if not verify_proof(run, proof):
+            raise AssertionError("the proof under the mesh does not verify")
+        log(f"check: the k = {log_n} proof under a world of one equals the main path's "
+            f"{len(serialize_proof(Vesta, proof))} bytes and verifies")
+    finally:
+        msm._batch_sharded_msm = batch_route
+        dist.destroy_process_group()
+        auto.reset_mesh()
+        shutil.rmtree(store, ignore_errors=True)
+    if auto.data_mesh() is not None:
+        raise AssertionError("the mesh outlived its process group")
+    return {}
+
+
 def phase_alone(name: str, device, log_n: int, points: int = MSM_POINTS) -> None:
-    """One phase by itself (`--only column`, `keccak`, `riscv`, `mips`, `msm`
-    or `folding`): SRS.create(2^k) on the card, the phase counted, its
+    """One phase by itself (`--only column`, `keccak`, `riscv`, `mips`, `msm`,
+    `folding` or `mesh`): SRS.create(2^k) on the card, the phase counted, its
     kernel calls held against the plain versions, every number printed; no
     result line. For riscv and mips, 2^k is also the full-width case's
-    domain; msm runs `points` points at 2^16."""
+    domain; msm runs `points` points at 2^16; mesh proves the bench circuit
+    without the mesh first."""
     from proof_systems_tpu_torch.curves import Vesta
     from proof_systems_tpu_torch.native import native_curve
     from proof_systems_tpu_torch.ops import kernels
@@ -3624,7 +3753,9 @@ def phase_alone(name: str, device, log_n: int, points: int = MSM_POINTS) -> None
         "riscv": (lambda: riscv_path(result, device, log_n), COLUMN_KERNELS),
         "mips": (lambda: mips_path(result, device, log_n), COLUMN_KERNELS),
         "msm": (lambda: msm_path(result, device, points), COLUMN_KERNELS),
-        "folding": (lambda: folding_path(result, device), FOLD_KERNELS)}[name]
+        "folding": (lambda: folding_path(result, device), FOLD_KERNELS),
+        "mesh": (lambda: mesh_path(result, log_n, device),
+                 [k for k in kernels.WRAPPERS if k not in NOT_ON_A_PROOF])}[name]
     log(f"== {name} path alone, k = {log_n}, counted")
     _, _, calls = counted(kernels, name, fn, device, expect)
     for k in sorted(result["times"]):
@@ -3767,7 +3898,8 @@ def main() -> int:
                     help=f"log2 of the SRS depth and domain (default {LOG_N}; from 14 on "
                          "every kernel is on the path); with --only riscv or mips, of the "
                          f"full-width RV32IM or MIPS domain (default {RV_LOG_N}, {MIPS_LOG_N})")
-    ap.add_argument("--only", choices=["column", "keccak", "riscv", "mips", "msm", "folding"],
+    ap.add_argument("--only", choices=["column", "keccak", "riscv", "mips", "msm", "folding",
+                                       "mesh"],
                     help="run one phase by itself and print its numbers (no result line)")
     ap.add_argument("--points", type=int, default=MSM_POINTS,
                     help=f"with --only msm, the MSM's points (default {MSM_POINTS})")

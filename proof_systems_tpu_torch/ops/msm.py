@@ -27,6 +27,13 @@ bases shared by the batch (8, n) or one set per MSM (8, b, n), or a table
 with pre-composed row indices (table (8, R), row_idx (W, b, n)). The sort,
 gathers and searchsorted are torch ops, as they were XLA ops in the JAX
 package.
+
+Under a data mesh (parallel/auto.py) `msm` shards each pass over the ranks
+as the JAX package's msm() does (ops/msm.py:622-640): by batch rows when
+the pass's rows split evenly (`_batch_sharded_msm`, an all_gather of the
+affine results), else by points (`_point_sharded_msm`: identity-padded to
+a multiple of the world size, an all_gather of the (W, b) window partials,
+folded with K2 adds).
 """
 
 from __future__ import annotations
@@ -34,6 +41,7 @@ from __future__ import annotations
 import torch
 
 from ..curves import CurveParams
+from ..parallel.auto import Mesh, all_gather, mesh_for
 from ..runtime import check_device, resolve_device
 from . import kernels, limb
 from .curve_ops import APoint, DeviceCurve, JPoint, device_curve, map_points, stack_points
@@ -199,6 +207,85 @@ def msm_affine(curve: DeviceCurve, scalars: torch.Tensor, points, c: int) -> APo
     return curve.to_affine(combine_windows(curve, c, window_sums(curve, scalars, points, c)))
 
 
+def _affine_from_gathered(g: torch.Tensor) -> APoint:
+    """(ranks, 17, b_local) gathered packs -> APoint of ranks * b_local."""
+    g = g.permute(1, 0, 2).reshape(2 * limb.NLIMBS + 1, -1)
+    return APoint(g[: limb.NLIMBS].contiguous(), g[limb.NLIMBS : 2 * limb.NLIMBS].contiguous(),
+                  g[2 * limb.NLIMBS].bool())
+
+
+def _batch_sharded_msm(curve: DeviceCurve, scalars: torch.Tensor, source, c: int,
+                       use_scaled: bool, mesh: Mesh) -> APoint:
+    """Batch-sharded MSMs (the JAX package's _sharded_msm_fn): each rank runs
+    the whole Pippenger pipeline on its b / size rows over the replicated
+    bases, then one all_gather of the affine results (x, y and the
+    infinity flag as int32)."""
+    rows = scalars.shape[1] // mesh.size
+    part = scalars[:, mesh.rank * rows : (mesh.rank + 1) * rows].contiguous()
+    aff = (msm_affine_scaled if use_scaled else msm_affine)(curve, part, source, c)
+    packed = torch.cat([aff.x, aff.y, aff.inf.to(torch.int32)[None]], dim=0)
+    return _affine_from_gathered(all_gather(packed, mesh))
+
+
+def _pad_points_for_shard(scalars: torch.Tensor, source, use_scaled: bool, npad: int):
+    """Pad the point axis to npad with identity points and zero scalars:
+    z = 0 in a scaled basis, the infinity flag in affine bases."""
+    extra = npad - scalars.shape[2]
+    scalars = torch.nn.functional.pad(scalars, (0, extra))
+    if use_scaled:
+        return scalars, JPoint(*(torch.nn.functional.pad(t, (0, extra)) for t in source))
+    return scalars, APoint(torch.nn.functional.pad(source.x, (0, extra)),
+                           torch.nn.functional.pad(source.y, (0, extra)),
+                           torch.nn.functional.pad(source.inf, (0, extra), value=True))
+
+
+def _point_sharded_msm(curve: DeviceCurve, scalars: torch.Tensor, source, c: int,
+                       use_scaled: bool, mesh: Mesh) -> APoint:
+    """Point-sharded MSMs (the JAX package's _point_sharded_msm_fn), for
+    batches that do not split over the ranks: each rank computes the window
+    sums of its n / size points (n a multiple of the world size, see
+    _pad_points_for_shard), one all_gather collects the (W, b) Jacobian
+    partials, size - 1 K2 adds fold them, then the windows combine (the
+    pairwise tree for a scaled basis, K8 otherwise) and one affine
+    normalisation."""
+    n = scalars.shape[2]
+    if n % mesh.size:
+        raise ValueError(f"{n} points do not split over {mesh.size} ranks; pad them")
+    span = slice(mesh.rank * (n // mesh.size), (mesh.rank + 1) * (n // mesh.size))
+    part = scalars[..., span].contiguous()
+    if use_scaled:
+        local = JPoint(*(t[..., span].contiguous() for t in source))
+    else:
+        local = APoint(source.x[:, span].contiguous(), source.y[:, span].contiguous(),
+                       source.inf[span].contiguous())
+    wins = window_sums(curve, part, local, c)  # (8, W, b)
+    gathered = all_gather(torch.stack(list(wins)), mesh)  # (size, 3, 8, W, b)
+    total = JPoint(*gathered[0])
+    for i in range(1, mesh.size):
+        total = curve.add(total, JPoint(*gathered[i]))
+    comb = sum_windows(curve, total) if use_scaled else combine_windows(curve, c, total)
+    return curve.to_affine(comb)
+
+
+def msm_affine_routed(curve: DeviceCurve, scalars: torch.Tensor, source, c: int,
+                      use_scaled: bool) -> APoint:
+    """One pass of b MSMs over a scaled basis (use_scaled) or affine bases
+    (8, n), on the data mesh's route when a mesh is up (the choice of the
+    JAX package's msm(), ops/msm.py:622-640): batch-sharded when the rows
+    split over the ranks, else point-sharded with identity padding. The
+    affine results, batch shape (b,), are the same on every rank."""
+    mesh = mesh_for(scalars)
+    if mesh is None:
+        return (msm_affine_scaled if use_scaled else msm_affine)(curve, scalars, source, c)
+    if scalars.shape[1] % mesh.size == 0:
+        return _batch_sharded_msm(curve, scalars, source, c, use_scaled, mesh)
+    n = scalars.shape[2]
+    npad = -(-n // mesh.size) * mesh.size
+    if npad != n:
+        scalars, source = _pad_points_for_shard(scalars, source, use_scaled, npad)
+    return _point_sharded_msm(curve, scalars, source, c, use_scaled, mesh)
+
+
 def default_window_bits(n: int) -> int:
     """Window size c of the JAX package's cost model (ops/msm.py:534): per
     window, the main scan's chunk steps and Hillis-Steele levels, the
@@ -231,7 +318,8 @@ def msm(
     bases (8, n), shared by the batch; scaled: their pre-scaled windows at
     window size c. With `scaled` the MSM takes the scaled path; with only
     `points` the unscaled path (window sums, then K8), as the JAX package
-    does for bases that change per call."""
+    does for bases that change per call. Under a data mesh each pass takes
+    the mesh's route (msm_affine_routed)."""
     check_device(scalars_std, resolve_device(device), "scalars")
     curve = device_curve(curve_params)
     b, n = scalars_std.shape[1], scalars_std.shape[2]
@@ -242,14 +330,11 @@ def msm(
         if tuple(scaled.x.shape[1:]) != (windows, n):
             raise ValueError(f"scaled basis {tuple(scaled.x.shape)} does not match c={c}, n={n}")
 
-        def run(part):
-            return msm_affine_scaled(curve, part, scaled, c)
+        source = scaled
     elif points is not None:
         if tuple(points.x.shape) != (limb.NLIMBS, n):
             raise ValueError(f"points {tuple(points.x.shape)} do not match n={n}")
-
-        def run(part):
-            return msm_affine(curve, part, points, c)
+        source = points
     else:
         raise ValueError("msm needs the points or their scaled basis")
     # a row of a pass holds W·n gathered points and, in the bucket
@@ -259,5 +344,7 @@ def msm(
         split = -(-split // 2)
     out = []
     for lo in range(0, b, split):
-        out.extend(curve.unpack_affine(run(scalars_std[:, lo : lo + split])))
+        part = scalars_std[:, lo : lo + split]
+        out.extend(curve.unpack_affine(
+            msm_affine_routed(curve, part, source, c, use_scaled=scaled is not None)))
     return out

@@ -288,7 +288,9 @@ def _ipa_tail_rounds(F, Fq, dc: DeviceCurve, rounds: int, c: int, endo_r: int, n
         b = limb.add(F, b, limb.mont_mul(F, b_hi_t, u))
         mask = limb.select(bit_k, limb.mont_mul(F, mask, u), mask)
 
-    sg = msm.msm_affine(dc, limb.from_mont(F, mask)[:, None, :], g, c)
+    # under a data mesh the sg commitment takes msm()'s route, as the JAX
+    # package's does (ipa.py:329)
+    sg = msm.msm_affine_routed(dc, limb.from_mont(F, mask)[:, None, :], g, c, use_scaled=False)
     return packs, _pack_affine(sg)[0], a[:, :1], b[:, :1]
 
 

@@ -18,9 +18,10 @@ limb ops on the index's device:
 Not ported, by design: the reference's single jax.jit of the quotient and
 its traced-argument dict K0 (prover.py:76-99, 257-265), which worked around
 the TPU's dispatch latency and a request-size limit of its compile service;
-here the walk runs op by op, the lookup columns with the rest. The
-data-mesh sharding of the d8 arrays (prover.py:101-133) belongs to the
-multi-device port.
+here the walk runs op by op, the lookup columns with the rest. Under a
+data mesh (parallel/auto.py) the walk and the permutation term are
+row-sharded, the counterpart of the JAX package's sharding of the d8
+arrays (prover.py:101-133): see _quotient_fn.
 
 Chunked circuits (domain larger than the SRS) carry num_chunks chunks per
 commitment; evaluations are chunk lists recombined with powers of
@@ -40,6 +41,7 @@ from .circuits import lookup as lookup_mod
 from .circuits.gate import COLUMNS, PERMUTS
 from .ops import limb, poly
 from .ops.limb import NLIMBS
+from .parallel.auto import all_gather, mesh_for
 from .poly_commitment.commitment import PolyComm, b_poly_coefficients
 from .poly_commitment.ipa import open_proof
 from .poseidon import FrSponge, ScalarChallenge, fp_kimchi, fq_kimchi
@@ -70,7 +72,16 @@ def _quotient_fn(index: ProverIndex):
     chal {name: (8, 1)}, lookup_in) -> (quotient (8, 7n), remainder (8, n),
     jt_coeff, r1, r2); with lookups, lookup_in holds the sorted, aggregation
     and runtime-table coefficients, and jt_coeff is the combined table's
-    coefficients (else None)."""
+    coefficients (else None).
+
+    Under a data mesh of W ranks with 8n % W == 0 (the JAX package's
+    condition), each rank evaluates the constraint walk and the permutation
+    term on its 8n / W positions plus a halo of 8: the Next row is a roll
+    by -8 positions (DeviceEvalContext.shifted), so the halo makes the
+    rank's own positions exact, and the last rank's halo wraps to positions
+    0-7. Every d8 column that enters the walk is sliced, so one left whole
+    fails on its shape; t8 is all-gathered before the iNTT. The d8
+    transforms, the division and the boundary terms stay replicated."""
     if getattr(index, "_qfn", None) is not None:
         return index._qfn
     cs = index.cs
@@ -89,16 +100,35 @@ def _quotient_fn(index: ProverIndex):
     def to_d8(coeffs):
         return d8.ntt_t(torch.nn.functional.pad(coeffs, (0, 7 * n)), d8.fwd_twiddles)
 
+    def row_window(mesh):
+        """The rank's positions of a d8 column and the 8 after them."""
+        if mesh is None or (8 * n) % mesh.size:
+            return None, lambda x: x
+        span = 8 * n // mesh.size
+        lo, hi = mesh.rank * span, (mesh.rank + 1) * span + 8
+
+        def rows(x):
+            if x.shape[-1] != 8 * n:
+                raise ValueError(f"a d8 column of {x.shape[-1]} positions, expected {8 * n}")
+            if hi <= 8 * n:
+                return x[..., lo:hi].contiguous()
+            return torch.cat([x[..., lo:], x[..., : hi - 8 * n]], dim=-1)
+
+        return span, rows
+
     def qfn(w_coeffs, z_coeffs, public_low, chal, lookup_in=None):
-        w8 = to_d8(w_coeffs)
-        z8 = to_d8(z_coeffs)
+        mesh = mesh_for(w_coeffs)
+        span, rows = row_window(mesh)
+        w8 = rows(to_d8(w_coeffs))
+        z8 = rows(to_d8(z_coeffs))
+        x_d8 = rows(cd.x_d8)
         columns = {expr_mod.col_witness(i): w8[:, i] for i in range(COLUMNS)}
         columns.update(
-            {expr_mod.col_coeff(i): cd.coefficients8[:, i] for i in range(COLUMNS)}
+            {expr_mod.col_coeff(i): rows(cd.coefficients8[:, i]) for i in range(COLUMNS)}
         )
         columns[expr_mod.COL_Z] = z8
         for g, sel8 in cd.selector8.items():  # the always-on and the optional present
-            columns[expr_mod.col_index(g)] = sel8
+            columns[expr_mod.col_index(g)] = rows(sel8)
 
         jt_coeff = None
         if lcs is not None:
@@ -110,29 +140,29 @@ def _quotient_fn(index: ProverIndex):
             jpow = one
             for i in range(ld["table_coeff"].shape[1]):
                 term_c = limb.mont_mul(F, ld["table_coeff"][:, i], jpow)
-                term_8 = limb.mont_mul(F, ld["table8"][:, i], jpow)
+                term_8 = limb.mont_mul(F, rows(ld["table8"][:, i]), jpow)
                 jt_coeff = term_c if jt_coeff is None else limb.add(F, jt_coeff, term_c)
                 jt8 = term_8 if jt8 is None else limb.add(F, jt8, term_8)
                 jpow = limb.mont_mul(F, jpow, chal["joint_combiner"])
             if ld["ids_coeff"] is not None:
                 jt_coeff = limb.add(
                     F, jt_coeff, limb.mont_mul(F, ld["ids_coeff"], chal["tid_comb"]))
-                jt8 = limb.add(F, jt8, limb.mont_mul(F, ld["ids8"], chal["tid_comb"]))
+                jt8 = limb.add(F, jt8, limb.mont_mul(F, rows(ld["ids8"]), chal["tid_comb"]))
             if lookup_in.get("runtime_coeffs") is not None:
-                rt8 = to_d8(lookup_in["runtime_coeffs"])
+                rt8 = rows(to_d8(lookup_in["runtime_coeffs"]))
                 jt_coeff = limb.add(
                     F, jt_coeff,
                     limb.mont_mul(F, lookup_in["runtime_coeffs"], chal["joint_combiner"]))
                 jt8 = limb.add(F, jt8, limb.mont_mul(F, rt8, chal["joint_combiner"]))
                 columns[lookup_mod.COL_LOOKUP_RUNTIME_TABLE] = rt8
-                columns[lookup_mod.COL_LOOKUP_RUNTIME_SELECTOR] = ld["runtime_sel8"]
-            sorted8 = to_d8(lookup_in["sorted_coeffs"])
+                columns[lookup_mod.COL_LOOKUP_RUNTIME_SELECTOR] = rows(ld["runtime_sel8"])
+            sorted8 = rows(to_d8(lookup_in["sorted_coeffs"]))
             for i in range(sorted8.shape[1]):
                 columns[lookup_mod.col_lookup_sorted(i)] = sorted8[:, i]
-            columns[lookup_mod.COL_LOOKUP_AGGREG] = to_d8(lookup_in["aggreg_coeffs"])
+            columns[lookup_mod.COL_LOOKUP_AGGREG] = rows(to_d8(lookup_in["aggreg_coeffs"]))
             columns[lookup_mod.COL_LOOKUP_TABLE] = jt8
             for pat in lcs.info.patterns:
-                columns[lookup_mod.col_lookup_kind(pat)] = ld["sel8"][pat]
+                columns[lookup_mod.col_lookup_kind(pat)] = rows(ld["sel8"][pat])
 
         ctx = expr_mod.DeviceEvalContext(
             F=F,
@@ -143,14 +173,14 @@ def _quotient_fn(index: ProverIndex):
             domain_n=n,
             zk_rows=zk,
             omega=d1.group_gen,
-            vanishes_on_zk_and_previous=cd.vanishes_zk_prev8,
+            vanishes_on_zk_and_previous=rows(cd.vanishes_zk_prev8),
         )
         if lcs is not None:
 
             def unnorm_lagrange(row_idx: int):
                 # (x^n - 1) / (x - w^row) over d8
-                num = limb.sub(F, limb.mont_pow(F, cd.x_d8, n), one)
-                den = limb.sub(F, cd.x_d8, F.const_mont(cs.sid[row_idx], (1,), device=dev))
+                num = limb.sub(F, limb.mont_pow(F, x_d8, n), one)
+                den = limb.sub(F, x_d8, F.const_mont(cs.sid[row_idx], (1,), device=dev))
                 return limb.mont_mul(F, num, limb.batch_inverse(F, den))
 
             ctx.unnormalized_lagrange = {
@@ -169,7 +199,7 @@ def _quotient_fn(index: ProverIndex):
             term = limb.add(
                 F,
                 limb.add(F, w8[:, i], chal["gamma"]),
-                limb.mont_mul(F, cd.x_d8, bshift),
+                limb.mont_mul(F, x_d8, bshift),
             )
             shifts_side = limb.mont_mul(F, shifts_side, term)
         sigmas_side = torch.roll(z8, -8, dims=-1)
@@ -177,17 +207,19 @@ def _quotient_fn(index: ProverIndex):
             term = limb.add(
                 F,
                 limb.add(F, w8[:, i], chal["gamma"]),
-                limb.mont_mul(F, cd.sigma8[:, i], chal["beta"]),
+                limb.mont_mul(F, rows(cd.sigma8[:, i]), chal["beta"]),
             )
             sigmas_side = limb.mont_mul(F, sigmas_side, term)
         perm8 = limb.mont_mul(
             F,
             limb.mont_mul(F, limb.sub(F, shifts_side, sigmas_side), a0),
-            cd.zkpl8,
+            rows(cd.zkpl8),
         )
 
         t8 = limb.add(F, gate_evals8, perm8)
-        del gate_evals8, perm8, shifts_side, sigmas_side, w8, z8, columns
+        del gate_evals8, perm8, shifts_side, sigmas_side, w8, z8, x_d8, columns
+        if span is not None:  # every rank's own positions, in rank order
+            t8 = all_gather(t8[:, :span], mesh).permute(1, 0, 2).reshape(NLIMBS, 8 * n)
         f_coeffs = d8.intt_t(t8, d8.inv_twiddles)
         f_coeffs[:, :n] = limb.add(F, f_coeffs[:, :n], public_low)
         quotient, rem = poly.divide_by_vanishing(F, f_coeffs, n)

@@ -1202,3 +1202,29 @@ def test_ivc_decider_vector_proofs_on_the_card(dev):
     for (proof, _), curve, name in zip(proofs, (Vesta, Pallas), ("ivc_vesta", "ivc_pallas")):
         raw, _ = chip_smoke.column_vector(name)
         assert serialize_column_proof(curve, column_proof_fields(proof)) == raw
+
+
+def test_nccl_world_of_one(dev):
+    """tests/torch_mesh_ranks.py's statements on a world of one over NCCL
+    (one spawned rank on cuda:0): the distributed NTT inverts, every MSM
+    equals the host MSM through the batch-sharded route, and the fixed 2^5
+    proof under the mesh, with its row-sharded quotient, is byte for byte
+    tests/vectors/proof_2^5.bin and verifies."""
+    import pathlib
+
+    import torch_mesh_ranks as R
+    from proof_systems_tpu_torch.parallel.spawn import Ranks
+
+    # the earlier tests' plain versions leave tens of GiB cached in this
+    # process's allocator; hand them back before the rank allocates
+    torch.cuda.empty_cache()
+    (out,) = Ranks(R.mesh_checks, 1).results(timeout=600)
+    assert (out["rank"], out["size"]) == (0, 1)
+    rng = random.Random(8)
+    assert out["ntt_back"] == [rng.randrange(Fp.p) for _ in range(1 << R.NTT_LOG_N)]
+    for name, n, b, c, scaled, pts, rows in R.msm_cases():
+        assert out["msm"][name] == [Vesta.msm(row, pts) for row in rows], name
+    assert out["msm_routes"] == {"_batch_sharded_msm": 3}
+    fixture = pathlib.Path(__file__).parent / "vectors" / "proof_2^5.bin"
+    assert out["proof"] == fixture.read_bytes() and out["verifies"]
+    assert out["quotient_gathers"] == 1

@@ -11,7 +11,8 @@ import torch
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "proof_systems_tpu_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py", ROOT / "bench_torch.py"]
+    ROOT / "chip_smoke.py", ROOT / "bench_torch.py",
+    ROOT / "scripts" / "export_test_vectors_torch.py"]
 
 
 def _forbidden(module: str) -> bool:
@@ -58,10 +59,15 @@ HOST_MODULES = ["circuits.polynomials.optional_gates", "circuits.polynomials.opt
                 "circuits.polynomials.witness_gen", "circuits.checker", "circuits.snarky",
                 "circuits.gate_mix", "o1vm", "o1vm.pickles", "o1vm.logup", "o1vm.keccak",
                 "o1vm.riscv", "o1vm.mips", "o1vm.cannon", "o1vm.elf", "o1vm.cli", "msm_circuit",
-                "folding", "folding.mvpoly", "folding.arrabbiata", "folding.ivc", "folding.cli"]
+                "folding", "folding.mvpoly", "folding.arrabbiata", "folding.ivc", "folding.cli",
+                "mina", "mina.base58", "mina.hasher", "mina.signer", "mina.tx_type", "pairing",
+                "pairing.bn254", "poly_commitment.kzg", "utils.visu"]
+# The multi-device layer on torch.distributed.
+MESH_MODULES = ["parallel", "parallel.auto", "parallel.ntt", "parallel.mesh", "parallel.spawn",
+                "parallel.dryrun"]
 
 
-@pytest.mark.parametrize("module", HOST_MODULES)
+@pytest.mark.parametrize("module", HOST_MODULES + MESH_MODULES)
 def test_host_module_loads_no_jax(module):
     code = (
         "import importlib, sys\n"
@@ -201,6 +207,11 @@ def _entry_points(tmp_path):
             "arrabbiata execute": lambda: cli.execute("square", 1, 8, decide=False),
         }[name]()
 
+    def dryrun():
+        from proof_systems_tpu_torch.parallel.dryrun import dryrun_multichip
+
+        return dryrun_multichip(2)
+
     def package_prove():
         import proof_systems_tpu_torch as port
         from proof_systems_tpu_torch.circuits.builders import bench_circuit, bench_witness
@@ -226,6 +237,7 @@ def _entry_points(tmp_path):
             Fp, gate_mix.optional_circuit(gate_mix.OPTIONAL_SEED)[0]),
         "VerifierIndex.from_file": from_file,
         "batch_verify": batch_verify,
+        "dryrun_multichip": dryrun,
         **{name: (lambda name=name: o1vm_entry(name))
            for name in ("prove_keccak", "verify_keccak", "prove_execution", "verify_execution",
                         "prove_mips", "verify_mips")},
@@ -241,7 +253,7 @@ def _entry_points(tmp_path):
                                   "batch_verify", "prove_keccak", "verify_keccak",
                                   "prove_execution", "verify_execution", "prove_mips",
                                   "verify_mips", "prove_msm", "verify_msm", "decider_prove",
-                                  "arrabbiata execute"])
+                                  "arrabbiata execute", "dryrun_multichip"])
 def test_entry_points_default_to_cuda(name, tmp_path):
     """With no device given, an entry point asks for the card; without one
     it raises instead of running on the CPU. The verifier's entry points run
